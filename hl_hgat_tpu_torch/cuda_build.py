@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface; it is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` at first use and
-loaded with ``ctypes``.  The hash covers the source and the flags, so an
-edited source is rebuilt.  Several sources build in parallel, one ``nvcc``
-each.  Nothing happens at import.
+loaded with ``ctypes``.  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt.  Several
+sources build in parallel, one ``nvcc`` each.  Nothing happens at import.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ NVCC_FLAGS = (
     "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("laguerre_dense",)
+SOURCES = ("laguerre_dense", "laguerre_dense_bwd")
 
 
 def _nvcc() -> str:
@@ -38,6 +38,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -73,6 +75,9 @@ def build(names=SOURCES) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, built first if needed."""
-    build([name])
+    """The library of ``csrc/<name>.cu``; every missing library of the
+    package is built first, all at once."""
+    if name not in SOURCES:
+        raise KeyError(f"unknown CUDA source {name!r}")
+    build()
     return ctypes.CDLL(str(library_path(name)))

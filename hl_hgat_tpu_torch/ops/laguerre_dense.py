@@ -1,6 +1,6 @@
 """Dense-block Laguerre filter: hand-written Hopper kernels + plain versions.
 
-Port of ``hl_hgat_tpu/ops/pallas_hodge.py`` (forward kernels only):
+Port of ``hl_hgat_tpu/ops/pallas_hodge.py``, forward and backward:
 
 * ``laguerre_dense_fused`` replaces ``_fwd_kernel`` (pallas_hodge.py:93-120,
   reached through ``_fused_fwd_impl`` :191-215): the whole recurrence
@@ -12,12 +12,26 @@ Port of ``hl_hgat_tpu/ops/pallas_hodge.py`` (forward kernels only):
   ``_terms_fwd_impl`` :310-333): all K terms in one pass with L resident;
   at that layer bound by operations in f32 (0.049 ms) and by the bytes
   of the K terms it writes in bf16 (0.011 ms).
+* ``laguerre_dense_fused_bwd`` replaces ``_bwd_kernel`` (:123-174, via
+  ``_fused_bwd`` :222-264): from ``(l, x, w)`` and the cotangent ``g`` it
+  recomputes the terms, gives ``dW_k = Σ_g T_kᵀ g`` and ``db = Σ g`` in
+  float32 and ``dx`` by the adjoint recurrence over ``b̄_k = g W_kᵀ``.
+  Twice the forward's operations: 0.33 ms (f32) at the widest layer.
+* ``laguerre_terms_dense_bwd`` replaces ``_terms_bwd_kernel`` (:293-307,
+  via ``_terms_vjp_bwd`` :348-375): ``dx`` by the adjoint recurrence over
+  the K term cotangents; the forward's operations and bytes.
 
-Both kernels are CUDA C++ in ``csrc/laguerre_dense.cu`` (its header has
-the design).  A wrapper launches its kernel for a CUDA tensor and raises on
-anything the kernel does not take; it runs the plain PyTorch version, in
-this module, only for a tensor on the CPU.  ``LAUNCHES`` counts kernel
-launches per wrapper.
+L is symmetric and is data: neither backward gives a gradient for it.
+
+The forward kernels are CUDA C++ in ``csrc/laguerre_dense.cu``, the
+backward kernels in ``csrc/laguerre_dense_bwd.cu`` (the headers have the
+designs).  The public functions are ``torch.autograd.Function``s: forward
+and backward each launch their kernel for CUDA tensors and raise on
+anything the kernel does not take; they run the plain PyTorch versions,
+in this module, only for tensors on the CPU.  The plain backward versions
+are the hand-derived adjoints written step by step, not autograd through
+the plain forward.  ``LAUNCHES`` counts kernel launches per wrapper (a
+backward that needs several CUDA kernels counts once).
 """
 
 from __future__ import annotations
@@ -26,11 +40,18 @@ import ctypes
 
 import torch
 
-LAUNCHES = {"laguerre_dense_fused": 0, "laguerre_terms_dense": 0}
+LAUNCHES = {
+    "laguerre_dense_fused": 0,
+    "laguerre_terms_dense": 0,
+    "laguerre_dense_fused_bwd": 0,
+    "laguerre_terms_dense_bwd": 0,
+}
 MAX_BLOCK = 128  # L tile held in shared memory: S <= 128
 _SMEM_LIMIT = 232448  # bytes a block may opt into on sm_90
 
-_lib: ctypes.CDLL | None = None
+MAX_BWD_K = 8  # the dW kernel keeps one register accumulator set per term
+
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
@@ -38,23 +59,34 @@ def reset_launch_counts() -> None:
         LAUNCHES[key] = 0
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
+def _library(name: str = "laguerre_dense") -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` with its C signatures set."""
+    if name not in _libs:
         from hl_hgat_tpu_torch import cuda_build
 
-        lib = cuda_build.load("laguerre_dense")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hlhgat_laguerre_fused_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.hlhgat_laguerre_fused_fwd.restype = i
-        lib.hlhgat_laguerre_terms_fwd.argtypes = [p, p, p, i, i, i, i, i, p]
-        lib.hlhgat_laguerre_terms_fwd.restype = i
-        lib.hlhgat_laguerre_fused_smem.argtypes = [i, i]
-        lib.hlhgat_laguerre_fused_smem.restype = ctypes.c_size_t
-        lib.hlhgat_cuda_error_string.argtypes = [i]
-        lib.hlhgat_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        lib = cuda_build.load(name)
+        p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+        if name == "laguerre_dense":
+            sigs = {
+                "hlhgat_laguerre_fused_fwd": ([p, p, p, p, p, i, i, i, i, i, i, p], i),
+                "hlhgat_laguerre_terms_fwd": ([p, p, p, i, i, i, i, i, p], i),
+                "hlhgat_laguerre_fused_smem": ([i, i], z),
+            }
+        else:
+            sigs = {
+                "hlhgat_laguerre_fused_bwd": (
+                    [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p], i),
+                "hlhgat_laguerre_terms_bwd": ([p, p, p, i, i, i, i, i, p], i),
+                "hlhgat_laguerre_fused_bwd_smem": ([i, i], z),
+                "hlhgat_laguerre_terms_bwd_smem": ([i, i], z),
+                "hlhgat_laguerre_fused_bwd_splits": ([i, i, i], i),
+            }
+        sigs["hlhgat_cuda_error_string"] = ([i], ctypes.c_char_p)
+        for fn, (argtypes, restype) in sigs.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _libs[name] = lib
+    return _libs[name]
 
 
 def _check_launch(lib, code: int, what: str) -> None:
@@ -121,18 +153,69 @@ def laguerre_dense_fused_plain(
     return (acc + b.float()).to(x.dtype)
 
 
+def _adjoint_walk(l: torch.Tensor, bars: list[torch.Tensor]) -> torch.Tensor:
+    """dx from the K term cotangents ``bars`` (each [G,S,C] in the compute
+    dtype) by the adjoint of the recurrence, L symmetric: walk k = K−1 … 2
+    folding each cotangent into the two below it, then close with
+    ``dx = b̄_0 + b̄_1 − L·b̄_1``.  Each L·b̄ is accumulated in f32 and
+    rounded; every elementwise step is computed in the compute dtype."""
+    bars = list(bars)
+    dtype = bars[0].dtype
+    for kk in range(len(bars) - 1, 1, -1):
+        jj = kk - 1  # T_{j+1} = (−L·T_j + (2j+1)·T_j − j·T_{j−1}) / (j+1)
+        bt = bars[kk]
+        lbt = _dot(l, bt).to(dtype)
+        bars[kk - 1] = bars[kk - 1] + (-lbt + (2 * jj + 1) * bt) / (jj + 1)
+        # the coefficient is rounded to the compute dtype, as a JAX weak
+        # scalar is before it meets a bf16 array
+        coef = torch.tensor(jj / (jj + 1), dtype=dtype, device=bt.device)
+        bars[kk - 2] = bars[kk - 2] - coef * bt
+    dx = bars[0]
+    if len(bars) > 1:
+        dx = dx + bars[1] - _dot(l, bars[1]).to(dtype)
+    return dx
+
+
+def laguerre_terms_dense_bwd_plain(l: torch.Tensor, dt: torch.Tensor, k: int) -> torch.Tensor:
+    """VJP of the terms: l [G,S,S], dt [K,G,S,C] → dx [G,S,C] in dt's
+    dtype (``_terms_bwd_kernel`` step by step)."""
+    if dt.shape[0] != k:
+        raise ValueError(f"dt has {dt.shape[0]} terms, expected {k}")
+    _no_tf32()
+    return _adjoint_walk(l.to(dt.dtype), list(dt.unbind(0)))
+
+
+def laguerre_dense_fused_bwd_plain(
+    l: torch.Tensor, x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """VJP of the fused filter (``_bwd_kernel`` step by step): the terms
+    recomputed from x; ``dW_k = Σ_g T_kᵀ g`` and ``db = Σ g`` accumulated
+    and returned in float32; ``b̄_k = g W_kᵀ`` accumulated in f32 and
+    rounded to x's dtype; dx (x's dtype) by the adjoint recurrence."""
+    g = g.to(x.dtype)
+    terms = laguerre_terms_plain(l, x, w.shape[0])
+    g2 = g.reshape(-1, g.shape[-1]).float()
+    dw = torch.stack([
+        torch.matmul(t.reshape(-1, t.shape[-1]).float().t(), g2) for t in terms])
+    db = g2.sum(dim=0)
+    bars = [_dot(g, w[kk].to(x.dtype).t()).to(x.dtype) for kk in range(w.shape[0])]
+    return _adjoint_walk(l.to(x.dtype), bars), dw, db
+
+
 # ---------------------------------------------------------------------------
-# kernel wrappers
+# kernel launches (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
 
-def laguerre_dense_fused(
-    l: torch.Tensor, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-) -> torch.Tensor:
-    """Fused Laguerre filter: l [G,S,S], x [G,S,C], w [K,C,F], b [F] →
-    [G,S,F] in x's dtype."""
-    if x.device.type == "cpu":
-        return laguerre_dense_fused_plain(l, x, w, b)
+def _bf16(x: torch.Tensor) -> int:
+    return int(x.dtype == torch.bfloat16)
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
     _check_inputs(l, x)
     g, s, c = x.shape
     k, c_w, f = w.shape
@@ -151,18 +234,14 @@ def laguerre_dense_fused(
     with torch.cuda.device(x.device):
         code = lib.hlhgat_laguerre_fused_fwd(
             l.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), g, s, c, f, k, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+            out.data_ptr(), g, s, c, f, k, _bf16(x), _stream(),
         )
     _check_launch(lib, code, "laguerre_dense_fused")
     LAUNCHES["laguerre_dense_fused"] += 1
     return out
 
 
-def laguerre_terms_dense(l: torch.Tensor, x: torch.Tensor, k: int) -> torch.Tensor:
-    """All K Laguerre terms: l [G,S,S], x [G,S,C] → [K,G,S,C] in x's dtype."""
-    if x.device.type == "cpu":
-        return laguerre_terms_dense_plain(l, x, k)
+def _terms_fwd_cuda(l, x, k: int) -> torch.Tensor:
     _check_inputs(l, x)
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
@@ -176,9 +255,137 @@ def laguerre_terms_dense(l: torch.Tensor, x: torch.Tensor, k: int) -> torch.Tens
     with torch.cuda.device(x.device):
         code = lib.hlhgat_laguerre_terms_fwd(
             l.data_ptr(), x.data_ptr(), out.data_ptr(), g, s, c, k,
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+            _bf16(x), _stream(),
         )
     _check_launch(lib, code, "laguerre_terms_dense")
     LAUNCHES["laguerre_terms_dense"] += 1
     return out
+
+
+def laguerre_dense_fused_bwd(
+    l: torch.Tensor, x: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """VJP of ``laguerre_dense_fused`` from its residuals: l [G,S,S],
+    x [G,S,C], w [K,C,F] and the cotangent g [G,S,F] → dx [G,S,C] (x's
+    dtype), dw [K,C,F] and db [F] (float32).
+
+    On the card: one kernel for dx, one that writes per-slice partial sums
+    of dW and db over the graph blocks, one that adds the partials in a
+    fixed order — the result does not depend on how the blocks were
+    scheduled.  The wrapper counts the three as one launch.
+    """
+    if x.device.type == "cpu":
+        return laguerre_dense_fused_bwd_plain(l, x, w, g)
+    _check_inputs(l, x)
+    n_g, s, c = x.shape
+    k, c_w, f = w.shape
+    if c_w != c or g.shape != (n_g, s, f) or k < 1:
+        raise ValueError(
+            f"need w [K,{c},F] and g [{n_g},{s},F], got {tuple(w.shape)}, {tuple(g.shape)}")
+    if k > MAX_BWD_K:
+        raise ValueError(f"the backward kernel takes K <= {MAX_BWD_K}, got {k}")
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    n_w = k * c * f
+    dwdb = torch.zeros(n_w + f, dtype=torch.float32, device=x.device)
+    if x.numel() and g.numel():
+        lib = _library("laguerre_dense_bwd")
+        if lib.hlhgat_laguerre_fused_bwd_smem(s, k) > _SMEM_LIMIT:
+            raise ValueError(f"K={k} needs more shared memory than a block has")
+        n_split = lib.hlhgat_laguerre_fused_bwd_splits(n_g, c, f)
+        partial = torch.empty((n_split, n_w + f), dtype=torch.float32, device=x.device)
+        l = l.to(x.dtype).contiguous()
+        x = x.contiguous()
+        g = g.to(x.dtype).contiguous()
+        w = w.to(device=x.device, dtype=torch.float32).contiguous()
+        with torch.cuda.device(x.device):
+            code = lib.hlhgat_laguerre_fused_bwd(
+                l.data_ptr(), x.data_ptr(), w.data_ptr(), g.data_ptr(),
+                dx.data_ptr(), dwdb.data_ptr(), partial.data_ptr(),
+                n_g, s, c, f, k, n_split, _bf16(x), _stream(),
+            )
+        _check_launch(lib, code, "laguerre_dense_fused_bwd")
+        LAUNCHES["laguerre_dense_fused_bwd"] += 1
+    elif x.numel():
+        dx.zero_()
+    return dx, dwdb[:n_w].view(k, c, f), dwdb[n_w:]
+
+
+def laguerre_terms_dense_bwd(l: torch.Tensor, dt: torch.Tensor, k: int) -> torch.Tensor:
+    """VJP of ``laguerre_terms_dense``: l [G,S,S], dt [K,G,S,C] → dx
+    [G,S,C] in dt's dtype."""
+    if dt.device.type == "cpu":
+        return laguerre_terms_dense_bwd_plain(l, dt, k)
+    if dt.dim() != 4 or dt.shape[0] != k:
+        raise ValueError(f"need dt [{k},G,S,C], got {tuple(dt.shape)}")
+    _check_inputs(l, dt[0])
+    _, n_g, s, c = dt.shape
+    dx = torch.empty((n_g, s, c), dtype=dt.dtype, device=dt.device)
+    if dx.numel() == 0:
+        return dx
+    lib = _library("laguerre_dense_bwd")
+    if lib.hlhgat_laguerre_terms_bwd_smem(s, k) > _SMEM_LIMIT:
+        raise ValueError(f"K={k} needs more shared memory than a block has")
+    l = l.to(dt.dtype).contiguous()
+    dt = dt.contiguous()
+    with torch.cuda.device(dt.device):
+        code = lib.hlhgat_laguerre_terms_bwd(
+            l.data_ptr(), dt.data_ptr(), dx.data_ptr(), n_g, s, c, k,
+            _bf16(dt), _stream(),
+        )
+    _check_launch(lib, code, "laguerre_terms_dense_bwd")
+    LAUNCHES["laguerre_terms_dense_bwd"] += 1
+    return dx
+
+
+# ---------------------------------------------------------------------------
+# the differentiable public functions
+# ---------------------------------------------------------------------------
+
+
+class _FusedFunction(torch.autograd.Function):
+    """Saves (l, x, w); backward recomputes the terms (no term is kept)."""
+
+    @staticmethod
+    def forward(ctx, l, x, w, b):
+        ctx.save_for_backward(l, x, w)
+        if x.device.type == "cpu":
+            return laguerre_dense_fused_plain(l, x, w, b)
+        return _fused_fwd_cuda(l, x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        l, x, w = ctx.saved_tensors
+        dx, dw, db = laguerre_dense_fused_bwd(l, x, w, g)
+        return None, dx, dw.to(w.dtype), db.to(w.dtype)
+
+
+class _TermsFunction(torch.autograd.Function):
+    """Saves l only: the adjoint recurrence needs no term."""
+
+    @staticmethod
+    def forward(ctx, l, x, k):
+        ctx.save_for_backward(l)
+        ctx.k = k
+        if x.device.type == "cpu":
+            return laguerre_terms_dense_plain(l, x, k)
+        return _terms_fwd_cuda(l, x, k)
+
+    @staticmethod
+    def backward(ctx, dt):
+        (l,) = ctx.saved_tensors
+        return None, laguerre_terms_dense_bwd(l, dt, ctx.k), None
+
+
+def laguerre_dense_fused(
+    l: torch.Tensor, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+) -> torch.Tensor:
+    """Fused Laguerre filter: l [G,S,S], x [G,S,C], w [K,C,F], b [F] →
+    [G,S,F] in x's dtype.  Differentiable in x, w and b (dx in x's dtype,
+    dw and db in the parameters' dtype); l gets no gradient."""
+    return _FusedFunction.apply(l, x, w, b)
+
+
+def laguerre_terms_dense(l: torch.Tensor, x: torch.Tensor, k: int) -> torch.Tensor:
+    """All K Laguerre terms: l [G,S,S], x [G,S,C] → [K,G,S,C] in x's
+    dtype.  Differentiable in x; l gets no gradient."""
+    return _TermsFunction.apply(l, x, k)

@@ -1,4 +1,4 @@
-"""Segment means and the embedding gather (``hl_hgat_tpu/ops/segment.py``).
+"""Segment means and the embedding lookup (``hl_hgat_tpu/ops/segment.py``).
 
 Accumulation is float32 whatever the data dtype; the total is cast to the
 data dtype before the division, as in the JAX package, so the bf16 result
@@ -61,6 +61,26 @@ def segment_mean(
     return total / count.clamp(min=1.0).reshape(shape).to(total.dtype)
 
 
+class _EmbedLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        onehot = flat[:, None] == torch.arange(
+            ctx.rows, dtype=flat.dtype, device=flat.device)[None, :]
+        dtable = torch.matmul(onehot.float().t(), g.reshape(flat.shape[0], -1).float())
+        return dtable.to(g.dtype), None
+
+
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` — the forward gather of the JAX ``embed_lookup``."""
-    return table[ids]
+    """``table[ids]`` whose backward is the float32 one-hot matmul
+    ``dTable = onehotᵀ @ g`` (the JAX ``embed_lookup``), not a scatter-add:
+    the vocabulary is tiny, and the matmul sums in a fixed order where
+    atomics on the card would not."""
+    return _EmbedLookup.apply(table, ids)

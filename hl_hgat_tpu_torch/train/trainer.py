@@ -1,0 +1,257 @@
+"""The training loop (``hl_hgat_tpu/train/trainer.py``).
+
+    model, meta = presets.zinc_pyr()                   # on the CUDA card
+    trainer = Trainer(model, TrainerConfig(task=meta["task"], denorm=meta["y_std"]))
+    trainer.fit(train_batches, val_batches, epochs=100)
+
+One eager ``train_step`` / ``eval_step`` pair per model.  Semantics kept
+from the JAX trainer: Adam + torch-style L2, ReduceLROnPlateau on the
+validation loss, ``on_improve`` only when the validation metric beats gate
++ best (reference main_zinc...py:241-248), optional early stop when the lr
+decays below a floor (reference main_TSP...py:421-422).  The model and the
+optimizer hold the training state, so the steps take a batch and nothing
+else.
+
+Not ported yet, and refused with ``NotImplementedError`` rather than
+ignored: the ``edge_binary``, ``node_classification`` and
+``link_prediction`` tasks (their models are not in this package),
+checkpoints (``ckpt_dir``, ``ckpt_every``, ``resume``), the on-device
+augmentations (``pe_flip_*``, ``tsp_aug_prob``) and ``prefetch > 0`` — see
+ROADMAP.md, Queue 1.  The JAX ``prng_impl`` field selects a JAX random
+generator and has no counterpart; the step draws no random numbers today,
+and ``Trainer.generator`` (seeded with ``config.seed``) is the one source
+for code that will.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+from hl_hgat_tpu_torch.complex.dense import DenseBatch
+from hl_hgat_tpu_torch.device import resolve_device
+from hl_hgat_tpu_torch.train import losses as L
+from hl_hgat_tpu_torch.train import metrics as M
+from hl_hgat_tpu_torch.train.optim import ReduceLROnPlateau, adam_l2, set_learning_rate
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    # regression|classification|multilabel|brain here;
+    # edge_binary|node_classification|link_prediction wait for their models
+    task: str = "regression"
+    lr: float = 1e-3
+    weight_decay: float = 1e-3
+    plateau_patience: int = 10
+    plateau_factor: float = 0.5
+    min_lr: float = 1e-6
+    early_stop_lr: float | None = None
+    save_gate: float | None = None  # metric floor/ceiling for on_improve
+    metric_mode: str = "min"  # 'min' (MAE) or 'max' (acc/F1/AP)
+    denorm: float = 1.0  # MAE denormalization (ZINC: 2.0109)
+    log_path: str | None = None
+    seed: int = 0
+    # fields of the JAX config whose feature is not ported: any value but
+    # the "off" default below raises NotImplementedError
+    ckpt_dir: str | None = None
+    ckpt_every: int = 0
+    pe_flip_node_static: int | None = None
+    pe_flip_edge_static: int | None = None
+    tsp_aug_prob: float | None = None
+    prefetch: int = 0  # the JAX default is 2; this package has no prefetcher
+
+
+_QUEUED_TASKS = {
+    "edge_binary": "Queue 1 item 9 (large-graph layout, the TSP edge-level model)",
+    "node_classification": "Queue 1 item 7 (COO/flat layout, the node-level model)",
+    "link_prediction": "Queue 1 item 7 (COO/flat layout, the link-prediction model)",
+}
+_QUEUED_OPTIONS = {
+    "ckpt_dir": "Queue 1 item 12 (checkpoint and CLI)",
+    "ckpt_every": "Queue 1 item 12 (checkpoint and CLI)",
+    "pe_flip_node_static": "Queue 1 item 11 (data pipeline and augmentation)",
+    "pe_flip_edge_static": "Queue 1 item 11 (data pipeline and augmentation)",
+    "tsp_aug_prob": "Queue 1 item 11 (data pipeline and augmentation)",
+    "prefetch": "Queue 1 item 11 (data pipeline and augmentation)",
+}
+
+
+def _loss_for(task: str):
+    if task == "regression":
+        return lambda out, batch: L.l1_loss(out.reshape(-1), batch.y.reshape(-1))
+    if task == "brain":
+        # the OHBM training loop's criterion: MSELoss on z-scored scores
+        # (reference HL-HGAT-DEMO/OHBM_DEMO.ipynb cell 40)
+        return lambda out, batch: L.mse_loss(out.reshape(-1), batch.y.reshape(-1))
+    if task == "classification":
+        return lambda out, batch: L.softmax_ce_loss(out, batch.y.reshape(-1).long())
+    if task == "multilabel":
+        return lambda out, batch: L.focal_loss(out, batch.y)
+    if task in _QUEUED_TASKS:
+        raise NotImplementedError(
+            f"task {task!r} waits for ROADMAP.md {_QUEUED_TASKS[task]}")
+    raise ValueError(f"unknown task {task!r}")
+
+
+def _mean_of(total: torch.Tensor | None, n: int) -> float:
+    """The one readback of an epoch's device-side sum."""
+    return float(total) / max(n, 1) if total is not None else 0.0
+
+
+class Trainer:
+    """Owns the model, the optimizer, the plateau scheduler and the
+    improvement gate.  Runs on the CUDA card unless ``device`` says
+    otherwise; without a card and without ``device="cpu"`` it raises."""
+
+    def __init__(self, model: torch.nn.Module, config: TrainerConfig, device=None):
+        defaults = TrainerConfig()
+        for name, where in _QUEUED_OPTIONS.items():
+            if getattr(config, name) != getattr(defaults, name):
+                raise NotImplementedError(
+                    f"TrainerConfig.{name} waits for ROADMAP.md {where}")
+        self.cfg = config
+        self._loss_fn = _loss_for(config.task)
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.optimizer = adam_l2(self.model.parameters(), config.lr, config.weight_decay)
+        self.plateau = ReduceLROnPlateau(
+            lr=config.lr,
+            patience=config.plateau_patience,
+            factor=config.plateau_factor,
+            min_lr=config.min_lr,
+        )
+        self.generator = torch.Generator().manual_seed(config.seed)
+        self.best_metric = np.inf if config.metric_mode == "min" else -np.inf
+        self.history: list[dict] = []
+
+    # -- steps ---------------------------------------------------------------
+
+    def _forward_loss(self, batch: DenseBatch):
+        out = self.model(batch)
+        if isinstance(out, tuple):
+            out = out[0]
+        return out, self._loss_fn(out, batch)
+
+    def train_step(self, batch: DenseBatch) -> torch.Tensor:
+        """Forward (BN on batch statistics), loss, backward, one Adam
+        update.  Returns the loss as a 0-d tensor on the device — no
+        readback, so the host can run ahead of the card."""
+        batch = batch.to(self.device)
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        _, loss = self._forward_loss(batch)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def eval_step(self, batch: DenseBatch) -> tuple[torch.Tensor, torch.Tensor]:
+        """(output, loss) in eval mode (BN on running statistics)."""
+        batch = batch.to(self.device)
+        self.model.eval()
+        with torch.inference_mode():
+            return self._forward_loss(batch)
+
+    def train_epoch(self, batches: Iterable[DenseBatch]) -> float:
+        # The loss stays on the device until the epoch ends: a per-step
+        # float() would make every step wait for the card.
+        total, n = None, 0
+        for batch in batches:
+            contrib = self.train_step(batch) * batch.num_graphs
+            total = contrib if total is None else total + contrib
+            n += batch.num_graphs
+        return _mean_of(total, n)
+
+    def evaluate(self, batches: Iterable[DenseBatch]) -> tuple[float, float]:
+        """(mean loss, task metric) over ``batches``; everything stays on
+        the device until the loop ends."""
+        cfg = self.cfg
+        total, n = None, 0
+        preds, ys, accs = [], [], []
+        for batch in batches:
+            batch = batch.to(self.device)
+            out, loss = self.eval_step(batch)
+            g = batch.num_graphs
+            contrib = loss * g
+            total = contrib if total is None else total + contrib
+            n += g
+            if cfg.task == "classification":
+                accs.append(M.accuracy(out, batch.y.reshape(-1)) * g)
+            else:
+                preds.append(out.reshape(-1, out.shape[-1]))
+                ys.append(batch.y.reshape(-1, out.shape[-1]))
+        loss_avg = _mean_of(total, n)
+        if cfg.task == "classification":
+            return loss_avg, _mean_of(sum(accs) if accs else None, n)
+        p, y = torch.cat(preds), torch.cat(ys)
+        if cfg.task == "regression":
+            metric = float(M.mae(p, y, denorm=cfg.denorm))
+        elif cfg.task == "brain":
+            # the notebook's test metric: Pearson correlation of the
+            # normalized predictions vs scores (OHBM_DEMO.ipynb cell 42)
+            metric = float(M.pearson_corr(p, y))
+        else:  # multilabel
+            metric = M.eval_ap(y.float().cpu().numpy(), p.float().cpu().numpy())
+        return loss_avg, metric
+
+    # -- fit -----------------------------------------------------------------
+
+    def _improved(self, metric: float) -> bool:
+        cfg = self.cfg
+        if cfg.metric_mode == "min":
+            gated = cfg.save_gate is None or metric < cfg.save_gate
+            return gated and metric < self.best_metric
+        gated = cfg.save_gate is None or metric > cfg.save_gate
+        return gated and metric > self.best_metric
+
+    def fit(
+        self,
+        train_batches: Callable[[], Iterable[DenseBatch]],
+        val_batches: Callable[[], Iterable[DenseBatch]],
+        *,
+        epochs: int,
+        on_improve: Callable[["Trainer", float], None] | None = None,
+        verbose: bool = True,
+        resume: bool = False,
+    ) -> "Trainer":
+        """``epochs`` rounds of train_epoch → evaluate → plateau step.
+        ``on_improve(trainer, metric)`` runs when the validation metric
+        passes the gate and beats the best so far."""
+        if resume:
+            raise NotImplementedError(
+                "resume waits for ROADMAP.md Queue 1 item 12 (checkpoint and CLI)")
+        cfg = self.cfg
+        start = time.time()
+        for epoch in range(1, epochs + 1):
+            train_loss = self.train_epoch(train_batches())
+            val_loss, val_metric = self.evaluate(val_batches())
+            lr = self.plateau.step(val_loss)
+            set_learning_rate(self.optimizer, lr)
+            improved = self._improved(val_metric)
+            if improved:
+                self.best_metric = val_metric
+                if on_improve is not None:
+                    on_improve(self, val_metric)
+            rec = dict(
+                epoch=epoch, time=time.time() - start, train_loss=train_loss,
+                val_loss=val_loss, val_metric=val_metric, lr=lr,
+                improved=improved,
+            )
+            self.history.append(rec)
+            if verbose:
+                print(
+                    f"Epoch {epoch:03d} t={rec['time']:.1f}s "
+                    f"train={train_loss:.4f} val={val_loss:.4f} "
+                    f"metric={val_metric:.4f} lr={lr:.2e}"
+                    + (" *improved*" if improved else "")
+                )
+            if cfg.log_path:
+                with open(cfg.log_path, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
+            if cfg.early_stop_lr is not None and lr < cfg.early_stop_lr:
+                break
+        return self

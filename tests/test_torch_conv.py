@@ -76,7 +76,8 @@ def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
                                lg.laguerre_dense_fused_plain(*args), rtol=0, atol=0)
     torch.testing.assert_close(lg.laguerre_terms_dense(args[0], args[1], 4),
                                lg.laguerre_terms_dense_plain(args[0], args[1], 4), rtol=0, atol=0)
-    assert lg.LAUNCHES == {"laguerre_dense_fused": 0, "laguerre_terms_dense": 0}
+    assert lg.LAUNCHES == {"laguerre_dense_fused": 0, "laguerre_terms_dense": 0,
+                           "laguerre_dense_fused_bwd": 0, "laguerre_terms_dense_bwd": 0}
 
 
 @pytest.mark.parametrize("route", ["fused", "terms", "plain"])
