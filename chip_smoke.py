@@ -32,8 +32,28 @@
    statistics) and ``TRAIN_LEAF_TOL`` (the ill-conditioned train-mode
    gradient; loose, with the measured values beside them), and the float32
    card step with the port's CPU step on the first 16 graphs.
-6. Prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
-   ...}`` line.
+6. Holds the ELL SpMM kernel (forward, and ``dx`` through autograd)
+   against its plain version at the flat path's shapes: L0 and L1 of the
+   384-graph batch at F = 64, 128, 256, a ragged F = 37, a 3-D x, and L0
+   and L1 of the node-classification batch; float32 (max |err| <=
+   1e-5·max|ref|) and bfloat16 (<= 2e-2·max|ref|), a second launch
+   bit-equal; times kernel, plain version and ``torch.sparse.mm`` on a CSR
+   tensor of the same operator (a yardstick, used nowhere in the package)
+   as device time from ``torch.profiler``.
+7. Drives the flat (COO/ELL) layout at full width through ``Trainer``:
+   ``zinc_pyr`` on the same 384 graphs (eval forward, a first step and 10
+   timed steps on the ELL-kernel route, the plain gather route and the COO
+   route, float32 and bfloat16: 80 forward + 80 backward kernel launches a
+   step on the kernel route, none on the others; falling loss; non-zero
+   conv gradients; routes agree within ``FLAT_TOL``; the flat predictions
+   equal the packed path's within 1e-4), ``pascalvoc_node`` on 32
+   superpixel-like graphs (36 + 36 launches a step, logits exactly 0 on
+   padded nodes) and ``pcqm_link`` on 256 graphs with 4 x (1 + 8) query
+   pairs each (MRR from ``Trainer.evaluate``, 5 steps, 36 + 33 launches:
+   the link head never reads the last edge conv, so its three mat-vecs
+   have no backward).
+8. Prints one ``{"kernels": [...]}`` line (five kernels) and, last, the
+   ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the result lines.  Needs one card;
 exits non-zero without one.
@@ -75,6 +95,18 @@ TRAIN_NORM_TOL = 2e-2
 TRAIN_BF16_COSINE = 0.7
 BATCH_GRAPHS = 384
 TRAIN_STEPS = 10  # timed steps after the first
+# ELL SpMM kernel against its plain version: same f32 products, summed over
+# at most a few dozen slots in another order; bf16 rounds that sum once.
+ELL_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ELL_INNER = 20  # calls per timing of the ELL kernel, which takes less than a launch's latency
+# Flat-layout eval outputs, one mat-vec route against another (share of
+# max|ref|).  float32 routes differ in summation order (the COO scatter
+# sums with atomics); in bfloat16 the COO route also rounds every product to
+# bf16 before the f32 sum, which the two ELL routes do not.
+FLAT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+FLAT_BF16_COSINE = 0.9  # bf16 whole-gradient agreement between flat routes, BN on running stats
+CROSS_LAYOUT_ATOL = 1e-4  # flat against packed predictions, float32
+NODE_GRAPHS, LINK_GRAPHS, LINK_STEPS = 32, 256, 5
 
 
 def fail(msg: str) -> None:
@@ -82,7 +114,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def median_ms(torch, fn, reps: int) -> float:
+def median_ms(torch, fn, reps: int, inner: int = 1) -> float:
+    """Median over ``reps`` CUDA-event timings of ``inner`` back-to-back
+    calls, per call.  One call between two events cannot resolve less than
+    the launch latency (about 0.03 ms here); a kernel of a few µs is timed
+    with ``inner`` > 1, its input then coming from L2 as it does for the
+    model, where the producer has just written it."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -90,11 +127,32 @@ def median_ms(torch, fn, reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, calls: int) -> float:
+    """Device time of one call of ``fn``: the kernels of ``calls`` calls
+    traced with ``torch.profiler`` and summed.  For work of a few µs, where
+    a host clock or an event pair measures the wrapper and the launch."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            total_us += getattr(evt, "self_device_time_total", None) or getattr(
+                evt, "self_cuda_time_total", 0.0)
+    if not total_us > 0:
+        fail("the profiler recorded no device time")
+    return total_us / 1e3 / calls
 
 
 def check_one(torch, tag, dtype, kernel, plain, nbytes, flops, count, agg):
@@ -365,6 +423,339 @@ def train_phase(torch, np, model32, samples, host_batch, real_edges, card):
     return total
 
 
+def csr_of(torch, coo):
+    """The operator of a CooMatrix as a float32 CSR tensor (the library
+    yardstick's input; built outside the timed region)."""
+    idx = torch.stack([coo.rows.long(), coo.cols.long()])
+    return torch.sparse_coo_tensor(idx, coo.vals.float(), coo.shape).coalesce().to_sparse_csr()
+
+
+def check_ell(torch, np, ell, cases, rng, card):
+    """The ELL SpMM kernel against its plain version, forward and dx, at
+    every case ``(tag, CooMatrix on the card, trailing feature shape,
+    launches per pass)``, both dtypes; a second launch must give the same
+    bits.  Times kernel, plain version and ``torch.sparse.mm`` as device
+    time (``device_ms``: the kernel takes a few µs, less than its wrapper
+    and launch take on the host), and one call through the wrapper as
+    ``ELL_INNER`` back-to-back calls between two events.
+
+    Returns per dtype the sums over one flat zinc_pyr training step's
+    launches (each counted shape runs once forward and once, on the
+    cotangent, backward)."""
+    summary = {}
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, by_bytes=0.0, by_ops=0.0,
+                   bound=0.0, err=0.0)
+        for tag, coo, feat, count in cases:
+            n, w = coo.ell_cols.shape
+            cols, vals = coo.ell_cols, coo.ell_vals.to(td)
+            x = torch.from_numpy(rng.standard_normal((n,) + feat).astype(np.float32)).cuda().to(td)
+            cot = torch.from_numpy(rng.standard_normal((n,) + feat).astype(np.float32)).cuda().to(td)
+            out, ref = ell.spmm_ell(cols, vals, x), ell.spmm_ell_plain(cols, vals, x)
+            # dx through autograd, against the plain version of the same
+            # function: the operator is symmetric, so dx = A · cotangent
+            xk = x.clone().requires_grad_()
+            ell.spmm_ell_symmetric(cols, vals, xk).backward(cot)
+            ref_dx = ell.spmm_ell_plain(cols, vals, cot)
+            torch.cuda.synchronize()
+            name = f"spmm_ell {dtype} {tag} N={n} W={w} F={'x'.join(map(str, feat))}"
+            err = 0.0
+            for what, a, r in (("out", out, ref), ("dx", xk.grad, ref_dx)):
+                e = (a.float() - r.float()).abs().max().item()
+                sc = r.float().abs().max().item()
+                if not e <= ELL_TOL[dtype] * sc:
+                    fail(f"{name} {what}: max|err| {e:.3e} > {ELL_TOL[dtype]}·{sc:.3e}")
+                err = max(err, e)
+            if not (torch.equal(out, ell.spmm_ell(cols, vals, x))
+                    and torch.equal(xk.grad, ell.spmm_ell(cols, vals, cot))):
+                fail(f"{name}: a second launch gave other bits")
+            call_ms = median_ms(torch, lambda: ell.spmm_ell(cols, vals, x), 5, ELL_INNER)
+            ms = device_ms(torch, lambda: ell.spmm_ell(cols, vals, x), ELL_INNER)
+            plain_ms = device_ms(torch, lambda: ell.spmm_ell_plain(cols, vals, x), ELL_INNER)
+            x2 = x.reshape(n, -1)
+            try:
+                csr = csr_of(torch, coo).to(td)
+                lib_ms = device_ms(torch, lambda: torch.sparse.mm(csr, x2), ELL_INNER)
+                lib_err = (torch.sparse.mm(csr, x2).float() - ref.reshape(n, -1).float()
+                           ).abs().max().item()
+                if not lib_err <= 5 * ELL_TOL[dtype] * ref.float().abs().max().item():
+                    fail(f"{name}: torch.sparse.mm computes another function ({lib_err:.3e})")
+            except RuntimeError as err_lib:  # this torch has no CSR product in this dtype
+                print(f"[kernel] {name}: torch.sparse.mm refused ({str(err_lib)[:80]})", flush=True)
+                lib_ms = None
+            f = x2.shape[1]
+            nbytes = cols.numel() * 4 + vals.numel() * vals.element_size() \
+                + 2 * x.numel() * x.element_size()
+            flops = 2 * int((coo.ell_vals != 0).sum()) * f  # the non-zeros of this operator
+            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+            print(f"[kernel] {name}: max|err| {err:.3e} kernel {ms:.4f} ms (a call through "
+                  f"the wrapper {call_ms:.4f} ms) plain "
+                  f"{plain_ms:.4f} ms torch.sparse.mm(CSR) "
+                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} bound "
+                  f"{max(by_bytes, by_ops):.5f} ms "
+                  f"({'operations' if by_ops >= by_bytes else 'bytes'}) x{count}+{count}/step "
+                  f"[{card}]", flush=True)
+            agg["err"] = max(agg["err"], err)
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("by_bytes", by_bytes),
+                             ("by_ops", by_ops), ("bound", max(by_bytes, by_ops))):
+                agg[key] += 2 * count * val
+            if agg["library_ms"] is not None:
+                agg["library_ms"] = None if lib_ms is None else agg["library_ms"] + 2 * count * lib_ms
+        summary[dtype] = agg
+    return summary
+
+
+def strip_ell(batch):
+    """The batch with its ELL arrays dropped: its mat-vecs take the COO route."""
+    import dataclasses
+
+    def strip(m):
+        return dataclasses.replace(m, ell_cols=None, ell_vals=None)
+
+    return batch.replace(levels=tuple(
+        dataclasses.replace(lvl, l0=strip(lvl.l0), l1=strip(lvl.l1)) for lvl in batch.levels))
+
+
+def flat_task_phase(torch, np, ell, tag, make_model, batch, task, steps, per_step, units,
+                    card, skip_grad=()):
+    """One flat model on the default (ELL-kernel) route, float32 and
+    bfloat16, through ``Trainer``: eval forward (timed), ``steps`` training
+    steps (the first apart), launch counts, falling loss, non-zero conv
+    gradients.  Returns (launches summed over the training steps, the
+    float32 eval output)."""
+    from hl_hgat_tpu_torch.nn import conv
+    from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
+
+    total = {name: 0 for name in ell.LAUNCHES}
+    out32 = None
+    for dtype in ("float32", "bfloat16"):
+        model = make_model(dtype)
+        trainer = Trainer(model, TrainerConfig(task=task, lr=1e-3, weight_decay=1e-3,
+                                               metric_mode="max"))
+        ell.reset_launch_counts()
+        out, loss = trainer.eval_step(batch)
+        torch.cuda.synchronize()
+        if dict(ell.LAUNCHES) != {"spmm_ell": per_step[0], "spmm_ell_bwd": 0}:
+            fail(f"{tag} {dtype}: eval forward launched {dict(ell.LAUNCHES)}")
+        if not bool(torch.isfinite(out).all()) or out.dtype != torch.float32:
+            fail(f"{tag} {dtype}: eval output not finite float32")
+        if dtype == "float32":
+            out32 = out
+        fwd_ms = median_ms(torch, lambda: trainer.eval_step(batch), 10)
+        ell.reset_launch_counts()
+        losses = [trainer.train_step(batch)]
+        torch.cuda.synchronize()
+        want = {"spmm_ell": per_step[0], "spmm_ell_bwd": per_step[1]}
+        if dict(ell.LAUNCHES) != want:
+            fail(f"{tag} {dtype}: training step launched {dict(ell.LAUNCHES)}, expected {want}")
+        for name, m in model.named_modules():
+            if isinstance(m, conv.LaguerreConv) and name not in skip_grad:
+                if m.weight.grad is None or not bool((m.weight.grad != 0).any()):
+                    fail(f"{tag} {dtype}: {name}.weight has no gradient")
+        t0 = time.perf_counter()
+        for _ in range(steps - 1):
+            losses.append(trainer.train_step(batch))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+        counts = dict(ell.LAUNCHES)
+        if counts != {k: v * steps for k, v in want.items()}:
+            fail(f"{tag} {dtype}: {counts} launches over {steps} steps")
+        for name in total:
+            total[name] += counts[name]
+        values = [float(x) for x in losses]
+        if not all(np.isfinite(values)) or not values[-1] < values[0]:
+            fail(f"{tag} {dtype}: loss did not fall or is not finite: {values}")
+        val_loss, metric = trainer.evaluate([batch])
+        if not (np.isfinite(val_loss) and 0.0 <= metric <= 1.0):
+            fail(f"{tag} {dtype}: evaluate gave loss {val_loss}, metric {metric}")
+        print(f"[flat] {tag} {dtype}: eval forward {fwd_ms:.3f} ms, step {step_ms:.3f} ms "
+              f"({units / step_ms * 1e3:.4e} real edges/s); loss {values[0]:.5f} -> "
+              f"{values[-1]:.5f} over {steps} steps; metric {metric:.4f}; launches/step "
+              f"{per_step[0]} + {per_step[1]} [{card}]", flush=True)
+    return total, out32
+
+
+def flat_phase(torch, np, model32, samples, packed_pred32, card):
+    """The flat (COO/ELL) layout at full width; returns the ELL kernel's
+    per-step summary and its launches summed over every flat run."""
+    from hl_hgat_tpu_torch.complex.build import attach_link_pairs, collate
+    from hl_hgat_tpu_torch.data.synthetic import (
+        contact_like_samples, superpixel_like_samples, synthetic_zinc_batch)
+    from hl_hgat_tpu_torch.models import presets
+    from hl_hgat_tpu_torch.nn import conv
+    from hl_hgat_tpu_torch.ops import ell_spmm as ell
+    from hl_hgat_tpu_torch.train import Trainer, TrainerConfig, l1_loss
+
+    t0 = time.perf_counter()
+    zinc_host = synthetic_zinc_batch(BATCH_GRAPHS, seed=0, keig=16, embed_ids=True, with_ell=True)
+    if not np.array_equal(zinc_host.x_t, collate(samples).x_t):
+        fail("the flat batch does not hold the packed path's samples")
+    node_samples = superpixel_like_samples(np.random.default_rng(1), NODE_GRAPHS)
+    node_host = collate(node_samples, y_per_node=True, with_ell=True)
+    link_samples = contact_like_samples(np.random.default_rng(2), LINK_GRAPHS)
+    link_host = attach_link_pairs(collate(link_samples, with_ell=True), link_samples,
+                                  np.random.default_rng(3), n_queries=4, n_neg=8)
+    zinc, node, link = (b.to("cuda") for b in (zinc_host, node_host, link_host))
+    real = {k: int(b.level0.edge_mask.sum()) for k, b in
+            (("zinc", zinc_host), ("node", node_host), ("link", link_host))}
+    for k, b in (("zinc", zinc_host), ("node", node_host), ("link", link_host)):
+        l0, l1 = b.level0.l0, b.level0.l1
+        print(f"[data] flat {k}: {b.num_graphs} graphs, {int(b.level0.node_mask.sum())} nodes "
+              f"(padded {l0.shape[0]}, ELL width {l0.ell_cols.shape[1]}, "
+              f"{100 * float((l0.ell_vals != 0).mean()):.1f}% of slots non-zero), "
+              f"{real[k]} edges (padded {l1.shape[0]}, width {l1.ell_cols.shape[1]}, "
+              f"{100 * float((l1.ell_vals != 0).mean()):.1f}%)", flush=True)
+    print(f"[data] flat batches built in {time.perf_counter() - t0:.2f} s host", flush=True)
+
+    # ---- 6. kernel 5 against its plain version ------------------------------
+    per_width = {}
+    for m in model32.modules():
+        if isinstance(m, conv.LaguerreConv) and m.weight.shape[0] > 1:
+            c = int(m.weight.shape[1])  # K − 1 mat-vecs at the conv's input width
+            per_width[c] = per_width.get(c, 0) + int(m.weight.shape[0]) - 1
+    if sum(per_width.values()) != 80 or sorted(per_width) != [64, 128, 256]:
+        fail(f"zinc_pyr runs {per_width} mat-vecs per forward, expected 80 at 64/128/256")
+    cases = []
+    for name, coo in (("zinc L0", zinc.level0.l0), ("zinc L1", zinc.level0.l1)):
+        # each width's mat-vecs split evenly between the node and the edge conv
+        cases += [(name, coo, (c,), n // 2) for c, n in sorted(per_width.items())]
+    cases += [("zinc L0 ragged", zinc.level0.l0, (37,), 0),
+              ("zinc L1 3-D", zinc.level0.l1, (4, 32), 0)]
+    for name, coo in (("node L0", node.level0.l0), ("node L1", node.level0.l1)):
+        cases += [(name, coo, (c,), 0) for c in (64, 128, 256)]
+    summary = check_ell(torch, np, ell, cases, np.random.default_rng(4), card)
+
+    # ---- 7a. zinc_pyr on the three flat routes ------------------------------
+    cfg = TrainerConfig(task="regression", lr=1e-3, weight_decay=1e-3)
+    routes = {"gather": (False, zinc), "coo": (True, strip_ell(zinc)), "ell": (True, zinc)}
+    per_step = {"gather": (0, 0), "coo": (0, 0), "ell": (80, 80)}
+    total = {name: 0 for name in ell.LAUNCHES}
+    conv_names = [n for n, m in model32.named_modules() if isinstance(m, conv.LaguerreConv)]
+    zero_grad = {n for n, _ in model32.named_parameters()
+                 if n.endswith(".bias") and not n.endswith("bn.bias")
+                 and "MaskedBatchNorm" not in n and n != "head.out.bias"}
+
+    def grads_of(model):
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    for dtype in ("float32", "bfloat16"):
+        seed_model = model32 if dtype == "float32" else presets.zinc_pyr(
+            compute_dtype=dtype, seed=0)[0]
+        evals, calm, first = {}, {}, {}
+        for route, (kernel_on, batch) in routes.items():
+            ell.use_ell_kernel(kernel_on)
+            trainer = Trainer(copy.deepcopy(seed_model), cfg)
+            ell.reset_launch_counts()
+            out, _ = trainer.eval_step(batch)
+            torch.cuda.synchronize()
+            if dict(ell.LAUNCHES) != {"spmm_ell": per_step[route][0], "spmm_ell_bwd": 0}:
+                fail(f"flat zinc {dtype} {route}: eval forward launched {dict(ell.LAUNCHES)}")
+            if out.shape != (BATCH_GRAPHS, 1) or not bool(torch.isfinite(out).all()):
+                fail(f"flat zinc {dtype} {route}: output shape {tuple(out.shape)} or not finite")
+            evals[route] = out
+            fwd_ms = median_ms(torch, lambda: trainer.eval_step(batch), 10)
+            # gradients with BN on running statistics (the well-conditioned function)
+            trainer.model.eval()
+            trainer.model.zero_grad(set_to_none=True)
+            loss = l1_loss(trainer.model(batch).reshape(-1), batch.y.reshape(-1))
+            loss.backward()
+            calm[route] = (float(loss.detach()), grads_of(trainer.model))
+            trainer.model.zero_grad(set_to_none=True)
+            ell.reset_launch_counts()
+            losses = [trainer.train_step(batch)]
+            torch.cuda.synchronize()
+            want = dict(zip(("spmm_ell", "spmm_ell_bwd"), per_step[route]))
+            if dict(ell.LAUNCHES) != want:
+                fail(f"flat zinc {dtype} {route}: training step launched {dict(ell.LAUNCHES)}, "
+                     f"expected {want}")
+            grads = grads_of(trainer.model)
+            for name in conv_names:
+                if not bool((grads[f"{name}.weight"] != 0).any()):
+                    fail(f"flat zinc {dtype} {route}: {name}.weight has no gradient")
+            first[route] = (float(losses[0]), grads)
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                losses.append(trainer.train_step(batch))
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+            counts = dict(ell.LAUNCHES)
+            if counts != {k: v * (TRAIN_STEPS + 1) for k, v in want.items()}:
+                fail(f"flat zinc {dtype} {route}: {counts} launches over {TRAIN_STEPS + 1} steps")
+            for name in total:
+                total[name] += counts[name]
+            values = [float(x) for x in losses]
+            if not all(np.isfinite(values)) or not values[-1] < values[0]:
+                fail(f"flat zinc {dtype} {route}: loss did not fall or is not finite: {values}")
+            print(f"[flat] zinc_pyr {dtype} {route}: eval forward {fwd_ms:.3f} ms "
+                  f"({BATCH_GRAPHS / fwd_ms * 1e3:.1f} graphs/s), step {step_ms:.3f} ms, "
+                  f"{BATCH_GRAPHS / step_ms * 1e3:.1f} graphs/s, "
+                  f"{real['zinc'] / step_ms * 1e3:.4e} real edges/s; loss {values[0]:.5f} -> "
+                  f"{values[-1]:.5f} over {len(values)} steps; launches/step "
+                  f"{per_step[route][0]} + {per_step[route][1]} [{card}]", flush=True)
+        ell.use_ell_kernel(True)
+        ref = evals["gather"]
+        scale = float(ref.abs().max())
+        for route in ("ell", "coo"):
+            err = float((evals[route] - ref).abs().max())
+            print(f"[flat] zinc_pyr {dtype} {route} vs gather route, eval output: max|err| "
+                  f"{err:.3e} (max|ref| {scale:.3e})", flush=True)
+            if not err <= FLAT_TOL[dtype] * scale:
+                fail(f"flat zinc {dtype}: {route} route disagrees with the gather route")
+            loss, grads = calm[route]
+            if not abs(loss - calm["gather"][0]) <= FLAT_TOL[dtype] * abs(loss):
+                fail(f"flat zinc {dtype} {route}: eval-mode loss {loss} vs {calm['gather'][0]}")
+            tag = f"flat zinc_pyr {dtype} {route} vs gather route, BN on running statistics"
+            if dtype == "float32":
+                compare_grads(tag, grads, calm["gather"][1], (), EVAL_LEAF_TOL[dtype],
+                              EVAL_NORM_TOL[dtype])
+            else:
+                compare_grads(tag, grads, calm["gather"][1], (), cosine=FLAT_BF16_COSINE)
+            loss, grads = first[route]
+            if not abs(loss - first["gather"][0]) <= FLAT_TOL[dtype] * abs(loss):
+                fail(f"flat zinc {dtype} {route}: first loss {loss} vs {first['gather'][0]}")
+            tag = f"flat zinc_pyr {dtype} {route} vs gather route, first step"
+            if dtype == "bfloat16" and route == "coo":
+                # printed, not bounded: the COO route rounds every product to
+                # bf16 before the f32 sum, and the train-mode gradient
+                # amplifies that as it does any rounding (see TRAIN_LEAF_TOL)
+                compare_grads(tag, grads, first["gather"][1], zero_grad)
+            else:
+                compare_train_grads(tag, dtype, grads, first["gather"][1], zero_grad)
+        if dtype == "float32":
+            # two layouts of one function: the packed path's predictions
+            err = float(np.abs(evals["ell"].cpu().numpy() - packed_pred32).max())
+            print(f"[flat] zinc_pyr float32 flat vs packed layout, {BATCH_GRAPHS} predictions: "
+                  f"max|err| {err:.3e} (max|ref| {float(np.abs(packed_pred32).max()):.3e})",
+                  flush=True)
+            if not err <= CROSS_LAYOUT_ATOL:
+                fail("the flat and the packed layout disagree")
+
+    # ---- 7b. pascalvoc_node --------------------------------------------------
+    counts, out = flat_task_phase(
+        torch, np, ell, "pascalvoc_node",
+        lambda dtype: presets.pascalvoc_node(compute_dtype=dtype, seed=0)[0],
+        node, "node_classification", TRAIN_STEPS + 1, (36, 36), real["node"], card)
+    pad = node.level0.node_mask == 0
+    if out.shape != (node.level0.num_nodes, 21) or not bool(pad.any()) or bool(out[pad].any()):
+        fail("pascalvoc_node: logits must be [N, 21] and exactly 0 on padded nodes")
+    for name in total:
+        total[name] += counts[name]
+
+    # ---- 7c. pcqm_link -------------------------------------------------------
+    counts, out = flat_task_phase(
+        torch, np, ell, "pcqm_link",
+        lambda dtype: presets.pcqm_link(compute_dtype=dtype, seed=0)[0],
+        link, "link_prediction", LINK_STEPS, (36, 33), real["link"], card,
+        skip_grad=("backbone.NEConv21.edge.conv",))
+    if out.shape != (LINK_GRAPHS * 4 * 9,):
+        fail(f"pcqm_link: {tuple(out.shape)} pair logits, expected {LINK_GRAPHS * 4 * 9}")
+    for name in total:
+        total[name] += counts[name]
+    return summary, total
+
+
 def main() -> int:
     import torch
 
@@ -464,6 +855,7 @@ def main() -> int:
             if not err <= TOL[dtype] * scale:
                 fail(f"{dtype} {route} route disagrees with the plain route")
         if dtype == "float32":
+            packed_pred32 = outs["fused"]
             cpu_model = copy.deepcopy(model).to("cpu")
             cpu_out = Predictor(cpu_model, batch_size=16, device="cpu")(samples[:16])
             err = float(np.abs(outs["fused"][:16] - cpu_out).max())
@@ -484,7 +876,13 @@ def main() -> int:
             fail(f"{name} was never launched on the training path")
         launches[name] += n
 
-    # ---- 6. result lines --------------------------------------------------
+    # ---- 6-7. the flat layout: kernel 5, three models ----------------------
+    ell_summary, ell_launches = flat_phase(torch, np, model32, samples, packed_pred32, card)
+    for name, n in ell_launches.items():
+        if n == 0:
+            fail(f"{name} was never launched on the flat path")
+
+    # ---- 8. result lines --------------------------------------------------
     replaces = {
         "laguerre_dense_fused": "hl_hgat_tpu/ops/pallas_hodge.py:93",
         "laguerre_terms_dense": "hl_hgat_tpu/ops/pallas_hodge.py:285",
@@ -515,6 +913,23 @@ def main() -> int:
             "library_ms": None,
             "dtype": "float32", "per": "one zinc_pyr training step at batch 384",
         })
+    for dtype, agg in ell_summary.items():
+        lib = "n/a" if agg["library_ms"] is None else f"{agg['library_ms']:.4f} ms"
+        print(f"[kernel] spmm_ell {dtype} per flat zinc_pyr step (80 + 80 launches): kernel "
+              f"{agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, torch.sparse.mm(CSR) {lib}, "
+              f"bound {agg['bound']:.4f} ms, max|err| {agg['err']:.3e} [{card}]", flush=True)
+    e32 = ell_summary["float32"]
+    kernels.append({
+        "name": "spmm_ell", "route": "cuda",
+        "source": "hl_hgat_tpu_torch/csrc/ell_spmm.cu",
+        "replaces": "hl_hgat_tpu/ops/pallas_spmm.py:38",
+        "launches": ell_launches["spmm_ell"] + ell_launches["spmm_ell_bwd"],
+        "max_abs_err": e32["err"], "ms": e32["ms"], "plain_ms": e32["plain_ms"],
+        "bound_ms": e32["bound"],
+        "bound_by": "operations" if e32["by_ops"] >= e32["by_bytes"] else "bytes",
+        "library_ms": e32["library_ms"],
+        "dtype": "float32", "per": "one flat zinc_pyr training step at batch 384",
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
-"""PyTorch + CUDA port of the HL-HGAT dense-block serving path.
+"""PyTorch + CUDA port of HL-HGAT: the packed dense-block layout (serving
+and training of ``zinc_pyr``) and the flat COO/ELL layout (graph, node and
+link models).
 
 A second package beside the JAX reference (``hl_hgat_tpu``): same batch
 layout, same parameters, same numerics within stated tolerances.  It imports
 ``torch``, numpy and scipy only — never ``jax``, ``flax`` or ``hl_hgat_tpu``.
 
-Entry points (``serving.Predictor``, ``models.presets.zinc_pyr``) run on the
+Entry points (``serving.Predictor``, ``train.Trainer``, ``models.presets``) run on the
 CUDA card unless the caller passes ``device="cpu"``; without a card and
 without an explicit CPU device they raise.  The hand-written Hopper kernels
 live in ``csrc/`` and are built with ``nvcc`` on first use

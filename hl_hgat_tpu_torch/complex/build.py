@@ -5,7 +5,8 @@ package's module imports ``complex/batch.py``, which imports jax, so the
 port keeps its own): undirected canonicalization, boundary operator, Hodge
 Laplacians and eigen positional encodings (reference
 lib/Hodge_Dataset.py:442-477), producing `GraphSample`s that
-``complex/dense.py`` packs into dense blocks.
+``complex/dense.py`` packs into dense blocks and that ``collate`` here
+concatenates into the flat (COO/ELL) layout of ``complex/batch.py``.
 
 Graphs above ``SPARSE_BUILD_THRESHOLD`` edges need the sparse-direct
 Laplacian build, which this package does not have yet: they raise.
@@ -16,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from hl_hgat_tpu_torch.complex.batch import ComplexBatch, ComplexLevel, CooMatrix
 
 
 @dataclasses.dataclass
@@ -219,3 +222,233 @@ def build_complex(
         xs = np.concatenate([xs, eig_pe(l1, k=keig)], axis=1)
     yy = np.zeros((1,), dtype=np.float32) if y is None else np.asarray(y)
     return GraphSample(x_t=xt, x_s=xs, y=yy, levels=[structure], pools=[])
+
+
+# ---------------------------------------------------------------------------
+# flat batching / collation
+# ---------------------------------------------------------------------------
+
+
+def _pad_to(x: np.ndarray, n: int, fill=0) -> np.ndarray:
+    pad = [(0, n - x.shape[0])] + [(0, 0)] * (x.ndim - 1)
+    return np.pad(x, pad, constant_values=fill)
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelPad:
+    nodes: int
+    edges: int
+    nnz0: int
+    nnz1: int
+
+
+def pad_spec(
+    samples: list[GraphSample], *, multiple: int = 8, slack: float = 1.0
+) -> list[LevelPad]:
+    """Padded sizes per level for a batch (rounded up to ``multiple``)."""
+
+    def rnd(x: int) -> int:
+        x = int(np.ceil(x * slack))
+        return max(((x + multiple - 1) // multiple) * multiple, multiple)
+
+    return [
+        LevelPad(
+            nodes=rnd(sum(s.levels[lv].num_nodes for s in samples)),
+            edges=rnd(sum(s.levels[lv].num_edges for s in samples)),
+            nnz0=rnd(sum(s.levels[lv].l0_rows.size for s in samples)),
+            nnz1=rnd(sum(s.levels[lv].l1_rows.size for s in samples)),
+        )
+        for lv in range(len(samples[0].levels))
+    ]
+
+
+def _collate_level(
+    structs: list[GraphStructure], pad: LevelPad, num_graphs: int,
+    with_ell: bool = False,
+) -> tuple[ComplexLevel, np.ndarray, np.ndarray]:
+    """Block-diagonal concatenation of one level across the batch; returns
+    the level and the per-graph node and edge offsets."""
+    n_off = np.cumsum([0] + [s.num_nodes for s in structs])
+    e_off = np.cumsum([0] + [s.num_edges for s in structs])
+    n_tot, e_tot = int(n_off[-1]), int(e_off[-1])
+    if n_tot > pad.nodes or e_tot > pad.edges:
+        raise ValueError(
+            f"batch exceeds pad spec: nodes {n_tot}>{pad.nodes} or edges "
+            f"{e_tot}>{pad.edges}"
+        )
+
+    def cat(parts, offs):
+        return np.concatenate(
+            [p + o for p, o in zip(parts, offs)] or [np.zeros(0, np.int32)]
+        ).astype(np.int32)
+
+    # Padded edges point at the last padded node slot: harmless under masks.
+    src = _pad_to(cat([s.src for s in structs], n_off), pad.edges, fill=pad.nodes - 1)
+    dst = _pad_to(cat([s.dst for s in structs], n_off), pad.edges, fill=pad.nodes - 1)
+
+    def cat_coo(which, offs, nnz_pad, size):
+        rows = cat([getattr(s, f"{which}_rows") for s in structs], offs)
+        cols = cat([getattr(s, f"{which}_cols") for s in structs], offs)
+        vals = np.concatenate(
+            [getattr(s, f"{which}_vals") for s in structs] or [np.zeros(0, np.float32)]
+        ).astype(np.float32)
+        if rows.size > nnz_pad:
+            raise ValueError(f"nnz {rows.size} exceeds pad {nnz_pad}")
+        rows, cols, vals = (_pad_to(a, nnz_pad) for a in (rows, cols, vals))
+        ell = coo_to_ell(rows, cols, vals, size) if with_ell else (None, None)
+        return CooMatrix(
+            rows=rows, cols=cols, vals=vals, shape=(size, size),
+            ell_cols=ell[0], ell_vals=ell[1], symmetric=True,
+        )
+
+    node_mask = np.zeros(pad.nodes, np.float32)
+    node_mask[:n_tot] = 1.0
+    edge_mask = np.zeros(pad.edges, np.float32)
+    edge_mask[:e_tot] = 1.0
+    counts_n = np.diff(n_off)
+    counts_e = np.diff(e_off)
+    n_id = np.full(pad.nodes, num_graphs, np.int32)
+    n_id[:n_tot] = np.repeat(np.arange(len(structs), dtype=np.int32), counts_n)
+    s_id = np.full(pad.edges, num_graphs, np.int32)
+    s_id[:e_tot] = np.repeat(np.arange(len(structs), dtype=np.int32), counts_e)
+
+    deg = np.zeros(pad.nodes, np.float32)
+    np.add.at(deg, src[:e_tot], 1.0)
+    np.add.at(deg, dst[:e_tot], 1.0)
+
+    level = ComplexLevel(
+        src=src, dst=dst, node_mask=node_mask, edge_mask=edge_mask,
+        n_id=n_id, s_id=s_id,
+        l0=cat_coo("l0", n_off, pad.nnz0, pad.nodes),
+        l1=cat_coo("l1", e_off, pad.nnz1, pad.edges),
+        deg=deg, num_graphs=num_graphs,
+    )
+    return level, n_off, e_off
+
+
+def collate(
+    samples: list[GraphSample],
+    pads: list[LevelPad] | None = None,
+    *,
+    multiple: int = 8,
+    y_per_edge: bool = False,
+    y_per_node: bool = False,
+    with_ell: bool = False,
+) -> ComplexBatch:
+    """Pack samples into one padded `ComplexBatch` of NumPy arrays: edge
+    endpoints offset by node counts, L1 indices by edge counts.
+
+    Single level: a sample that carries coarsened levels raises (the pooled
+    family is not in this package yet).
+    """
+    if any(len(s.levels) != 1 or s.pools for s in samples):
+        raise NotImplementedError(
+            "collate packs single-level samples; pooled levels are not ported")
+    if pads is None:
+        pads = pad_spec(samples, multiple=multiple)
+    num_graphs = len(samples)
+    level, n_off, e_off = _collate_level(
+        [s.levels[0] for s in samples], pads[0], num_graphs, with_ell=with_ell)
+
+    def rows_of(arrays, offs, total):
+        out = np.zeros((total,) + arrays[0].shape[1:], np.float32)
+        for g, a in enumerate(arrays):
+            out[offs[g] : offs[g + 1]] = a
+        return out
+
+    x_t = rows_of([s.x_t for s in samples], n_off, pads[0].nodes)
+    x_s = rows_of([s.x_s for s in samples], e_off, pads[0].edges)
+    if y_per_edge:
+        y = rows_of([s.y for s in samples], e_off, pads[0].edges)
+    elif y_per_node:
+        y = rows_of([s.y for s in samples], n_off, pads[0].nodes)
+    else:
+        y = np.stack([np.asarray(s.y, np.float32).reshape(-1) for s in samples])
+    return ComplexBatch(
+        x_t=x_t, x_s=x_s, y=y, levels=(level,), pools=(), num_graphs=num_graphs)
+
+
+def attach_link_pairs(
+    batch: ComplexBatch,
+    samples: list[GraphSample],
+    rng: np.random.Generator,
+    *,
+    n_queries: int = 4,
+    n_neg: int = 8,
+) -> ComplexBatch:
+    """Attach PCQM-Contact-style link-prediction queries to a flat batch.
+
+    Per graph, ``n_queries`` positive pairs (existing edges, sampled with
+    replacement, or the positive ``edge_label_index`` pairs of
+    ``sample.extra`` when present) each followed by ``n_neg`` non-adjacent
+    negatives: contiguous groups of (1 + n_neg) rows, positive first, so
+    MRR is a [Q, 1 + n_neg] reshape.  ``batch.y`` is replaced by the [P]
+    pair labels, P = G·n_queries·(1 + n_neg).  ``samples`` must be the
+    graphs behind ``batch`` in order.  The ``rng`` call sequence is the JAX
+    package's, so one seed gives both the same pairs.
+    """
+    offs = np.cumsum([0] + [s.num_nodes for s in samples])[:-1]
+    pairs, labels = [], []
+    for off, s in zip(offs, samples):
+        st = s.levels[0]
+        es = set(zip(st.src.tolist(), st.dst.tolist()))
+        extra = getattr(s, "extra", None) or {}
+        if "edge_label_index" in extra:
+            eli = np.asarray(extra["edge_label_index"])
+            el = np.asarray(extra["edge_label"]).reshape(-1)
+            pos_pool = eli[:, el > 0] if (el > 0).any() else eli
+            sel = rng.choice(pos_pool.shape[1], n_queries, replace=True)
+            pos_pairs = [(int(pos_pool[0, i]), int(pos_pool[1, i])) for i in sel]
+        else:
+            pos_idx = rng.choice(st.num_edges, n_queries, replace=True)
+            pos_pairs = [(int(st.src[pi]), int(st.dst[pi])) for pi in pos_idx]
+        for pa, pb in pos_pairs:
+            pairs.append((off + pa, off + pb))
+            labels.append(1.0)
+            negs = 0
+            while negs < n_neg:
+                a, b = rng.integers(0, st.num_nodes, 2)
+                lo, hi = int(min(a, b)), int(max(a, b))
+                if lo == hi or (lo, hi) in es:
+                    continue
+                pairs.append((off + lo, off + hi))
+                labels.append(0.0)
+                negs += 1
+    return batch.replace(
+        pairs=np.asarray(pairs, np.int32),
+        y=np.asarray(labels, np.float32),
+        pair_mask=np.ones(len(labels), np.float32),
+    )
+
+
+def coo_to_ell(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    num_rows: int,
+    *,
+    width: int | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Pack COO into ELL [num_rows, width] (cols, vals), zero-padded rows.
+
+    Entries with ``vals == 0`` are dropped; the others fill their row's
+    slots in the order they appear in the COO arrays (the slot order of the
+    JAX package's ``coo_to_ell`` loop, reproduced with a stable sort).
+    Padding slots carry column 0 and value 0.
+    """
+    rows, cols, vals = np.asarray(rows), np.asarray(cols), np.asarray(vals)
+    keep = vals != 0
+    r, c, v = rows[keep].astype(np.int64), cols[keep], vals[keep]
+    counts = np.bincount(r, minlength=num_rows)
+    w = max(int(counts.max()) if width is None else width, 1)
+    order = np.argsort(r, kind="stable")
+    r_sorted = r[order]
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(r_sorted.size) - starts[r_sorted]
+    if slot.size and slot.max() >= w:
+        raise ValueError(f"row {int(r_sorted[np.argmax(slot >= w)])} exceeds ELL width {w}")
+    ell_cols = np.zeros((num_rows, w), np.int32)
+    ell_vals = np.zeros((num_rows, w), np.float32)
+    ell_cols[r_sorted, slot] = c[order]
+    ell_vals[r_sorted, slot] = v[order]
+    return ell_cols, ell_vals

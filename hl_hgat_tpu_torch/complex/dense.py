@@ -20,6 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from hl_hgat_tpu_torch.complex.batch import ComplexBatch
 from hl_hgat_tpu_torch.complex.build import GraphSample
 
 
@@ -76,6 +77,10 @@ class DenseBatch:
             levels=tuple(lvl.to(device) for lvl in self.levels),
             num_graphs=self.num_graphs,
         )
+
+
+# Either layout of a batch: what the models and the trainer take.
+Batch = DenseBatch | ComplexBatch
 
 
 # Deterministic FFD sort keys, best-of kept.  Must stay identical to

@@ -23,7 +23,7 @@ NVCC_FLAGS = (
     "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("laguerre_dense", "laguerre_dense_bwd")
+SOURCES = ("laguerre_dense", "laguerre_dense_bwd", "ell_spmm")
 
 
 def _nvcc() -> str:

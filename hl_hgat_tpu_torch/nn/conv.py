@@ -11,6 +11,11 @@ Routes for dense [G, S, S] operators, as in the JAX package:
   terms, the per-term GEMMs run in torch (`_combine_terms`);
 * else the plain recurrence and GEMMs in torch.
 
+A `CooMatrix` operator (the flat layout) always takes the plain
+recurrence; each of its mat-vecs goes through ``ops.dispatch.lap_matvec``,
+which launches the ELL row-gather kernel when the matrix carries ELL
+arrays.
+
 A kernel wrapper runs its plain version when the tensors lie on the CPU,
 so every route computes the same function on either device.
 """
@@ -50,7 +55,7 @@ def use_terms_kernel(enable: bool | None = None) -> bool:
     return _terms_kernel_flag
 
 
-def polynomial_terms(x: torch.Tensor, lap: torch.Tensor, k: int) -> list[torch.Tensor]:
+def polynomial_terms(x: torch.Tensor, lap, k: int) -> list[torch.Tensor]:
     """The K Laguerre features [T_0(L)x, ..., T_{K-1}(L)x]."""
     terms = [x]
     if k > 1:
@@ -72,11 +77,12 @@ def _combine_terms(terms, weights, bias, out_dtype):
 
 
 def laguerre_matvec(
-    x: torch.Tensor, lap: torch.Tensor, weights: torch.Tensor, bias: torch.Tensor
+    x: torch.Tensor, lap, weights: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
-    """Functional Laguerre filter: weights [K, C, F], bias [F], x [..., C]."""
+    """Functional Laguerre filter: weights [K, C, F], bias [F]; x [G, S, C]
+    with dense blocks, or flat [N, C] / [N, T, C] with a `CooMatrix`."""
     k = weights.shape[0]
-    dense = lap.dim() == 3 and x.dim() == 3
+    dense = isinstance(lap, torch.Tensor) and lap.dim() == 3 and x.dim() == 3
     if dense and use_fused_dense():
         return laguerre_dense_fused(lap, x, weights, bias)
     if dense and use_terms_kernel() and k > 1:
@@ -101,5 +107,5 @@ class LaguerreConv(nn.Module):
         )
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor, lap: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lap) -> torch.Tensor:
         return laguerre_matvec(x, lap, self.weight, self.bias)

@@ -65,7 +65,8 @@ class _ValueHead(nn.Module):
 
 
 class NodeEdgeInt(nn.Module):
-    """Value-mode cross-simplex interaction on dense-block levels."""
+    """Value-mode cross-simplex interaction, on dense-block levels
+    ([G, S, C] features) or flat levels ([N, C] features)."""
 
     def __init__(self, c_t: int, c_s: int, dv: int, generator=None):
         super().__init__()

@@ -26,7 +26,8 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        """x: [N, C] or [G, S, C]; mask: x's leading dims (1 = valid row)."""
+        """x: [N, C], [N, T, C] or [G, S, C]; mask: x's leading dims
+        ([N] or [G, S]; 1 = valid row)."""
         m = None
         if mask is not None:
             m = mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim)).float()

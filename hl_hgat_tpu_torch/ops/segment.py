@@ -1,13 +1,90 @@
-"""Segment means and the embedding lookup (``hl_hgat_tpu/ops/segment.py``).
+"""Segment reductions and the embedding lookup
+(``hl_hgat_tpu/ops/segment.py``).
 
 Accumulation is float32 whatever the data dtype; the total is cast to the
-data dtype before the division, as in the JAX package, so the bf16 result
-differs from a float32 one by the rounding of one division.
+data dtype before a division, as in the JAX package, so the bf16 result
+differs from a float32 one by the rounding of one division.  Rows whose id
+lies outside ``[0, num_segments)`` (the padding dump bucket) are dropped by
+every function here, as an XLA scatter drops them.  On a CUDA device the
+sums go through ``index_add_`` (atomics): float results may differ in the
+last bits from run to run.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _dump_ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """int64 ids with every id outside ``[0, num_segments)`` sent to the
+    extra row ``num_segments``, which the callers cut off: no row is
+    filtered by a mask, so nothing waits for the device."""
+    ids = segment_ids.long()
+    return torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
+
+
+def segment_sum(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """Sum ``data`` rows [M, ...] into ``num_segments`` buckets; bf16 data
+    accumulates in float32 and is rounded once."""
+    acc_dtype = torch.float32 if data.dtype == torch.bfloat16 else data.dtype
+    out = torch.zeros(
+        (num_segments + 1,) + data.shape[1:], dtype=acc_dtype, device=data.device)
+    out.index_add_(0, _dump_ids(segment_ids, num_segments), data.to(acc_dtype))
+    return out[:num_segments].to(data.dtype)
+
+
+def segment_count(
+    segment_ids: torch.Tensor, num_segments: int, *,
+    weights: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Number of (optionally weighted) elements per segment, float32."""
+    ones = (
+        torch.ones(segment_ids.shape, dtype=torch.float32, device=segment_ids.device)
+        if weights is None else weights.float()
+    )
+    return segment_sum(ones, segment_ids, num_segments)
+
+
+def _segment_amax(x: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per-segment max with the dump row kept: [num_segments + 1, ...],
+    −inf where a segment is empty."""
+    out = torch.full(
+        (num_segments + 1,) + x.shape[1:], float("-inf"), dtype=x.dtype, device=x.device)
+    index = ids.reshape((-1,) + (1,) * (x.ndim - 1)).expand_as(x)
+    return out.scatter_reduce(0, index, x, reduce="amax", include_self=True)
+
+
+def segment_max(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, *,
+    mask_value: float = 0.0,
+) -> torch.Tensor:
+    """Max of ``data`` rows per segment; empty segments yield ``mask_value``."""
+    ids = _dump_ids(segment_ids, num_segments)
+    out = _segment_amax(data.float(), ids, num_segments)[:num_segments]
+    out = torch.where(torch.isneginf(out), torch.full_like(out, mask_value), out)
+    return out.to(data.dtype)
+
+
+def segment_softmax(
+    logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, *,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Numerically stable softmax within each segment; ``mask`` (0/1 per
+    element) removes padded rows from the max and the normalizer.  Rows of
+    the dump bucket come out 0."""
+    x = logits.float()
+    ids = _dump_ids(segment_ids, num_segments)
+    valid = (ids < num_segments).reshape((-1,) + (1,) * (x.ndim - 1))
+    if mask is not None:
+        valid = valid & mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim)).bool()
+    x = torch.where(valid, x, torch.full_like(x, float("-inf")))
+    seg_max = _segment_amax(x, ids, num_segments)
+    seg_max = torch.where(torch.isneginf(seg_max), torch.zeros_like(seg_max), seg_max)
+    expx = torch.exp(x - seg_max[ids])  # exp(−inf) = 0 on every removed row
+    denom = segment_sum(expx, ids, num_segments + 1).clamp(min=1e-16)
+    return (expx / denom[ids]).to(logits.dtype)
 
 
 def segment_mean_onehot(
@@ -40,25 +117,17 @@ def segment_mean(
     num_segments: int,
     *,
     weights: torch.Tensor | None = None,
+    eps: float = 0.0,
 ) -> torch.Tensor:
     """Weighted per-segment mean by scatter-add (``index_add_``); rows whose
     id is at or beyond ``num_segments`` are dropped; empty segments give 0."""
     shape = (-1,) + (1,) * (data.ndim - 1)
     if weights is not None:
         data = data * weights.reshape(shape).to(data.dtype)
-    keep = segment_ids < num_segments
-    ids = segment_ids[keep]
-    total = torch.zeros(
-        (num_segments,) + data.shape[1:], dtype=torch.float32, device=data.device
-    ).index_add_(0, ids, data[keep].float()).to(data.dtype)
-    w = (
-        torch.ones(ids.shape, dtype=torch.float32, device=data.device)
-        if weights is None
-        else weights[keep].float()
-    )
-    count = torch.zeros(num_segments, dtype=torch.float32, device=data.device)
-    count.index_add_(0, ids, w)
-    return total / count.clamp(min=1.0).reshape(shape).to(total.dtype)
+    total = segment_sum(data, segment_ids, num_segments)
+    count = segment_count(segment_ids, num_segments, weights=weights)
+    denom = count.clamp(min=1.0) + eps
+    return total / denom.reshape(shape).to(total.dtype)
 
 
 class _EmbedLookup(torch.autograd.Function):

@@ -12,9 +12,12 @@ decays below a floor (reference main_TSP...py:421-422).  The model and the
 optimizer hold the training state, so the steps take a batch and nothing
 else.
 
+A batch is a packed `DenseBatch` or a flat `ComplexBatch`; the
+``node_classification`` and ``link_prediction`` tasks read the flat batch's
+node mask, pairs and pair mask.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the ``edge_binary``, ``node_classification`` and
-``link_prediction`` tasks (their models are not in this package),
+ignored: the ``edge_binary`` task (its model is not in this package),
 checkpoints (``ckpt_dir``, ``ckpt_every``, ``resume``), the on-device
 augmentations (``pe_flip_*``, ``tsp_aug_prob``) and ``prefetch > 0`` — see
 ROADMAP.md, Queue 1.  The JAX ``prng_impl`` field selects a JAX random
@@ -33,7 +36,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
-from hl_hgat_tpu_torch.complex.dense import DenseBatch
+from hl_hgat_tpu_torch.complex.dense import Batch
 from hl_hgat_tpu_torch.device import resolve_device
 from hl_hgat_tpu_torch.train import losses as L
 from hl_hgat_tpu_torch.train import metrics as M
@@ -42,8 +45,8 @@ from hl_hgat_tpu_torch.train.optim import ReduceLROnPlateau, adam_l2, set_learni
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    # regression|classification|multilabel|brain here;
-    # edge_binary|node_classification|link_prediction wait for their models
+    # regression|classification|multilabel|brain|node_classification|
+    # link_prediction here; edge_binary waits for its model
     task: str = "regression"
     lr: float = 1e-3
     weight_decay: float = 1e-3
@@ -68,8 +71,6 @@ class TrainerConfig:
 
 _QUEUED_TASKS = {
     "edge_binary": "Queue 1 item 9 (large-graph layout, the TSP edge-level model)",
-    "node_classification": "Queue 1 item 7 (COO/flat layout, the node-level model)",
-    "link_prediction": "Queue 1 item 7 (COO/flat layout, the link-prediction model)",
 }
 _QUEUED_OPTIONS = {
     "ckpt_dir": "Queue 1 item 12 (checkpoint and CLI)",
@@ -92,6 +93,15 @@ def _loss_for(task: str):
         return lambda out, batch: L.softmax_ce_loss(out, batch.y.reshape(-1).long())
     if task == "multilabel":
         return lambda out, batch: L.focal_loss(out, batch.y)
+    if task == "node_classification":
+        # per-node CE masked by node validity
+        return lambda out, batch: L.softmax_ce_loss(
+            out.reshape(-1, out.shape[-1]), batch.y.reshape(-1).long(),
+            batch.level0.node_mask.reshape(-1))
+    if task == "link_prediction":
+        # per-pair BCE over the batch-carried queries
+        return lambda out, batch: L.bce_logits_loss(
+            out.reshape(-1), batch.y.reshape(-1), batch.pair_mask)
     if task in _QUEUED_TASKS:
         raise NotImplementedError(
             f"task {task!r} waits for ROADMAP.md {_QUEUED_TASKS[task]}")
@@ -131,13 +141,13 @@ class Trainer:
 
     # -- steps ---------------------------------------------------------------
 
-    def _forward_loss(self, batch: DenseBatch):
+    def _forward_loss(self, batch: Batch):
         out = self.model(batch)
         if isinstance(out, tuple):
             out = out[0]
         return out, self._loss_fn(out, batch)
 
-    def train_step(self, batch: DenseBatch) -> torch.Tensor:
+    def train_step(self, batch: Batch) -> torch.Tensor:
         """Forward (BN on batch statistics), loss, backward, one Adam
         update.  Returns the loss as a 0-d tensor on the device — no
         readback, so the host can run ahead of the card."""
@@ -146,17 +156,24 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         _, loss = self._forward_loss(batch)
         loss.backward()
+        # A parameter the loss does not reach (the link model's last edge
+        # conv) gets a zero gradient, not none: the L2 term still decays it,
+        # as in the JAX trainer, where every leaf has a gradient.
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None and p.requires_grad:
+                    p.grad = torch.zeros_like(p)
         self.optimizer.step()
         return loss.detach()
 
-    def eval_step(self, batch: DenseBatch) -> tuple[torch.Tensor, torch.Tensor]:
+    def eval_step(self, batch: Batch) -> tuple[torch.Tensor, torch.Tensor]:
         """(output, loss) in eval mode (BN on running statistics)."""
         batch = batch.to(self.device)
         self.model.eval()
         with torch.inference_mode():
             return self._forward_loss(batch)
 
-    def train_epoch(self, batches: Iterable[DenseBatch]) -> float:
+    def train_epoch(self, batches: Iterable[Batch]) -> float:
         # The loss stays on the device until the epoch ends: a per-step
         # float() would make every step wait for the card.
         total, n = None, 0
@@ -166,12 +183,12 @@ class Trainer:
             n += batch.num_graphs
         return _mean_of(total, n)
 
-    def evaluate(self, batches: Iterable[DenseBatch]) -> tuple[float, float]:
+    def evaluate(self, batches: Iterable[Batch]) -> tuple[float, float]:
         """(mean loss, task metric) over ``batches``; everything stays on
         the device until the loop ends."""
         cfg = self.cfg
         total, n = None, 0
-        preds, ys, accs = [], [], []
+        preds, ys, accs, masks = [], [], [], []
         for batch in batches:
             batch = batch.to(self.device)
             out, loss = self.eval_step(batch)
@@ -181,6 +198,14 @@ class Trainer:
             n += g
             if cfg.task == "classification":
                 accs.append(M.accuracy(out, batch.y.reshape(-1)) * g)
+            elif cfg.task == "node_classification":
+                preds.append(out.reshape(-1, out.shape[-1]))
+                ys.append(batch.y.reshape(-1))
+                masks.append(batch.level0.node_mask.reshape(-1))
+            elif cfg.task == "link_prediction":
+                preds.append(out.reshape(-1))
+                ys.append(batch.y.reshape(-1))
+                masks.append(batch.pair_mask.reshape(-1))
             else:
                 preds.append(out.reshape(-1, out.shape[-1]))
                 ys.append(batch.y.reshape(-1, out.shape[-1]))
@@ -188,6 +213,20 @@ class Trainer:
         if cfg.task == "classification":
             return loss_avg, _mean_of(sum(accs) if accs else None, n)
         p, y = torch.cat(preds), torch.cat(ys)
+        if cfg.task == "node_classification":
+            # macro F1 over valid nodes
+            return loss_avg, M.macro_f1(
+                p.float().cpu().numpy(), y.cpu().numpy(), num_classes=p.shape[-1],
+                mask=torch.cat(masks).cpu().numpy())
+        if cfg.task == "link_prediction":
+            # groups are (one positive first, then its negatives) in
+            # contiguous rows (attach_link_pairs): MRR is a reshape
+            keep = torch.cat(masks).cpu().numpy() > 0
+            p, y = p.float().cpu().numpy()[keep], y.cpu().numpy()[keep]
+            q = int(y.sum())
+            group = len(y) // max(q, 1)
+            scores = p[: q * group].reshape(q, group)
+            return loss_avg, M.mrr(scores[:, 0], scores[:, 1:])
         if cfg.task == "regression":
             metric = float(M.mae(p, y, denorm=cfg.denorm))
         elif cfg.task == "brain":
@@ -210,8 +249,8 @@ class Trainer:
 
     def fit(
         self,
-        train_batches: Callable[[], Iterable[DenseBatch]],
-        val_batches: Callable[[], Iterable[DenseBatch]],
+        train_batches: Callable[[], Iterable[Batch]],
+        val_batches: Callable[[], Iterable[Batch]],
         *,
         epochs: int,
         on_improve: Callable[["Trainer", float], None] | None = None,

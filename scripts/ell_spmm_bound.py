@@ -1,9 +1,10 @@
-"""Least time an NVIDIA H100 could take for the ELL SpMM kernel that is
-still to be ported (``hl_hgat_tpu/ops/pallas_spmm.py::spmm_ell_pallas``).
+"""Least time an NVIDIA H100 could take for the ELL SpMM kernel
+(``hl_hgat_tpu_torch/csrc/ell_spmm.cu``, the port of
+``hl_hgat_tpu/ops/pallas_spmm.py::spmm_ell_pallas``), from shapes alone.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/ell_spmm_bound.py   (from the repo root)
+    PYTHONPATH=. python scripts/ell_spmm_bound.py   (from the repo root)
 
-Builds the flat-layout batch the JAX training benchmark uses
+Builds the flat-layout batch the training benchmark uses
 (``synthetic_zinc_batch(384, seed=0, keig=16, embed_ids=True,
 with_ell=True)``), reads the ELL shapes of L0 and L1 and prints, per
 operator and feature width C of the zinc_pyr layers, the bound
@@ -14,14 +15,16 @@ operator and feature width C of the zinc_pyr layers, the bound
     bound = max(bytes / 3.35 TB/s, flops / 67 TFLOP/s)
 
 Nothing here runs on a GPU: the numbers are counts from shapes and the
-data sheet's peaks, for float32 (es = 4).
+data sheet's peaks, for float32 (es = 4).  ``chip_smoke.py`` computes the
+same bound from the tensors it times (with the operations counted on the
+non-zero slots only) and prints it beside the measured times.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from hl_hgat_tpu.data.synthetic import synthetic_zinc_batch
+from hl_hgat_tpu_torch.data.synthetic import synthetic_zinc_batch
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F32 = 67e12

@@ -9,7 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from hl_hgat_tpu_torch.complex.batch import CooMatrix
+from hl_hgat_tpu_torch.complex.build import coo_to_ell
+from hl_hgat_tpu_torch.ops import ell_spmm
 from hl_hgat_tpu_torch.ops import laguerre_dense as lg
+from hl_hgat_tpu_torch.ops.dispatch import lap_matvec
 
 pytestmark = pytest.mark.gpu
 
@@ -154,3 +158,132 @@ def test_backward_wrappers_reject_what_the_kernels_cannot_take(cuda):
         lg.laguerre_dense_fused_bwd(l, x, w, torch.zeros(1, 128, 8, device=cuda))
     with pytest.raises(ValueError, match="dt"):
         lg.laguerre_terms_dense_bwd(l, torch.zeros(3, 1, 128, 8, device=cuda), 2)
+
+
+# ---------------------------------------------------------------------------
+# ELL SpMM (kernel 5).  f32: the kernel and the plain version differ in
+# summation order only (W <= 20 terms): 1e-5 of max|ref|.  bf16: one final
+# rounding of the same f32 sum; 2e-2 covers a flipped ulp.
+# ---------------------------------------------------------------------------
+
+ELL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _ell_inputs(n, feat, deg, dtype, device, seed=0, vals_dtype=None):
+    """A random symmetric operator with about ``deg`` entries a row, packed
+    as ELL (padding slots: column 0, value 0), and a random x."""
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, n, n * deg // 2)
+    c = rng.integers(0, n, n * deg // 2)
+    v = rng.standard_normal(r.size).astype(np.float32)
+    rows, cols, vals = np.r_[r, c], np.r_[c, r], np.r_[v, v]
+    ell_cols, ell_vals = coo_to_ell(rows, cols, vals, n)
+    assert (ell_vals == 0).any()  # some rows are padded
+    shape = (n,) + (feat if isinstance(feat, tuple) else (feat,))
+    x = rng.standard_normal(shape).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return t(ell_cols), t(ell_vals).to(vals_dtype or dtype), t(x).to(dtype)
+
+
+def _ell_check(out, ref, dtype):
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= ELL_TOL[dtype] * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,feat,deg", [
+    (1000, 64, 6), (777, 37, 4), (64, 256, 10), (513, 1, 3), (300, 260, 5),
+    (200, 1028, 2), (129, (5, 12), 4), (50, 7, 1),
+])
+def test_ell_kernel_matches_plain(cuda, dtype, n, feat, deg):
+    cols, vals, x = _ell_inputs(n, feat, deg, dtype, cuda)
+    before = dict(ell_spmm.LAUNCHES)
+    out = ell_spmm.spmm_ell(cols, vals, x)
+    torch.cuda.synchronize()
+    assert ell_spmm.LAUNCHES["spmm_ell"] == before["spmm_ell"] + 1
+    assert ell_spmm.LAUNCHES["spmm_ell_bwd"] == before["spmm_ell_bwd"]
+    assert out.dtype == dtype and out.shape == x.shape
+    _ell_check(out, ell_spmm.spmm_ell_plain(cols, vals, x), dtype)
+    # fixed slot order, no atomics: a second launch gives the same bits
+    assert torch.equal(out, ell_spmm.spmm_ell(cols, vals, x))
+
+
+@pytest.mark.parametrize("x_dtype,vals_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_ell_kernel_takes_mixed_value_and_feature_dtypes(cuda, x_dtype, vals_dtype):
+    cols, vals, x = _ell_inputs(300, 48, 5, x_dtype, cuda, vals_dtype=vals_dtype)
+    out = ell_spmm.spmm_ell(cols, vals, x)
+    assert out.dtype == x_dtype
+    _ell_check(out, ell_spmm.spmm_ell_plain(cols, vals, x), x_dtype)
+
+
+def test_ell_kernel_takes_an_unaligned_view(cuda):
+    cols, vals, x = _ell_inputs(100, 65, 4, torch.float32, cuda)
+    view = x[:, 1:]  # 64 wide, rows not 16-byte aligned, not contiguous
+    _ell_check(ell_spmm.spmm_ell(cols, vals, view),
+               ell_spmm.spmm_ell_plain(cols, vals, view), torch.float32)
+    flat = torch.zeros(100 * 64 + 1, device=cuda)[1:].view(100, 64)  # contiguous, offset 4 B
+    flat.copy_(view)
+    _ell_check(ell_spmm.spmm_ell(cols, vals, flat),
+               ell_spmm.spmm_ell_plain(cols, vals, flat), torch.float32)
+
+
+def test_ell_padding_slots_multiply_like_any_other(cuda):
+    """A padded slot reads x[0] and multiplies it by 0: 0·inf is nan there,
+    in the kernel as in the plain version and the TPU kernel."""
+    cols, vals, x = _ell_inputs(40, 8, 3, torch.float32, cuda)
+    x[0, 0] = float("inf")
+    out = ell_spmm.spmm_ell(cols, vals, x)
+    ref = ell_spmm.spmm_ell_plain(cols, vals, x)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref)) and torch.isnan(out).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("feat", [40, 37, (3, 8)])
+def test_ell_autograd_launches_the_kernel_for_dx(cuda, dtype, feat):
+    cols, vals, x = _ell_inputs(500, feat, 6, dtype, cuda)
+    rng = np.random.default_rng(1)
+    cot = torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(np.float32)).to(cuda).to(dtype)
+    lap = CooMatrix(rows=None, cols=None, vals=None, shape=(500, 500),
+                    ell_cols=cols, ell_vals=vals, symmetric=True)
+    xk = x.clone().requires_grad_()
+    ell_spmm.reset_launch_counts()
+    out = lap_matvec(lap, xk)
+    # an expanded (stride-0) cotangent is made contiguous by the wrapper
+    out.backward(cot)
+    assert ell_spmm.LAUNCHES == {"spmm_ell": 1, "spmm_ell_bwd": 1}
+    assert xk.grad.dtype == dtype
+    # the operator is symmetric: dx is the plain product on the cotangent
+    _ell_check(xk.grad, ell_spmm.spmm_ell_plain(cols, vals, cot), dtype)
+    if dtype == torch.float32:  # and what autograd derives from the plain version
+        xp = x.clone().requires_grad_()
+        ell_spmm.spmm_ell_plain(cols, vals, xp).backward(cot)
+        _ell_check(xk.grad, xp.grad, dtype)
+    # dvals on request: plain torch, masked where vals == 0, no extra launch
+    vk, vp = vals.clone().requires_grad_(), vals.clone().requires_grad_()
+    ell_spmm.spmm_ell_symmetric(cols, vk, x).backward(cot)
+    ell_spmm.spmm_ell_plain(cols, vp, x).backward(cot)
+    assert ell_spmm.LAUNCHES == {"spmm_ell": 2, "spmm_ell_bwd": 1}
+    assert bool((vk.grad[vals == 0] == 0).all())
+    live = vals != 0
+    _ell_check(vk.grad[live], vp.grad[live], dtype)
+
+
+def test_ell_route_switch_and_rejections(cuda):
+    cols, vals, x = _ell_inputs(64, 16, 3, torch.float32, cuda)
+    ell_spmm.reset_launch_counts()
+    ell_spmm.use_ell_kernel(False)
+    try:
+        out = ell_spmm.spmm_ell_symmetric(cols, vals, x)
+    finally:
+        ell_spmm.use_ell_kernel(True)
+    assert ell_spmm.use_ell_kernel() and ell_spmm.LAUNCHES["spmm_ell"] == 0
+    assert torch.equal(out, ell_spmm.spmm_ell_plain(cols, vals, x))
+    with pytest.raises(ValueError, match="square"):
+        ell_spmm.spmm_ell(cols[:32], vals[:32], x)
+    with pytest.raises(TypeError):
+        ell_spmm.spmm_ell(cols, vals, x.half())
+    with pytest.raises(TypeError, match="int32"):
+        ell_spmm.spmm_ell(cols.long(), vals, x)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        ell_spmm.spmm_ell(cols.cpu(), vals, x)

@@ -305,7 +305,7 @@ def test_eval_step_uses_running_stats_and_leaves_them_alone(tiny):
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(task="edge_binary"), dict(task="node_classification"), dict(task="link_prediction"),
+    dict(task="edge_binary"),
     dict(ckpt_dir="x"), dict(ckpt_every=1), dict(pe_flip_node_static=1),
     dict(pe_flip_edge_static=1), dict(tsp_aug_prob=0.75), dict(prefetch=2),
 ])
