@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels from ``hl_hgat_tpu_torch/csrc`` (nvcc, sm_90a)
-   and prints the card's name and power limit.
+1. Builds the CUDA kernels from ``hl_hgat_tpu_torch/csrc`` (nvcc, sm_90a),
+   prints the card's name and power limit, and reads the two Laguerre
+   libraries with ``cuobjdump -sass``: every fused forward and backward
+   kernel must hold tensor-core opcodes (HMMA / HGMMA), in float32
+   (3xTF32) and in bfloat16.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the zinc_pyr forward gives it (the batch's real L0 blocks, random
-   x/W/b), in float32 (max |err| <= 1e-4·max|ref|) and bfloat16
-   (<= 2e-2·max|ref|), and times kernel and plain version (CUDA events,
-   median of repeated launches).
+   x/W/b) and, off the path, at a ragged shape, at K = 8 and at S = 96, in
+   float32 (max |err| <= 1e-4·max|ref|) and bfloat16 (<= 2e-2·max|ref|); a
+   second launch of a fused kernel must give the same bits; times the
+   kernel as device time (ten calls replayed as one CUDA graph, every
+   kernel of the call counted) and the plain version between CUDA events.
 3. Serves 384 synthetic ZINC-like graphs through ``Predictor`` with a
    full-width, seeded ``zinc_pyr`` in float32 and bfloat16, on three conv
    routes: plain torch, terms kernel + torch GEMMs, fused kernel (default).
@@ -39,7 +44,8 @@
    1e-5·max|ref|) and bfloat16 (<= 2e-2·max|ref|), a second launch
    bit-equal; times kernel, plain version and ``torch.sparse.mm`` on a CSR
    tensor of the same operator (a yardstick, used nowhere in the package)
-   as device time from ``torch.profiler``.
+   as device time (CUDA graph replay; the library call from a
+   ``torch.profiler`` trace).
 7. Drives the flat (COO/ELL) layout at full width through ``Trainer``:
    ``zinc_pyr`` on the same 384 graphs (eval forward, a first step and 10
    timed steps on the ELL-kernel route, the plain gather route and the COO
@@ -69,7 +75,14 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 without TF32; bf16 dense
+# bf16 dense on the tensor cores; float32-accurate work at its fastest is
+# three TF32 passes (the fused kernels' 3xTF32): 495 / 3 TFLOP/s, above the
+# 67 TFLOP/s of the CUDA cores, so no float32 row can read under its bound
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+# the kernels that must hold tensor-core opcodes, in both dtypes
+MMA_KERNELS = {"laguerre_dense": ("fused_fwd_mma_kernel",),
+               "laguerre_dense_bwd": ("fused_bwd_dx_mma_kernel", "fused_bwd_dw_mma_kernel")}
+KERNEL_CALLS = 10  # calls per CUDA graph when a Laguerre kernel is timed
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # relative to max|ref|
 # Whole-model gradients, one computation against another: the worst leaf's
 # error as a share of that leaf's max|ref|, and the whole gradient's error
@@ -155,14 +168,37 @@ def device_ms(torch, fn, calls: int) -> float:
     return total_us / 1e3 / calls
 
 
-def check_one(torch, tag, dtype, kernel, plain, nbytes, flops, count, agg):
+def graph_ms(torch, fn, calls: int, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured into one
+    CUDA graph, the graph replayed between two events, median of ``reps``
+    replays over ``calls``.  The replay launches the kernels back to back with
+    no wrapper and no launch from the host in between, so a kernel of a few
+    µs is timed and not its launch (every kernel of the call counts: a cast,
+    a fill, a reduce).  ``device_ms`` would do, but a process that opens much
+    more than a hundred ``torch.profiler`` traces starts to lose events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return median_ms(torch, graph.replay, reps) / calls
+
+
+def check_one(torch, tag, dtype, kernel, plain, nbytes, flops, count, agg, same_bits=False):
     """Kernel vs plain on the same inputs (every output, when there are
     several), then both timed; adds ``count`` launches' worth (one
-    forward's or one backward's) to ``agg``."""
+    forward's or one backward's) to ``agg``.  ``same_bits``: a second
+    launch must reproduce the first bit for bit."""
     outs, refs = kernel(), plain()
     torch.cuda.synchronize()
     if not isinstance(outs, tuple):
         outs, refs = (outs,), (refs,)
+    if same_bits:
+        again = kernel()
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+            fail(f"{tag}: a second launch gave other bits")
     err, scale = 0.0, 0.0
     for i, (out, ref) in enumerate(zip(outs, refs)):
         e = (out.float() - ref.float()).abs().max().item()
@@ -171,12 +207,14 @@ def check_one(torch, tag, dtype, kernel, plain, nbytes, flops, count, agg):
             fail(f"{tag} output {i}: max|err| {e:.3e} > {TOL[dtype]}·{sc:.3e}")
         if e >= err:
             err, scale = e, sc
-    ms = median_ms(torch, kernel, 20)
+    ms = graph_ms(torch, kernel, KERNEL_CALLS)
     plain_ms = median_ms(torch, plain, 10)
+    call_ms = median_ms(torch, kernel, 10)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FLOPS[dtype] * 1e3
     print(f"[kernel] {tag}: max|err| {err:.3e} (max|ref| {scale:.3e}) "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {max(by_bytes, by_ops):.4f} ms "
+          f"kernel {ms:.4f} ms (a call through the wrapper {call_ms:.4f} ms) plain "
+          f"{plain_ms:.4f} ms bound {max(by_bytes, by_ops):.4f} ms "
           f"({'operations' if by_ops >= by_bytes else 'bytes'}) x{count}/pass", flush=True)
     agg["err"] = max(agg["err"], err)
     agg["ms"] += count * ms
@@ -197,7 +235,9 @@ def check_kernels(torch, np, lg, l_blocks, conv_shapes, rng):
         fused_counts[(k, c, f)] = fused_counts.get((k, c, f), 0) + 1
         if k > 1:
             terms_counts[(k, c)] = terms_counts.get((k, c), 0) + 1
-    fused_counts[(3, 100, 72)] = 0  # ragged C and F, checked but not on the path
+    # checked but not on the path (count 0): ragged C and F, the largest K the
+    # backward takes, and a block size under 128 (the leading 96 x 96 of L0)
+    off_path = [(s, 3, 100, 72), (s, 8, 64, 64), (96, 6, 128, 128)]
     summary = {}
     for dtype in ("float32", "bfloat16"):
         td = getattr(torch, dtype)
@@ -207,30 +247,32 @@ def check_kernels(torch, np, lg, l_blocks, conv_shapes, rng):
             summary[(name, dtype)] = dict(ms=0.0, plain_ms=0.0, by_bytes=0.0,
                                           by_ops=0.0, bound=0.0, err=0.0)
 
-        def feats(c):
+        def feats(c, rows=s):
             return torch.from_numpy(
-                rng.standard_normal((g, s, c)).astype(np.float32)).cuda().to(td)
+                rng.standard_normal((g, rows, c)).astype(np.float32)).cuda().to(td)
 
-        for (k, c, f), count in fused_counts.items():
-            x = feats(c)
-            w = torch.from_numpy(
-                rng.uniform(-1, 1, (k, c, f)).astype(np.float32) * np.sqrt(6.0 / (c + f))).cuda()
+        cases = [(s, *shape, count) for shape, count in fused_counts.items()]
+        for sb, k, c, f, count in cases + [(*shape, 0) for shape in off_path]:
+            lb = l if sb == s else l[:, :sb, :sb].contiguous()
+            x = feats(c, sb)
+            w = torch.from_numpy((rng.uniform(-1, 1, (k, c, f)) * np.sqrt(6.0 / (c + f))
+                                  ).astype(np.float32)).cuda()
             b = torch.from_numpy(rng.standard_normal(f).astype(np.float32)).cuda()
             check_one(
-                torch, f"laguerre_dense_fused {dtype} G={g} S={s} C={c} F={f} K={k}", dtype,
-                lambda: lg.laguerre_dense_fused(l, x, w, b),
-                lambda: lg.laguerre_dense_fused_plain(l, x, w, b),
-                (g * s * s + g * s * c + g * s * f) * es + (k * c * f + f) * 4,
-                2 * g * s * (s * c * (k - 1) + k * c * f),
-                count, summary[("laguerre_dense_fused", dtype)])
-            cot = feats(f)
+                torch, f"laguerre_dense_fused {dtype} G={g} S={sb} C={c} F={f} K={k}", dtype,
+                lambda: lg.laguerre_dense_fused(lb, x, w, b),
+                lambda: lg.laguerre_dense_fused_plain(lb, x, w, b),
+                (g * sb * sb + g * sb * c + g * sb * f) * es + (k * c * f + f) * 4,
+                2 * g * sb * (sb * c * (k - 1) + k * c * f),
+                count, summary[("laguerre_dense_fused", dtype)], same_bits=True)
+            cot = feats(f, sb)
             check_one(
-                torch, f"laguerre_dense_fused_bwd {dtype} G={g} S={s} C={c} F={f} K={k}", dtype,
-                lambda: lg.laguerre_dense_fused_bwd(l, x, w, cot),
-                lambda: lg.laguerre_dense_fused_bwd_plain(l, x, w, cot),
-                g * (s * s + 2 * s * c + 2 * s * f) * es + (2 * k * c * f + f) * 4,
-                4 * g * s * (s * c * (k - 1) + k * c * f),
-                count, summary[("laguerre_dense_fused_bwd", dtype)])
+                torch, f"laguerre_dense_fused_bwd {dtype} G={g} S={sb} C={c} F={f} K={k}", dtype,
+                lambda: lg.laguerre_dense_fused_bwd(lb, x, w, cot),
+                lambda: lg.laguerre_dense_fused_bwd_plain(lb, x, w, cot),
+                g * (sb * sb + 2 * sb * c + 2 * sb * f) * es + (2 * k * c * f + f) * 4,
+                4 * g * sb * (sb * c * (k - 1) + k * c * f),
+                count, summary[("laguerre_dense_fused_bwd", dtype)], same_bits=True)
         for (k, c), count in terms_counts.items():
             x = feats(c)
             check_one(
@@ -434,10 +476,11 @@ def check_ell(torch, np, ell, cases, rng, card):
     """The ELL SpMM kernel against its plain version, forward and dx, at
     every case ``(tag, CooMatrix on the card, trailing feature shape,
     launches per pass)``, both dtypes; a second launch must give the same
-    bits.  Times kernel, plain version and ``torch.sparse.mm`` as device
-    time (``device_ms``: the kernel takes a few µs, less than its wrapper
-    and launch take on the host), and one call through the wrapper as
-    ``ELL_INNER`` back-to-back calls between two events.
+    bits.  Times kernel and plain version as device time (``graph_ms``: the
+    kernel takes a few µs, less than its wrapper and launch take on the
+    host), ``torch.sparse.mm`` the same way from a profiler trace
+    (``device_ms``), and one call through the wrapper as ``ELL_INNER``
+    back-to-back calls between two events.
 
     Returns per dtype the sums over one flat zinc_pyr training step's
     launches (each counted shape runs once forward and once, on the
@@ -471,8 +514,8 @@ def check_ell(torch, np, ell, cases, rng, card):
                     and torch.equal(xk.grad, ell.spmm_ell(cols, vals, cot))):
                 fail(f"{name}: a second launch gave other bits")
             call_ms = median_ms(torch, lambda: ell.spmm_ell(cols, vals, x), 5, ELL_INNER)
-            ms = device_ms(torch, lambda: ell.spmm_ell(cols, vals, x), ELL_INNER)
-            plain_ms = device_ms(torch, lambda: ell.spmm_ell_plain(cols, vals, x), ELL_INNER)
+            ms = graph_ms(torch, lambda: ell.spmm_ell(cols, vals, x), ELL_INNER)
+            plain_ms = graph_ms(torch, lambda: ell.spmm_ell_plain(cols, vals, x), ELL_INNER)
             x2 = x.reshape(n, -1)
             try:
                 csr = csr_of(torch, coo).to(td)
@@ -791,6 +834,17 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
+    for lib, wanted in MMA_KERNELS.items():
+        counts = cuda_build.tensor_core_opcodes(lib)
+        for kernel, n in sorted(counts.items()):
+            print(f"[build] {lib}: {n} tensor-core opcodes in {kernel}", flush=True)
+        for name in wanted:
+            for bf16 in (False, True):
+                found = [n for kernel, n in counts.items()
+                         if name in kernel and ("bfloat16" in kernel) == bf16]
+                if not found or min(found) == 0:
+                    fail(f"{name} ({'bfloat16' if bf16 else 'float32'}) holds no "
+                         f"tensor-core opcode: {found}")
 
     # ---- data -------------------------------------------------------------
     t0 = time.perf_counter()

@@ -36,6 +36,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def tensor_core_opcodes(name: str) -> dict[str, int]:
+    """``{mangled kernel name: count of HMMA / HGMMA opcodes}`` in the
+    built library of ``csrc/<name>.cu``, read from ``cuobjdump -sass`` (the
+    toolkit binary next to ``nvcc``).  Both ``mma.sync`` on bfloat16 and on
+    TF32 operands compile to HMMA; ``wgmma`` to HGMMA."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(library_path(name))],
+        capture_output=True, text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    kernel = None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            kernel = line.split(":", 1)[1].strip()
+            counts[kernel] = 0
+        elif kernel is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[kernel] += 1
+    return counts
+
+
 def library_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
     for header in sorted(SRC_DIR.glob("*.cuh")):

@@ -6,17 +6,18 @@ Port of ``hl_hgat_tpu/ops/pallas_hodge.py``, forward and backward:
   reached through ``_fused_fwd_impl`` :191-215): the whole recurrence
   ``T0 = x, T1 = x − Lx, T_{k+1} = (−L·T_k + (2k+1)·T_k − k·T_{k−1})/(k+1)``
   plus ``Σ_k T_k @ W_k + b`` per graph block, the terms never leaving the
-  chip.  On an H100 it is bound by operations: 0.166 ms (f32) at
-  zinc_pyr's widest layer, G=78, S=128, C=F=256, K=6.
+  chip.  On an H100 it is bound by operations: at zinc_pyr's widest layer,
+  G=78, S=128, C=F=256, K=6, 0.067 ms in float32 (3xTF32 on the tensor
+  cores, 495/3 TFLOP/s) and 0.011 ms in bfloat16 (989 TFLOP/s).
 * ``laguerre_terms_dense`` replaces ``_terms_fwd_kernel`` (:285-290, via
   ``_terms_fwd_impl`` :310-333): all K terms in one pass with L resident;
-  at that layer bound by operations in f32 (0.049 ms) and by the bytes
+  at that layer bound by operations in f32 (0.020 ms) and by the bytes
   of the K terms it writes in bf16 (0.011 ms).
 * ``laguerre_dense_fused_bwd`` replaces ``_bwd_kernel`` (:123-174, via
   ``_fused_bwd`` :222-264): from ``(l, x, w)`` and the cotangent ``g`` it
   recomputes the terms, gives ``dW_k = Σ_g T_kᵀ g`` and ``db = Σ g`` in
   float32 and ``dx`` by the adjoint recurrence over ``b̄_k = g W_kᵀ``.
-  Twice the forward's operations: 0.33 ms (f32) at the widest layer.
+  Twice the forward's operations: 0.135 ms (f32) at the widest layer.
 * ``laguerre_terms_dense_bwd`` replaces ``_terms_bwd_kernel`` (:293-307,
   via ``_terms_vjp_bwd`` :348-375): ``dx`` by the adjoint recurrence over
   the K term cotangents; the forward's operations and bytes.
@@ -25,17 +26,32 @@ L is symmetric and is data: neither backward gives a gradient for it.
 
 The forward kernels are CUDA C++ in ``csrc/laguerre_dense.cu``, the
 backward kernels in ``csrc/laguerre_dense_bwd.cu`` (the headers have the
-designs).  The public functions are ``torch.autograd.Function``s: forward
-and backward each launch their kernel for CUDA tensors and raise on
-anything the kernel does not take; they run the plain PyTorch versions,
-in this module, only for tensors on the CPU.  The plain backward versions
-are the hand-derived adjoints written step by step, not autograd through
-the plain forward.  ``LAUNCHES`` counts kernel launches per wrapper (a
-backward that needs several CUDA kernels counts once).
+designs).  The two fused kernels run every product on the tensor cores
+with float32 accumulation — bfloat16 as ``mma.sync.m16n8k16`` fed by
+``ldmatrix``, float32 as three TF32 passes over operands split into a high
+and a low part, which keeps float32 accuracy — with L, the term tiles, g
+and the weight slices in shared memory in x's type and the global loads
+as 16-byte ``cp.async``.  Forward and backward run the recurrence once per
+(graph block, channel) for F <= 256; the forward takes any K, the
+backward K <= ``MAX_BWD_K`` (one register accumulator set per term).
+Both take any block size S <= ``MAX_BLOCK``, any C and F; at most 226 KB
+of shared memory, checked against ``_SMEM_LIMIT``.  The terms kernels are the first
+version on CUDA cores.
+
+The public functions are ``torch.autograd.Function``s: forward and
+backward each launch their kernel for CUDA tensors and raise on anything
+the kernel does not take; they run the plain PyTorch versions, in this
+module, only for tensors on the CPU.  The plain backward versions are the
+hand-derived adjoints written step by step, not autograd through the
+plain forward.  ``emulated_products`` lets a test run the plain versions
+with the float32 kernels' split products.  ``LAUNCHES`` counts kernel
+launches per wrapper (a backward that needs several CUDA kernels counts
+once).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -49,7 +65,7 @@ LAUNCHES = {
 MAX_BLOCK = 128  # L tile held in shared memory: S <= 128
 _SMEM_LIMIT = 232448  # bytes a block may opt into on sm_90
 
-MAX_BWD_K = 8  # the dW kernel keeps one register accumulator set per term
+MAX_BWD_K = 8  # the backward kernels keep one register accumulator set per term
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -68,16 +84,15 @@ def _library(name: str = "laguerre_dense") -> ctypes.CDLL:
         p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         if name == "laguerre_dense":
             sigs = {
-                "hlhgat_laguerre_fused_fwd": ([p, p, p, p, p, i, i, i, i, i, i, p], i),
+                "hlhgat_laguerre_fused_fwd": ([p] * 6 + [i] * 6 + [p], i),
                 "hlhgat_laguerre_terms_fwd": ([p, p, p, i, i, i, i, i, p], i),
-                "hlhgat_laguerre_fused_smem": ([i, i], z),
+                "hlhgat_laguerre_fused_smem": ([i, i, i], z),
             }
         else:
             sigs = {
-                "hlhgat_laguerre_fused_bwd": (
-                    [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p], i),
+                "hlhgat_laguerre_fused_bwd": ([p] * 8 + [i] * 7 + [p], i),
                 "hlhgat_laguerre_terms_bwd": ([p, p, p, i, i, i, i, i, p], i),
-                "hlhgat_laguerre_fused_bwd_smem": ([i, i], z),
+                "hlhgat_laguerre_fused_bwd_smem": ([i, i, i], z),
                 "hlhgat_laguerre_terms_bwd_smem": ([i, i], z),
                 "hlhgat_laguerre_fused_bwd_splits": ([i, i, i], i),
             }
@@ -117,9 +132,45 @@ def _no_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+_products: str | None = None  # None: exact float32 products; "tf32x3", "tf32": emulated
+
+
+@contextlib.contextmanager
+def emulated_products(mode: str | None):
+    """Within the block the plain versions form every float32 matrix
+    product as the card's tensor cores would: ``"tf32x3"`` as the fused
+    kernels do (each operand split into ``hi = tf32(a)`` and
+    ``lo = tf32(a − hi)``, then ``a_lo·b_hi + a_hi·b_lo + a_hi·b_hi``
+    summed in float32), ``"tf32"`` as one TF32 pass would.  bfloat16
+    operands are exact in TF32, so only float32 inputs change.  For tests
+    of the arithmetic; no entry point uses it."""
+    global _products
+    if mode not in (None, "tf32x3", "tf32"):
+        raise ValueError(f"unknown product emulation {mode!r}")
+    before, _products = _products, mode
+    try:
+        yield
+    finally:
+        _products = before
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32's 10 mantissa bits (nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b accumulated in float32 (float32 result)."""
-    return torch.matmul(a.float(), b.float())
+    a, b = a.float(), b.float()
+    if _products is None:
+        return torch.matmul(a, b)
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if _products == "tf32":
+        return torch.matmul(a_hi, b_hi)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + torch.matmul(a_hi, b_hi)
 
 
 def laguerre_terms_plain(l: torch.Tensor, x: torch.Tensor, k: int) -> list[torch.Tensor]:
@@ -195,8 +246,7 @@ def laguerre_dense_fused_bwd_plain(
     g = g.to(x.dtype)
     terms = laguerre_terms_plain(l, x, w.shape[0])
     g2 = g.reshape(-1, g.shape[-1]).float()
-    dw = torch.stack([
-        torch.matmul(t.reshape(-1, t.shape[-1]).float().t(), g2) for t in terms])
+    dw = torch.stack([_dot(t.reshape(-1, t.shape[-1]).t(), g2) for t in terms])
     db = g2.sum(dim=0)
     bars = [_dot(g, w[kk].to(x.dtype).t()).to(x.dtype) for kk in range(w.shape[0])]
     return _adjoint_walk(l.to(x.dtype), bars), dw, db
@@ -215,6 +265,14 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _w_scratch(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor | None:
+    """The buffer into which the kernel casts W where x is bfloat16 (the
+    float32 kernels read w itself)."""
+    if x.dtype == torch.float32:
+        return None
+    return torch.empty(w.shape, dtype=x.dtype, device=x.device)
+
+
 def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
     _check_inputs(l, x)
     g, s, c = x.shape
@@ -225,16 +283,18 @@ def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _library()
-    if lib.hlhgat_laguerre_fused_smem(s, k) > _SMEM_LIMIT:
-        raise ValueError(f"K={k} needs more shared memory than a block has")
+    if lib.hlhgat_laguerre_fused_smem(s, f, _bf16(x)) > _SMEM_LIMIT:
+        raise ValueError(f"S={s}, F={f} need more shared memory than a block has")
     l = l.to(x.dtype).contiguous()
     x = x.contiguous()
     w = w.to(device=x.device, dtype=torch.float32).contiguous()
     b = b.to(device=x.device, dtype=torch.float32).contiguous()
+    wt = _w_scratch(w, x)
     with torch.cuda.device(x.device):
         code = lib.hlhgat_laguerre_fused_fwd(
             l.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), g, s, c, f, k, _bf16(x), _stream(),
+            out.data_ptr(), None if wt is None else wt.data_ptr(),
+            g, s, c, f, k, _bf16(x), _stream(),
         )
     _check_launch(lib, code, "laguerre_dense_fused")
     LAUNCHES["laguerre_dense_fused"] += 1
@@ -272,7 +332,8 @@ def laguerre_dense_fused_bwd(
     On the card: one kernel for dx, one that writes per-slice partial sums
     of dW and db over the graph blocks, one that adds the partials in a
     fixed order — the result does not depend on how the blocks were
-    scheduled.  The wrapper counts the three as one launch.
+    scheduled (and a small one that casts W to bfloat16 where x is).  The
+    wrapper counts them as one launch.
     """
     if x.device.type == "cpu":
         return laguerre_dense_fused_bwd_plain(l, x, w, g)
@@ -289,7 +350,7 @@ def laguerre_dense_fused_bwd(
     dwdb = torch.zeros(n_w + f, dtype=torch.float32, device=x.device)
     if x.numel() and g.numel():
         lib = _library("laguerre_dense_bwd")
-        if lib.hlhgat_laguerre_fused_bwd_smem(s, k) > _SMEM_LIMIT:
+        if lib.hlhgat_laguerre_fused_bwd_smem(s, k, _bf16(x)) > _SMEM_LIMIT:
             raise ValueError(f"K={k} needs more shared memory than a block has")
         n_split = lib.hlhgat_laguerre_fused_bwd_splits(n_g, c, f)
         partial = torch.empty((n_split, n_w + f), dtype=torch.float32, device=x.device)
@@ -297,10 +358,12 @@ def laguerre_dense_fused_bwd(
         x = x.contiguous()
         g = g.to(x.dtype).contiguous()
         w = w.to(device=x.device, dtype=torch.float32).contiguous()
+        wt = _w_scratch(w, x)
         with torch.cuda.device(x.device):
             code = lib.hlhgat_laguerre_fused_bwd(
                 l.data_ptr(), x.data_ptr(), w.data_ptr(), g.data_ptr(),
                 dx.data_ptr(), dwdb.data_ptr(), partial.data_ptr(),
+                None if wt is None else wt.data_ptr(),
                 n_g, s, c, f, k, n_split, _bf16(x), _stream(),
             )
         _check_launch(lib, code, "laguerre_dense_fused_bwd")

@@ -66,9 +66,10 @@ def main() -> None:
     rows = [(dev_us(e), e.count, e.key) for e in prof.key_averages()]
     rows = [r for r in rows if r[0] > 0]
     rows.sort(reverse=True)
-    # kernel-level rows only: aten ops report their kernels' time as self
-    # time too, so keep names that are not torch operators
-    kernels = [r for r in rows if not r[2].startswith(("aten::", "cuda", "Memcpy", "Memset"))]
+    # kernel-level rows only: aten ops and the autograd.Function labels
+    # (``_FusedFunction`` ...) report their kernels' time as self time too
+    kernels = [r for r in rows
+               if not r[2].startswith(("aten::", "cuda", "Memcpy", "Memset", "_"))]
     total_us = sum(r[0] for r in kernels)
     print(f"[profile] {card} | zinc_pyr batch {n} {args.dtype} {args.route} route")
     print(f"[profile] forward {wall_ms / reps:.3f} ms (wall, mean of {reps}); device kernel "

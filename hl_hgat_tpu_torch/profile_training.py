@@ -91,9 +91,9 @@ def main() -> None:
     skip = ("aten::", "cuda", "Memcpy", "Memset", "autograd::", "Optimizer.", "_")
     kernels = [r for r in rows if not r[2].startswith(skip) and "Backward" not in r[2]]
     total_us = sum(r[0] for r in kernels)
-    ours = ("fused_fwd_kernel", "terms_fwd_kernel", "fused_bwd_dx_kernel",
-            "fused_bwd_dw_kernel", "terms_bwd_kernel", "reduce_partials_kernel",
-            "ell_spmm_kernel")
+    ours = ("fused_fwd_mma_kernel", "terms_fwd_kernel", "fused_bwd_dx_mma_kernel",
+            "fused_bwd_dw_mma_kernel", "terms_bwd_kernel", "reduce_partials_kernel",
+            "cast_w_kernel", "ell_spmm_kernel")
     ours_us = sum(r[0] for r in kernels if any(k in r[2] for k in ours))
     print(f"[profile] {card} | zinc_pyr training step, batch {n} {args.dtype} "
           f"{args.layout} layout, {args.route} route")

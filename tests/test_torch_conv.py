@@ -57,6 +57,15 @@ def test_fused_plain_matches_pallas(rng, dtype, k, c, f):
     _close(ours, ref, dtype)
 
 
+def test_fused_plain_matches_pallas_over_two_channel_tiles(rng):
+    """C = 600: the JAX kernel splits the channels into two tiles and carries
+    its accumulator across them; the port's kernel loops over its slices."""
+    l, x, w, b = _kernel_inputs(rng, g=2, c=600, f=8, k=3)
+    ours = lg.laguerre_dense_fused(*(torch.from_numpy(a) for a in (l, x, w, b)))
+    ref = pallas_hodge.laguerre_dense_fused(*(jnp.asarray(a) for a in (l, x, w, b)))
+    _close(ours, ref, "float32")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("k", [2, 3, 6])
 def test_terms_plain_matches_pallas(rng, dtype, k):

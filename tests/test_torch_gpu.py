@@ -17,7 +17,8 @@ from hl_hgat_tpu_torch.ops.dispatch import lap_matvec
 
 pytestmark = pytest.mark.gpu
 
-# f32: no TF32 anywhere, only the summation order differs;
+# f32: full float32 accuracy (the fused kernels split each operand for three
+# TF32 passes, the terms kernels use FMAs), only the summation order differs;
 # bf16: same rounding points, a flipped rounding of a term is one bf16 ulp
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -45,11 +46,20 @@ def _check(out, ref, dtype):
     assert err <= TOL[dtype] * ref.float().abs().max().item(), err
 
 
+# beyond the main-path and ragged shapes: S not a multiple of 16 with odd C
+# and F, K = 8 at the largest block, eight 64-wide channel slices under
+# F = 256, one graph block, more graph blocks than the card has SMs
+_WIDE_SHAPES = [
+    (3, 77, 45, 37, 4), (2, 128, 64, 64, 8), (2, 128, 512, 256, 6),
+    (1, 128, 128, 128, 6), (200, 64, 40, 48, 3),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,s,c,f,k", [
     (3, 128, 64, 64, 6), (2, 128, 100, 72, 3), (5, 13, 7, 130, 1),
     (1, 96, 300, 8, 6), (4, 30, 33, 65, 2),
-])
+] + _WIDE_SHAPES)
 def test_fused_kernel_matches_plain(cuda, dtype, g, s, c, f, k):
     l, x, w, b = _inputs(g, s, c, f, k, dtype, cuda)
     before = lg.LAUNCHES["laguerre_dense_fused"]
@@ -57,6 +67,39 @@ def test_fused_kernel_matches_plain(cuda, dtype, g, s, c, f, k):
     torch.cuda.synchronize()
     assert lg.LAUNCHES["laguerre_dense_fused"] == before + 1
     assert out.dtype == dtype and out.shape == (g, s, f)
+    _check(out, lg.laguerre_dense_fused_plain(l, x, w, b), dtype)
+    # no atomics, fixed tiling: a second launch gives the same bits
+    assert torch.equal(out, lg.laguerre_dense_fused(l, x, w, b))
+
+
+def _offset_copy(t, elems=1):
+    """``t``'s values in contiguous storage that starts ``elems`` elements
+    past an allocation: rows that are not 16-byte aligned."""
+    flat = torch.zeros(t.numel() + elems, dtype=t.dtype, device=t.device)[elems:]
+    return flat.view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_take_unaligned_views(cuda, dtype):
+    """Contiguous inputs at a base that is not 16-byte aligned, and a
+    strided slice of a wider tensor: the kernels take the scalar load path
+    (or the wrapper's contiguous copy) and give the aligned call's bits."""
+    g, s, c, f, k = 3, 96, 72, 40, 4
+    l, x, w, b = _inputs(g, s, c, f, k, dtype, cuda)
+    cot = torch.from_numpy(
+        np.random.default_rng(1).standard_normal((g, s, f)).astype(np.float32)
+    ).to(cuda).to(dtype)
+    out = lg.laguerre_dense_fused(l, x, w, b)
+    grads = lg.laguerre_dense_fused_bwd(l, x, w, cot)
+    lo, xo, wo, co = _offset_copy(l), _offset_copy(x), _offset_copy(w), _offset_copy(cot)
+    assert xo.data_ptr() % 16 != 0 and xo.is_contiguous()
+    assert torch.equal(lg.laguerre_dense_fused(lo, xo, wo, b), out)
+    for a, r in zip(lg.laguerre_dense_fused_bwd(lo, xo, wo, co), grads):
+        assert torch.equal(a, r)
+    wide = torch.cat([torch.zeros_like(x[..., :1]), x], dim=-1)
+    view = wide[..., 1:]  # not contiguous, rows offset by one element
+    assert not view.is_contiguous()
+    assert torch.equal(lg.laguerre_dense_fused(l, view, w, b), out)
     _check(out, lg.laguerre_dense_fused_plain(l, x, w, b), dtype)
 
 
@@ -85,7 +128,7 @@ def test_wrappers_reject_what_the_kernel_cannot_take(cuda):
 _BWD_SHAPES = [
     (3, 128, 64, 64, 6), (2, 128, 100, 72, 3), (5, 13, 7, 130, 1),
     (7, 96, 70, 8, 6), (4, 30, 33, 65, 2), (2, 128, 64, 64, 1),
-]
+] + _WIDE_SHAPES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -153,9 +196,14 @@ def test_backward_wrappers_reject_what_the_kernels_cannot_take(cuda):
     l, x, w, _ = _inputs(1, 16, 8, 8, 9, torch.float32, cuda)
     with pytest.raises(ValueError, match="K <= 8"):
         lg.laguerre_dense_fused_bwd(l, x, w, torch.zeros(1, 16, 8, device=cuda))
+    # K = 8 at the largest block fits the fused backward (the adjoint walk
+    # runs in registers); the terms backward keeps all K cotangent tiles in
+    # shared memory and refuses K = 10 there
     l, x, w, _ = _inputs(1, 128, 8, 8, 8, torch.float32, cuda)
+    dx, dw, db = lg.laguerre_dense_fused_bwd(l, x, w, torch.zeros(1, 128, 8, device=cuda))
+    assert not bool(dx.any()) and not bool(dw.any()) and not bool(db.any())
     with pytest.raises(ValueError, match="shared memory"):
-        lg.laguerre_dense_fused_bwd(l, x, w, torch.zeros(1, 128, 8, device=cuda))
+        lg.laguerre_terms_dense_bwd(l, torch.zeros(10, 1, 128, 8, device=cuda), 10)
     with pytest.raises(ValueError, match="dt"):
         lg.laguerre_terms_dense_bwd(l, torch.zeros(3, 1, 128, 8, device=cuda), 2)
 

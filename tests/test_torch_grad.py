@@ -97,6 +97,18 @@ def test_fused_vjp_matches_pallas(dtype, g, s, c, f, k):
     _close(tb.grad, rdb, dtype, "db")
 
 
+def test_fused_vjp_matches_pallas_over_two_channel_tiles():
+    """C = 600, two channel tiles on the JAX side (float32)."""
+    l, x, w, b, cot = _kernel_inputs(2, 16, 600, 8, 3)
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    lg.laguerre_dense_fused(torch.from_numpy(l), tx, tw, tb).backward(torch.from_numpy(cot))
+    _, vjp = jax.vjp(pallas_hodge.laguerre_dense_fused, *(jnp.asarray(a) for a in (l, x, w, b)))
+    _, rdx, rdw, rdb = vjp(jnp.asarray(cot))
+    _close(tx.grad, rdx, "float32", "dx")
+    _close(tw.grad, rdw, "float32", "dw")
+    _close(tb.grad, rdb, "float32", "db")
+
+
 @pytest.mark.parametrize("g,s,c,f,k", KERNEL_SHAPES)
 def test_fused_plain_backward_matches_autograd_of_plain_forward(g, s, c, f, k):
     """Same math, other association (adjoint walk vs reverse-mode through
