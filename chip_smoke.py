@@ -5,14 +5,15 @@
 
 1. Builds the CUDA kernels from ``hl_hgat_tpu_torch/csrc`` (nvcc, sm_90a),
    prints the card's name and power limit, and reads the two Laguerre
-   libraries with ``cuobjdump -sass``: every fused forward and backward
-   kernel must hold tensor-core opcodes (HMMA / HGMMA), in float32
-   (3xTF32) and in bfloat16.
+   libraries with ``cuobjdump -sass``: every Laguerre kernel, fused and
+   terms, forward and backward, must hold tensor-core opcodes (HMMA /
+   HGMMA), in float32 (3xTF32) and in bfloat16.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the zinc_pyr forward gives it (the batch's real L0 blocks, random
-   x/W/b) and, off the path, at a ragged shape, at K = 8 and at S = 96, in
-   float32 (max |err| <= 1e-4·max|ref|) and bfloat16 (<= 2e-2·max|ref|); a
-   second launch of a fused kernel must give the same bits; times the
+   x/W/b) and, off the path, at a ragged shape, at K = 8 and at S = 96 (the
+   terms kernels also at K = 10), in float32 (max |err| <=
+   1e-4·max|ref|) and bfloat16 (<= 2e-2·max|ref|); a second launch of a
+   Laguerre kernel must give the same bits; times the
    kernel as device time (ten calls replayed as one CUDA graph, every
    kernel of the call counted) and the plain version between CUDA events.
 3. Serves 384 synthetic ZINC-like graphs through ``Predictor`` with a
@@ -80,8 +81,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # 67 TFLOP/s of the CUDA cores, so no float32 row can read under its bound
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # the kernels that must hold tensor-core opcodes, in both dtypes
-MMA_KERNELS = {"laguerre_dense": ("fused_fwd_mma_kernel",),
-               "laguerre_dense_bwd": ("fused_bwd_dx_mma_kernel", "fused_bwd_dw_mma_kernel")}
+MMA_KERNELS = {"laguerre_dense": ("fused_fwd_mma_kernel", "terms_fwd_mma_kernel"),
+               "laguerre_dense_bwd": ("fused_bwd_dx_mma_kernel", "fused_bwd_dw_mma_kernel",
+                                      "terms_bwd_mma_kernel")}
 KERNEL_CALLS = 10  # calls per CUDA graph when a Laguerre kernel is timed
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # relative to max|ref|
 # Whole-model gradients, one computation against another: the worst leaf's
@@ -236,8 +238,10 @@ def check_kernels(torch, np, lg, l_blocks, conv_shapes, rng):
         if k > 1:
             terms_counts[(k, c)] = terms_counts.get((k, c), 0) + 1
     # checked but not on the path (count 0): ragged C and F, the largest K the
-    # backward takes, and a block size under 128 (the leading 96 x 96 of L0)
+    # backward takes, and a block size under 128 (the leading 96 x 96 of L0);
+    # the terms kernels also at K = 10, which their streamed backward takes
     off_path = [(s, 3, 100, 72), (s, 8, 64, 64), (96, 6, 128, 128)]
+    terms_off_path = [(s, 3, 100), (s, 8, 64), (96, 6, 128), (s, 10, 64)]
     summary = {}
     for dtype in ("float32", "bfloat16"):
         td = getattr(torch, dtype)
@@ -273,23 +277,25 @@ def check_kernels(torch, np, lg, l_blocks, conv_shapes, rng):
                 g * (sb * sb + 2 * sb * c + 2 * sb * f) * es + (2 * k * c * f + f) * 4,
                 4 * g * sb * (sb * c * (k - 1) + k * c * f),
                 count, summary[("laguerre_dense_fused_bwd", dtype)], same_bits=True)
-        for (k, c), count in terms_counts.items():
-            x = feats(c)
+        terms_cases = [(s, k, c, count) for (k, c), count in terms_counts.items()]
+        for sb, k, c, count in terms_cases + [(*shape, 0) for shape in terms_off_path]:
+            lb = l if sb == s else l[:, :sb, :sb].contiguous()
+            x = feats(c, sb)
+            nbytes = (g * sb * sb + g * sb * c + k * g * sb * c) * es
+            flops = 2 * g * sb * sb * c * (k - 1)
             check_one(
-                torch, f"laguerre_terms_dense {dtype} G={g} S={s} C={c} K={k}", dtype,
-                lambda: lg.laguerre_terms_dense(l, x, k),
-                lambda: lg.laguerre_terms_dense_plain(l, x, k),
-                (g * s * s + g * s * c + k * g * s * c) * es,
-                2 * g * s * s * c * (k - 1),
-                count, summary[("laguerre_terms_dense", dtype)])
-            dt = torch.stack([feats(c) for _ in range(k)])
+                torch, f"laguerre_terms_dense {dtype} G={g} S={sb} C={c} K={k}", dtype,
+                lambda: lg.laguerre_terms_dense(lb, x, k),
+                lambda: lg.laguerre_terms_dense_plain(lb, x, k),
+                nbytes, flops, count, summary[("laguerre_terms_dense", dtype)],
+                same_bits=True)
+            dt = torch.stack([feats(c, sb) for _ in range(k)])
             check_one(
-                torch, f"laguerre_terms_dense_bwd {dtype} G={g} S={s} C={c} K={k}", dtype,
-                lambda: lg.laguerre_terms_dense_bwd(l, dt, k),
-                lambda: lg.laguerre_terms_dense_bwd_plain(l, dt, k),
-                (g * s * s + g * s * c + k * g * s * c) * es,
-                2 * g * s * s * c * (k - 1),
-                count, summary[("laguerre_terms_dense_bwd", dtype)])
+                torch, f"laguerre_terms_dense_bwd {dtype} G={g} S={sb} C={c} K={k}", dtype,
+                lambda: lg.laguerre_terms_dense_bwd(lb, dt, k),
+                lambda: lg.laguerre_terms_dense_bwd_plain(lb, dt, k),
+                nbytes, flops, count, summary[("laguerre_terms_dense_bwd", dtype)],
+                same_bits=True)
     return summary
 
 

@@ -2,14 +2,9 @@
 // Included by laguerre_dense.cu and laguerre_dense_bwd.cu; every function is
 // inlined into its kernel.
 //
-// Part 1 (CUDA cores, used by the terms kernels): the dtype helpers with the
-// JAX kernels' rounding points, scalar tile loaders and the recurrence step.
-// Thread layout of its row-owning steps: 256 threads as 32 row groups x 8
-// column lanes; thread (rg, lane) owns rows 4rg..4rg+3 and columns
-// lane + 8q, q < 4, of a [S, 32] channel tile.
-//
-// Part 2 (tensor cores, used by the fused kernels): blocks of 16 warps whose
-// operands sit in shared memory in their own type.
+// Io<T>: the dtype helpers with the JAX kernels' rounding points.  Then the
+// tensor-core primitives of all four Laguerre kernels, whose operands sit in
+// shared memory in their own type:
 // * bfloat16: mma.sync.m16n8k16 with f32 accumulators, fragments fetched
 //   with ldmatrix (.trans where the tile is stored along the other axis).
 //   Rows are padded by 16 bytes, so a row stride is an odd multiple of 16
@@ -34,6 +29,8 @@
 //   stride are 16-byte aligned and the chunk lies inside the array; ragged
 //   edges and unaligned bases take scalar loads, and everything beyond the
 //   array is zero in shared memory.  Nothing is padded in device memory.
+//   Tiles leave shared memory the same way (store_tile): 16-byte stores along
+//   rows where the destination allows, scalar stores elsewhere.
 
 #pragma once
 
@@ -44,9 +41,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 32 row groups x 8 column lanes
-constexpr int kCT = 32;        // channel tile
-constexpr int kLdt = kCT + 1;  // padded term-buffer row stride (bank spread)
+constexpr int kThreads = 256;  // blocks of the elementwise kernels
 
 template <typename T>
 struct Io;
@@ -81,95 +76,47 @@ struct Io<__nv_bfloat16> {
   }
 };
 
-__host__ __device__ inline int pad4(int s) { return (s + 3) & ~3; }
-
-// L of block g into shared memory, zero beyond S (row stride sp + 1).
-template <typename T>
-__device__ void load_l(float* ls, const T* l, int g, int S) {
-  const int sp = pad4(S), ldl = sp + 1;
-  const T* lg = l + (size_t)g * S * S;
-  for (int idx = threadIdx.x; idx < sp * sp; idx += kThreads) {
-    const int r = idx / sp, c = idx % sp;
-    ls[r * ldl + c] =
-        (r < S && c < S) ? Io<T>::load(lg, (size_t)r * S + c) : 0.f;
-  }
-}
-
-// x[g][:, c0:c0+kCT] into a term buffer, zero beyond S and C.
-template <typename T>
-__device__ void load_x(float* tb, const T* x, int g, int S, int C, int c0) {
-  const int sp = pad4(S);
-  const T* xg = x + (size_t)g * S * C;
-  for (int idx = threadIdx.x; idx < sp * kCT; idx += kThreads) {
-    const int r = idx / kCT, c = idx % kCT;
-    tb[r * kLdt + c] = (r < S && c0 + c < C)
-                           ? Io<T>::load(xg, (size_t)r * C + c0 + c)
-                           : 0.f;
-  }
-}
-
-// lt = L[own rows, :] @ src[:, own columns], accumulated in f32.  The caller
-// owns rows (4·(threadIdx.x / 8) < sp).
-__device__ inline void l_times(const float* ls, int sp, const float* src,
-                               float (&lt)[4][4]) {
-  const int r0 = (threadIdx.x / 8) * 4, lane = threadIdx.x % 8;
-  const int ldl = sp + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) lt[i][q] = 0.f;
-  for (int j = 0; j < sp; ++j) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = ls[(r0 + i) * ldl + j];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) b[q] = src[j * kLdt + lane + 8 * q];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) lt[i][q] = fmaf(a[i], b[q], lt[i][q]);
-  }
-}
-
-// next = T_{k+1} from cur = T_k and prev = T_{k-1} (prev unused at k = 0).
-// Thread (rg, lane) owns rows 4rg..4rg+3 and columns lane + 8j, j < 4.
-template <typename T>
-__device__ void next_term(const float* ls, int sp, const float* cur,
-                          const float* prev, float* next, int k) {
-  const int r0 = (threadIdx.x / 8) * 4, lane = threadIdx.x % 8;
-  if (r0 >= sp) return;
-  float lt[4][4];
-  l_times(ls, sp, cur, lt);
-  const float kf = (float)k;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int idx = (r0 + i) * kLdt + lane + 8 * q;
-      const float v = Io<T>::round(lt[i][q]);
-      float t;
-      if (k == 0) {
-        t = Io<T>::round(cur[idx] - v);
-      } else {
-        // (-lt + (2k+1)·T_k - k·T_{k-1}) / (k+1), rounded per operation
-        float s = Io<T>::round(-v + Io<T>::round((2.f * kf + 1.f) * cur[idx]));
-        s = Io<T>::round(s - Io<T>::round(kf * prev[idx]));
-        t = Io<T>::round(s / (kf + 1.f));
-      }
-      next[idx] = t;
-    }
-  }
-}
-
-
 // ---------------------------------------------------------------------------
-// Part 2: tensor-core primitives of the fused kernels
+// tensor-core primitives
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 512;  // 16 warps
+constexpr int kMmaThreads = 512;  // 16 warps: the fused kernels' blocks
 constexpr int kMaxK = 8;          // register accumulator sets of the backward
 
 __host__ __device__ inline int pad32(int s) { return (s + 31) & ~31; }
+
+// Tiling of the terms kernels: a block owns one graph block and a slice of
+// kTermsCT = 32 channels (16 and 64 measured slower in both types), its
+// warps sit 4 along the rows (32 each) and wn (forward) or wnb (backward)
+// along the slice, so a warp owns 32 rows x 32 / wn channels.
+// -DHLHGAT_TERMS_WN_BF16=.. (_WNB_; _F32) build another layout for a
+// comparison on the card (scripts/fused_kernel_bench.py --variant).
+#ifndef HLHGAT_TERMS_WN_BF16
+#define HLHGAT_TERMS_WN_BF16 2
+#endif
+#ifndef HLHGAT_TERMS_WNB_BF16
+#define HLHGAT_TERMS_WNB_BF16 1
+#endif
+#ifndef HLHGAT_TERMS_WN_F32
+#define HLHGAT_TERMS_WN_F32 2
+#endif
+#ifndef HLHGAT_TERMS_WNB_F32
+#define HLHGAT_TERMS_WNB_F32 2
+#endif
+constexpr int kTermsCT = 32;
+struct TermsWarps {
+  int wn, wnb;
+};
+template <typename T>
+struct TermsTile;
+template <>
+struct TermsTile<__nv_bfloat16> {
+  static constexpr TermsWarps kSpec{HLHGAT_TERMS_WN_BF16, HLHGAT_TERMS_WNB_BF16};
+};
+template <>
+struct TermsTile<float> {
+  static constexpr TermsWarps kSpec{HLHGAT_TERMS_WN_F32, HLHGAT_TERMS_WNB_F32};
+};
 
 __device__ inline unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -357,6 +304,15 @@ struct Mma<float> {
   }
 };
 
+// Shared memory of a terms kernel's block, forward and backward alike: L
+// and two [S, ct] tiles in T.
+template <typename T>
+size_t terms_smem_bytes(int S) {
+  const int sp = pad32(S);
+  return sizeof(T) * ((size_t)sp * (sp + Mma<T>::kPadK) +
+                      2 * (size_t)sp * (kTermsCT + Mma<T>::kPadN));
+}
+
 // acc[mi][ni] += A[16 mi .., :depth] * B[:depth, 8 ni ..] for one warp.  a
 // and b point at the warp's first row (column) of the tiles; kAK / kBK say
 // whether the tile is stored along k, kPaired whether float32 walks k in
@@ -427,8 +383,35 @@ __device__ inline void load_tile_async(T* dst, int ld_dst, const T* src,
   }
 }
 
+// The rows < rows_valid, columns < cols_valid of a [*, cols_t] shared tile src
+// (row stride ld_src) out to dst (row stride ld_dst): 16-byte stores along
+// rows where dst and its row stride are 16-byte aligned and the chunk lies
+// inside the array, scalar stores elsewhere.  The caller has synchronised
+// after the tile's last write.  cols_t is a multiple of 16 bytes.
+template <typename T>
+__device__ inline void store_tile(T* dst, size_t ld_dst, const T* src,
+                                  int ld_src, int rows_valid, int cols_t,
+                                  int cols_valid) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec_ok = (reinterpret_cast<size_t>(dst) % 16 == 0) &&
+                      ((ld_dst * sizeof(T)) % 16 == 0);
+  const int chunks = cols_t / V;
+  for (int idx = threadIdx.x; idx < rows_valid * chunks; idx += blockDim.x) {
+    const int r = idx / chunks, c = (idx % chunks) * V;
+    const T* s = src + r * ld_src + c;
+    T* d = dst + r * ld_dst + c;
+    if (vec_ok && c + V <= cols_valid) {
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (c + v < cols_valid) d[v] = s[v];
+    }
+  }
+}
+
 // T_{k+1} at two neighbouring coordinates from lt = (L T_k), cur = T_k,
-// prev = T_{k-1} there, with next_term's rounding points.
+// prev = T_{k-1} there, rounded where the JAX kernel rounds.
 template <typename T>
 __device__ inline float2 laguerre_step2(float2 lt, float2 cur, float2 prev, int k) {
   using R = Io<T>;
@@ -440,6 +423,63 @@ __device__ inline float2 laguerre_step2(float2 lt, float2 cur, float2 prev, int 
   const float2 kp = R::round2(make_float2(kf * prev.x, kf * prev.y));
   s = R::round2(make_float2(s.x - kp.x, s.y - kp.y));
   return R::round2(make_float2(R::div(s.x, d), R::div(s.y, d)));
+}
+
+// Two neighbouring elements of a tile (an accumulator's column pair) in T's
+// own arithmetic, for the terms kernels: float2 for float; for bfloat16 the
+// packed bf16x2 operations, each rounding once to bfloat16 (.rn, so never
+// contracted into an fma).  The exact result of an operation on two bfloat16
+// values rounded once is what Io<T>::round2 of the float result gives, so
+// these give laguerre_step2's bits with two conversions a pair, not seven.
+template <typename T>
+struct Pair;
+
+template <>
+struct Pair<float> {
+  using V = float2;
+  __device__ static V ld(const float* p) { return *reinterpret_cast<const float2*>(p); }
+  __device__ static void st(float* p, V v) { *reinterpret_cast<float2*>(p) = v; }
+  __device__ static V of(float a, float b) { return make_float2(a, b); }
+  __device__ static V add(V a, V b) { return make_float2(a.x + b.x, a.y + b.y); }
+  __device__ static V sub(V a, V b) { return make_float2(a.x - b.x, a.y - b.y); }
+  __device__ static V mul(float s, V a) { return make_float2(s * a.x, s * a.y); }
+  __device__ static V div(V a, float d) { return make_float2(a.x / d, a.y / d); }
+};
+
+template <>
+struct Pair<__nv_bfloat16> {
+  using V = __nv_bfloat162;
+  __device__ static V ld(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const __nv_bfloat162*>(p);
+  }
+  __device__ static void st(__nv_bfloat16* p, V v) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = v;
+  }
+  __device__ static V of(float a, float b) { return __floats2bfloat162_rn(a, b); }
+  __device__ static V add(V a, V b) { return __hadd2_rn(a, b); }
+  __device__ static V sub(V a, V b) { return __hsub2_rn(a, b); }
+  // s is a small integer or an already rounded coefficient: exact in bf16
+  __device__ static V mul(float s, V a) { return __hmul2_rn(__float2bfloat162_rn(s), a); }
+  __device__ static V div(V a, float d) {
+    const float2 f = __bfloat1622float2(a);
+    return __floats2bfloat162_rn(Io<__nv_bfloat16>::div(f.x, d),
+                                 Io<__nv_bfloat16>::div(f.y, d));
+  }
+};
+
+// laguerre_step2 on a Pair: T_{k+1} from lt = (L T_k), cur = T_k, prev =
+// T_{k-1} at two neighbouring coordinates.
+template <typename T>
+__device__ inline typename Pair<T>::V laguerre_step_pair(float lt0, float lt1,
+                                                         typename Pair<T>::V cur,
+                                                         typename Pair<T>::V prev,
+                                                         int k) {
+  using P = Pair<T>;
+  const typename P::V v = P::of(lt0, lt1);
+  if (k == 0) return P::sub(cur, v);
+  const float kf = (float)k;
+  return P::div(P::sub(P::sub(P::mul(2.f * kf + 1.f, cur), v), P::mul(kf, prev)),
+                kf + 1.f);
 }
 
 // w [n] float32 -> wt [n] in T: the kernels take W in x's type.

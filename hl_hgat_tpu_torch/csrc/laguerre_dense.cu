@@ -15,9 +15,9 @@
 // S=128, C=F=256, K=6:
 //   fused: 2·G·S·(S·C·(K-1) + K·C·F) = 11.1 GFLOP -> 0.067 ms f32 and
 //          0.011 ms bf16, bound by operations (25 MB of traffic);
-//   terms: 2·G·S·S·C·(K-1) = 3.3 GFLOP -> 0.020 ms f32, bound by
-//          operations; in bf16 its 38 MB of traffic (it writes K·G·S·C
-//          terms) bound it: 0.011 ms.
+//   terms: 2·G·S·S·C·(K-1) = 3.3 GFLOP (0.020 ms f32, 0.003 ms bf16), but
+//          it writes K·G·S·C terms: 76.7 MB of traffic in f32 and 38.3 MB
+//          in bf16 bound it by bytes, 0.023 and 0.011 ms.
 //
 // The fused kernel (fused_fwd_mma_kernel), against what the TPU kernel
 // relied on and what this card offers:
@@ -30,7 +30,7 @@
 //   blocks.  Only F > 256 splits F over blockIdx.y and reruns the recurrence
 //   per 256 features.  Any C works (dense-concat stacks reach 1300+).
 // * All four products run on tensor cores with f32 accumulation
-//   (laguerre_common.cuh, part 2): bf16 mma.sync.m16n8k16 fed by ldmatrix;
+//   (laguerre_common.cuh): bf16 mma.sync.m16n8k16 fed by ldmatrix;
 //   float32 as 3xTF32 on mma.sync.m16n8k8, which keeps float32 accuracy
 //   (the JAX kernel's float32 is a multi-pass bf16 product on the MXU).
 // * Operands sit in shared memory in x's type: L [S, S] resident, three
@@ -54,9 +54,25 @@
 // * Padding rows of a packed block (zero L rows) still receive the bias,
 //   exactly as in the JAX kernel; the caller's BN masks them.
 //
-// The terms kernel (terms_fwd_kernel) is the first version on CUDA cores:
-// one block of 256 threads per (graph block, 32-wide C-tile), L as f32 in
-// shared memory, three rotating term buffers.
+// The terms kernel (terms_fwd_mma_kernel), bound by the terms it writes:
+// * One block per (graph block, 32-channel slice): 64 bytes a row in bf16,
+//   128 in f32, so C = 64 gives 156 blocks and every SM has stores in
+//   flight.  4 warps along the rows x 2 along the slice (TermsTile,
+//   laguerre_common.cuh); L [S, S] resident and two term tiles [S, 32], all
+//   in x's type: 54 KB in bf16 (three blocks an SM, by registers), 106 KB
+//   in f32 (two) at S=128.  Each slice's block loads L again, from L2.
+// * L·T_k runs on the tensor cores (warp_gemm: bf16 mma.sync + ldmatrix,
+//   f32 3xTF32) and T_{k+1} is formed at the accumulator's coordinates over
+//   T_{k-1}, as in the fused kernel: two tiles rotate, one barrier a term.
+//   The combine works on element pairs in x's arithmetic (Pair<T>): in
+//   bf16 packed bf16x2 operations that round once each, the same bits as
+//   rounding float results, with two conversions a pair instead of seven.
+// * Each term leaves shared memory, where it is whole after the step's
+//   barrier, through 16-byte stores along its rows (T_0 from the x tile);
+//   the stores are issued before the product that makes the next term, so
+//   they drain while it runs.  Shared memory does not depend on K: any K.
+// * Rounding as in the fused kernel; no atomics, so a second launch gives
+//   the same bits.
 
 #include "laguerre_common.cuh"
 
@@ -165,34 +181,58 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    terms_fwd_kernel(const T* __restrict__ l, const T* __restrict__ x,
-                     T* __restrict__ t, int G, int S, int C, int K) {
-  extern __shared__ float smem[];
-  const int sp = pad4(S);
-  float* ls = smem;
-  float* tb = ls + sp * (sp + 1);
-  const int g = blockIdx.x;
-  const int c0 = blockIdx.y * kCT;
+// Warp w owns rows 32 (w / WN) .. + 31 and the channels (CT / WN)·(w % WN)
+// .. of the block's slice.
+template <typename T, int WN>
+__global__ void __launch_bounds__(128 * WN, 4 / WN)
+    terms_fwd_mma_kernel(const T* __restrict__ l, const T* __restrict__ x,
+                         T* __restrict__ t, int G, int S, int C, int K) {
+  using M = Mma<T>;
+  using P = Pair<T>;
+  constexpr int CT = kTermsCT;
+  constexpr int NT = CT / (8 * WN);  // n8-tiles a warp owns in L·T
+  static_assert(NT >= 1 && CT % (8 * WN) == 0, "a warp owns whole n8-tiles");
+  constexpr int ldt = CT + M::kPadN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int sp = pad32(S), ldl = sp + M::kPadK;
+  T* ls = reinterpret_cast<T*>(smem_raw);
+  T* tb = ls + sp * ldl;  // 2 term tiles [sp][ldt]
+  const int tile = sp * ldt;
+  const int c0 = blockIdx.y * CT, cv = C - c0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int m0 = (warp / WN) * 32, n0 = (warp % WN) * (CT / WN);
+  const bool active = m0 < sp;
+  const size_t at = (size_t)blockIdx.x * S * C + c0;  // the slice in [G,S,C]
   const size_t term_stride = (size_t)G * S * C;
 
-  load_l(ls, l, g, S);
-  load_x(tb, x, g, S, C, c0);
+  if (K > 1)
+    load_tile_async<T>(ls, ldl, l + (size_t)blockIdx.x * S * S, S, sp, sp, S, S);
+  load_tile_async<T>(tb, ldt, x + at, C, sp, CT, S, cv);
+  cp_async_wait_all();
   __syncthreads();
   for (int k = 0; k < K; ++k) {
-    const float* cur = tb + (k % 3) * sp * kLdt;
-    // T_k (already rounded to T) out, coalesced along C
-    T* tk = t + k * term_stride + (size_t)g * S * C;
-    for (int idx = threadIdx.x; idx < S * kCT; idx += kThreads) {
-      const int r = idx / kCT, c = idx % kCT;
-      if (c0 + c < C) Io<T>::store(tk, (size_t)r * C + c0 + c, cur[r * kLdt + c]);
+    T* cur = tb + (k & 1) * tile;
+    T* other = tb + ((k + 1) & 1) * tile;  // holds T_{k-1}, receives T_{k+1}
+    // T_k leaves (T_0 from the x tile); the stores drain while L·T_k runs
+    store_tile<T>(t + k * term_stride + at, C, cur, ldt, S, CT, cv);
+    if (k + 1 == K) break;
+    if (active) {
+      float lt[2][NT][4] = {};
+      warp_gemm<T, 2, NT, true, false>(lt, ls + m0 * ldl, ldl, cur + n0, ldt, sp);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = (m0 + 16 * mi + gid + 8 * h) * ldt + n0 + 8 * ni + 2 * tig;
+            const typename P::V tp = k > 0 ? P::ld(other + e) : P::of(0.f, 0.f);
+            P::st(other + e, laguerre_step_pair<T>(lt[mi][ni][2 * h], lt[mi][ni][2 * h + 1],
+                                                   P::ld(cur + e), tp, k));
+          }
     }
-    if (k + 1 < K) {
-      next_term<T>(ls, sp, cur, tb + ((k + 2) % 3) * sp * kLdt,
-                   tb + ((k + 1) % 3) * sp * kLdt, k);
-      __syncthreads();
-    }
+    __syncthreads();  // T_{k+1} is whole; the reads of T_k are done
   }
 }
 
@@ -206,11 +246,6 @@ size_t fused_smem_bytes(int S, int F) {
   return sizeof(T) * ((size_t)sp * (sp + M::kPadK) +
                       3 * (size_t)sp * (M::kCT + M::kPadN) +
                       2 * (size_t)M::kCT * (fused_ft(F) + M::kPadNP));
-}
-
-size_t terms_smem_bytes(int S) {
-  const int sp = pad4(S);
-  return sizeof(float) * ((size_t)sp * (sp + 1) + 3 * (size_t)sp * kLdt);
 }
 
 template <typename T, int NT>
@@ -256,13 +291,14 @@ int launch_fused(const void* l_, const void* x_, const void* w_, const void* b_,
 template <typename T>
 int launch_terms(const void* l, const void* x, void* t, int G, int S, int C,
                  int K, cudaStream_t stream) {
-  const size_t smem = terms_smem_bytes(S);
+  constexpr int CT = kTermsCT, WN = TermsTile<T>::kSpec.wn;
+  const size_t smem = terms_smem_bytes<T>(S);
   cudaError_t err = cudaFuncSetAttribute(
-      terms_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      terms_fwd_mma_kernel<T, WN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(G, (C + kCT - 1) / kCT);
-  terms_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(G, (C + CT - 1) / CT);
+  terms_fwd_mma_kernel<T, WN><<<grid, 128 * WN, smem, stream>>>(
       static_cast<const T*>(l), static_cast<const T*>(x), static_cast<T*>(t),
       G, S, C, K);
   return (int)cudaGetLastError();
@@ -287,6 +323,11 @@ int hlhgat_laguerre_fused_fwd(const void* l, const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_fused<__nv_bfloat16>(l, x, w, b, out, wt, G, S, C, F, K, s)
               : launch_fused<float>(l, x, w, b, out, wt, G, S, C, F, K, s);
+}
+
+// Shared memory of a terms kernel's block (forward and backward alike).
+size_t hlhgat_laguerre_terms_smem(int S, int bf16) {
+  return bf16 ? terms_smem_bytes<__nv_bfloat16>(S) : terms_smem_bytes<float>(S);
 }
 
 // l [G,S,S], x [G,S,C] -> t [K,G,S,C], all in x's dtype.

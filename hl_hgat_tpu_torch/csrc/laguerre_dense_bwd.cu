@@ -21,14 +21,15 @@
 // S=128, C=F=256, K=6:
 //   fused bwd: 4·G·S·(S·C·(K-1) + K·C·F) = 22.2 GFLOP -> 0.135 ms f32 and
 //              0.022 ms bf16, bound by operations (46 MB of traffic);
-//   terms bwd: 2·G·S·S·C·(K-1) = 3.3 GFLOP -> 0.020 ms f32, bound by
-//              operations; in bf16 by the bytes of the K cotangents it reads.
+//   terms bwd: 2·G·S·S·C·(K-1) = 3.3 GFLOP (0.020 ms f32, 0.003 ms bf16),
+//              but it reads K cotangents: 76.7 MB of traffic in f32 and
+//              38.3 MB in bf16 bound it by bytes, 0.023 and 0.011 ms.
 //
 // The fused backward, against what the TPU kernel relied on and what this
 // card offers.  The TPU kernel keeps the [K,Ct,F] dW block resident while its
 // sequential grid sweeps the graph blocks.  GPU blocks run in no order, so
 // the fused backward is three kernels behind one entry point, the first two
-// on tensor cores (laguerre_common.cuh, part 2: bf16 mma.sync.m16n8k16 fed
+// on tensor cores (laguerre_common.cuh: bf16 mma.sync.m16n8k16 fed
 // by ldmatrix, float32 as 3xTF32 on mma.sync.m16n8k8; f32 accumulators;
 // operands in shared memory in x's type; 16 warps a block; 16-byte cp.async
 // loads with a scalar path for ragged edges and unaligned bases):
@@ -64,9 +65,23 @@
 //   every elementwise step of the walk is rounded to x's dtype (the j/(j+1)
 //   coefficient too); T_k^T g and the sums over graph blocks stay in f32.
 //
-// The terms backward (terms_bwd_kernel) is the first version on CUDA cores:
-// one block of 256 threads per (graph block, 32-wide C-tile) with all K
-// cotangent tiles as f32 in shared memory beside L.
+// The terms backward (terms_bwd_mma_kernel), bound by the cotangents it
+// reads:
+// * One block per (graph block, 32-channel slice): 4 warps along the rows x
+//   1 (bf16) or 2 (f32) along the slice (TermsTile, laguerre_common.cuh).
+//   L·b̄ runs on the tensor cores (warp_gemm, as above).
+// * The walk is streamed.  Three cotangents live in registers at the
+//   accumulator's coordinates, b̄_kk, b̄_{kk-1} and b̄_{kk-2}, as element
+//   pairs in dt's arithmetic (Pair<T>: packed bf16x2 in bf16).  Two shared
+//   tiles alternate: dt_{kk-3} arrives in one by cp.async while L·b̄_kk runs
+//   on the other, and the next step reads it at each thread's own
+//   coordinates and writes b̄_{kk-1} over it there, the operand of its
+//   product (two barriers a step).  So shared memory holds L and two
+//   [S, 32] tiles in dt's type whatever K is (54 KB in bf16, four blocks an
+//   SM; 106 KB in f32, two, at S=128): any K >= 1.
+// * dx leaves through a tile with 16-byte stores.
+// * Rounding as in the fused dx kernel; no atomics: a second launch gives
+//   the same bits.
 
 #include "laguerre_common.cuh"
 
@@ -76,87 +91,6 @@ constexpr int kDxCT = 32;           // channel slice of the dx kernel
 constexpr int kDwCT = 16;           // dW tile: channels ...
 constexpr int kDwFT = 256;          // ... x features
 constexpr int kTargetBlocks = 132;  // one block an SM on an H100
-
-// Adjoint of the recurrence over the K cotangent tiles bb[k] ([sp][kLdt]
-// each, values already in T's precision).  Leaves dx in bb[0].  All threads
-// call; ends with the block synchronised.
-template <typename T>
-__device__ void adjoint_walk(const float* ls, int sp, float* bb, int K) {
-  const int r0 = (threadIdx.x / 8) * 4, lane = threadIdx.x % 8;
-  const bool owns_rows = r0 < sp;
-  const int tile = sp * kLdt;
-  float lt[4][4];
-  for (int kk = K - 1; kk > 1; --kk) {
-    if (owns_rows) {
-      const float jf = (float)(kk - 1);
-      const float coef = Io<T>::round(jf / (jf + 1.f));
-      const float* bt = bb + kk * tile;
-      float* b1 = bb + (kk - 1) * tile;
-      float* b2 = bb + (kk - 2) * tile;
-      l_times(ls, sp, bt, lt);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int idx = (r0 + i) * kLdt + lane + 8 * q;
-          const float v = bt[idx];
-          float s = Io<T>::round(-Io<T>::round(lt[i][q]) +
-                                 Io<T>::round((2.f * jf + 1.f) * v));
-          s = Io<T>::round(s / (jf + 1.f));
-          b1[idx] = Io<T>::round(b1[idx] + s);
-          b2[idx] = Io<T>::round(b2[idx] - Io<T>::round(coef * v));
-        }
-      }
-    }
-    __syncthreads();  // bar_{kk-1} is whole before the next product reads it
-  }
-  if (K > 1) {
-    if (owns_rows) {
-      const float* b1 = bb + tile;
-      l_times(ls, sp, b1, lt);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int idx = (r0 + i) * kLdt + lane + 8 * q;
-          bb[idx] = Io<T>::round(Io<T>::round(bb[idx] + b1[idx]) -
-                                 Io<T>::round(lt[i][q]));
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// bb[0][:, :] (rows < S, columns c0.. < C) out to dx[g], coalesced along C.
-template <typename T>
-__device__ void store_dx(const float* bb, T* dx, int g, int S, int C, int c0) {
-  T* dg = dx + (size_t)g * S * C;
-  for (int idx = threadIdx.x; idx < S * kCT; idx += kThreads) {
-    const int r = idx / kCT, c = idx % kCT;
-    if (c0 + c < C) Io<T>::store(dg, (size_t)r * C + c0 + c, bb[r * kLdt + c]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    terms_bwd_kernel(const T* __restrict__ l, const T* __restrict__ dt,
-                     T* __restrict__ dx, int G, int S, int C, int K) {
-  extern __shared__ float smem[];
-  const int sp = pad4(S);
-  float* ls = smem;
-  float* bb = ls + sp * (sp + 1);  // K cotangent tiles [sp][kLdt]
-  const int g = blockIdx.x;
-  const int c0 = blockIdx.y * kCT;
-  const size_t term_stride = (size_t)G * S * C;
-
-  load_l(ls, l, g, S);
-  for (int k = 0; k < K; ++k)
-    load_x(bb + k * sp * kLdt, dt + k * term_stride, g, S, C, c0);
-  __syncthreads();
-  adjoint_walk<T>(ls, sp, bb, K);
-  store_dx(bb, dx, g, S, C, c0);
-}
 
 // Warp (wm, wn) of the 4 x 4 layout owns rows 32 wm .. + 31 and columns
 // 8 wn .. + 7 of the block's [S, 32] slice of every bar_k.
@@ -260,7 +194,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   for (int kk = kMaxK - 1; kk > 1; --kk) {
     if (kk < K) {
       const float jf = (float)(kk - 1), a = 2.f * jf + 1.f, d = jf + 1.f;
-      const float coef = R::round(jf / d);
+      const float coef = Io<T>::round(jf / d);
       l_times_tile(bar[kk], lt, buf);
       buf ^= 1;
 #pragma unroll
@@ -426,6 +360,152 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   out[i] = s;
 }
 
+// A warp's share of a tile at its accumulator coordinates, v[2][NT][2]
+// (rows 16 mi + gid + 8 h, columns 8 ni + 2 tig and the next, from the tile
+// corner p), to and from shared memory.
+template <typename T, int NT>
+__device__ inline void frag_to_tile(T* p, int ld, const typename Pair<T>::V (&v)[2][NT][2]) {
+  const int gid = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        Pair<T>::st(p + (16 * mi + gid + 8 * h) * ld + 8 * ni + 2 * tig, v[mi][ni][h]);
+}
+
+template <typename T, int NT>
+__device__ inline void frag_from_tile(const T* p, int ld, typename Pair<T>::V (&v)[2][NT][2]) {
+  const int gid = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        v[mi][ni][h] = Pair<T>::ld(p + (16 * mi + gid + 8 * h) * ld + 8 * ni + 2 * tig);
+}
+
+// Warp w owns rows 32 (w / WN) .. + 31 and the channels (CT / WN)·(w % WN)
+// .. of the block's slice of every cotangent.  The walk keeps three of them
+// in registers at the accumulator's coordinates: cur = b̄_kk, nx1 = b̄_{kk-1},
+// nx2 = b̄_{kk-2}.  Two shared tiles alternate: dt_j arrives in tb[j & 1],
+// and the step kk = j + 2 reads it at its own coordinates and writes b̄_kk
+// there, the operand of its L·b̄.
+template <typename T, int WN>
+__global__ void __launch_bounds__(128 * WN, 4 / WN)
+    terms_bwd_mma_kernel(const T* __restrict__ l, const T* __restrict__ dt,
+                         T* __restrict__ dx, int G, int S, int C, int K) {
+  using M = Mma<T>;
+  using P = Pair<T>;
+  using V = typename P::V;
+  constexpr int CT = kTermsCT;
+  constexpr int NT = CT / (8 * WN);  // n8-tiles a warp owns in L·b̄
+  static_assert(NT >= 1 && CT % (8 * WN) == 0, "a warp owns whole n8-tiles");
+  constexpr int ldt = CT + M::kPadN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int sp = pad32(S), ldl = sp + M::kPadK;
+  const int tile = sp * ldt;
+  T* ls = reinterpret_cast<T*>(smem_raw);
+  T* tb = ls + sp * ldl;  // 2 tiles [sp][ldt]
+  const int c0 = blockIdx.y * CT, cv = C - c0;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp / WN) * 32, n0 = (warp % WN) * (CT / WN);
+  const bool active = m0 < sp;
+  const int corner = m0 * ldt + n0;
+  const size_t at = (size_t)blockIdx.x * S * C + c0;  // the slice in [G,S,C]
+  const size_t term_stride = (size_t)G * S * C;
+
+  auto load_dt = [&](int j) {
+    load_tile_async<T>(tb + (j & 1) * tile, ldt, dt + j * term_stride + at, C,
+                       sp, CT, S, cv);
+  };
+  // lt = L @ (the tile tb[b]) at the warp's coordinates
+  auto l_times = [&](float (&lt)[2][NT][4], int b) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) lt[mi][ni][r] = 0.f;
+    warp_gemm<T, 2, NT, true, false>(lt, ls + m0 * ldl, ldl, tb + b * tile + n0,
+                                     ldt, sp);
+  };
+
+  if (K > 1)
+    load_tile_async<T>(ls, ldl, l + (size_t)blockIdx.x * S * S, S, sp, sp, S, S);
+  load_dt(K - 1);
+  if (K > 1) load_dt(K - 2);
+  cp_async_wait_all();
+  __syncthreads();
+  V cur[2][NT][2], nx1[2][NT][2], nx2[2][NT][2];
+  float lt[2][NT][4];
+  if (active) {
+    frag_from_tile<T, NT>(tb + ((K - 1) & 1) * tile + corner, ldt, cur);
+    if (K > 1) frag_from_tile<T, NT>(tb + (K & 1) * tile + corner, ldt, nx1);
+  }
+  if (K > 2) {
+    __syncthreads();  // both tiles are read
+    load_dt(K - 3);
+  }
+  for (int kk = K - 1; kk > 1; --kk) {
+    const int b = kk & 1;
+    const float jf = (float)(kk - 1), a = 2.f * jf + 1.f, d = jf + 1.f;
+    const float coef = Io<T>::round(jf / d);
+    cp_async_wait_all();
+    __syncthreads();  // dt_{kk-2} has landed in tb[b]
+    if (active) {
+      // each thread reads dt_{kk-2} and writes b̄_kk at the same coordinates
+      frag_from_tile<T, NT>(tb + b * tile + corner, ldt, nx2);
+      frag_to_tile<T, NT>(tb + b * tile + corner, ldt, cur);
+    }
+    __syncthreads();  // b̄_kk is whole
+    // dt_{kk-3} arrives in the other tile while L·b̄_kk runs; that tile's
+    // last reader, the previous step's product, finished before the barriers
+    if (kk > 2) load_dt(kk - 3);
+    if (active) {
+      l_times(lt, b);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // b̄_{kk-1} += (-L b̄_kk + (2j+1) b̄_kk) / (j+1) and
+            // b̄_{kk-2} -= j/(j+1) b̄_kk, then the window moves down one term
+            const V b0 = cur[mi][ni][h];
+            const V lv = P::of(lt[mi][ni][2 * h], lt[mi][ni][2 * h + 1]);
+            cur[mi][ni][h] = P::add(nx1[mi][ni][h], P::div(P::sub(P::mul(a, b0), lv), d));
+            nx1[mi][ni][h] = P::sub(nx2[mi][ni][h], P::mul(coef, b0));
+          }
+    }
+  }
+  if (K > 1) {  // cur = b̄_1, nx1 = b̄_0: dx = b̄_0 + b̄_1 - L b̄_1
+    // tb[1] was last read by the product of step 3 (or, at K = 2, at these
+    // coordinates only): no barrier before the write
+    if (active) frag_to_tile<T, NT>(tb + tile + corner, ldt, cur);
+    __syncthreads();
+    if (active) {
+      l_times(lt, 1);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const V lv = P::of(lt[mi][ni][2 * h], lt[mi][ni][2 * h + 1]);
+            cur[mi][ni][h] = P::sub(P::add(nx1[mi][ni][h], cur[mi][ni][h]), lv);
+          }
+    }
+  }
+  // dx (in cur) leaves through tb[0] with 16-byte stores; its last reader
+  // was the product of step 2 (or this thread)
+  if (active) frag_to_tile<T, NT>(tb + corner, ldt, cur);
+  __syncthreads();
+  store_tile<T>(dx + at, C, tb, ldt, S, CT, cv);
+}
+
 template <typename T>
 size_t dx_smem_bytes(int S, int K) {
   using M = Mma<T>;
@@ -449,11 +529,6 @@ template <typename T>
 size_t fused_bwd_smem_bytes(int S, int K) {
   const size_t a = dx_smem_bytes<T>(S, K), b = dw_smem_bytes<T>(S);
   return a > b ? a : b;
-}
-
-size_t terms_bwd_smem_bytes(int S, int K) {
-  const int sp = pad4(S);
-  return sizeof(float) * ((size_t)sp * (sp + 1) + (size_t)K * sp * kLdt);
 }
 
 int dw_splits(int G, int C, int F) {
@@ -523,11 +598,13 @@ int launch_fused_bwd(const void* l_, const void* x_, const void* w_,
 template <typename T>
 int launch_terms_bwd(const void* l, const void* dt, void* dx, int G, int S,
                      int C, int K, cudaStream_t stream) {
-  const size_t smem = terms_bwd_smem_bytes(S, K);
-  cudaError_t err = allow_smem(terms_bwd_kernel<T>, smem);
+  constexpr int CT = kTermsCT, WN = TermsTile<T>::kSpec.wnb;
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = terms_smem_bytes<T>(S);
+  cudaError_t err = allow_smem(terms_bwd_mma_kernel<T, WN>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(G, (C + kCT - 1) / kCT);
-  terms_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(G, (C + CT - 1) / CT);
+  terms_bwd_mma_kernel<T, WN><<<grid, 128 * WN, smem, stream>>>(
       static_cast<const T*>(l), static_cast<const T*>(dt), static_cast<T*>(dx),
       G, S, C, K);
   return (int)cudaGetLastError();
@@ -538,15 +615,10 @@ int launch_terms_bwd(const void* l, const void* dt, void* dx, int G, int S,
 extern "C" {
 
 // Most shared memory a kernel of the fused backward needs (block size S, K
-// terms; bf16 != 0: bfloat16, else float32), and what the terms backward
-// needs.
+// terms; bf16 != 0: bfloat16, else float32).
 size_t hlhgat_laguerre_fused_bwd_smem(int S, int K, int bf16) {
   return bf16 ? fused_bwd_smem_bytes<__nv_bfloat16>(S, K)
               : fused_bwd_smem_bytes<float>(S, K);
-}
-
-size_t hlhgat_laguerre_terms_bwd_smem(int S, int K) {
-  return terms_bwd_smem_bytes(S, K);
 }
 
 // Number of graph-block slices of the dW/db partial sums: the caller

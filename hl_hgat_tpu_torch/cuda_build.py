@@ -69,8 +69,8 @@ def build(names=SOURCES) -> dict[str, str]:
     """Compile every missing library, all ``nvcc`` processes at once.
 
     Returns ``{name: compiler log}`` for the libraries built now (the
-    ``-Xptxas=-v`` register and shared-memory report); raises with the log
-    if any build fails.
+    ``-Xptxas=-v`` register and shared-memory report, also kept beside the
+    library as ``.log``); raises with the log if any build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -87,6 +87,7 @@ def build(names=SOURCES) -> dict[str, str]:
     for name, (tmp, out, proc) in procs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode == 0:
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
         else:
             failed.append(f"nvcc failed for {name}.cu:\n{logs[name]}")

@@ -11,8 +11,8 @@ Port of ``hl_hgat_tpu/ops/pallas_hodge.py``, forward and backward:
   cores, 495/3 TFLOP/s) and 0.011 ms in bfloat16 (989 TFLOP/s).
 * ``laguerre_terms_dense`` replaces ``_terms_fwd_kernel`` (:285-290, via
   ``_terms_fwd_impl`` :310-333): all K terms in one pass with L resident;
-  at that layer bound by operations in f32 (0.020 ms) and by the bytes
-  of the K terms it writes in bf16 (0.011 ms).
+  at that layer bound by the bytes of the K terms it writes, 0.023 ms in
+  float32 and 0.011 ms in bfloat16.
 * ``laguerre_dense_fused_bwd`` replaces ``_bwd_kernel`` (:123-174, via
   ``_fused_bwd`` :222-264): from ``(l, x, w)`` and the cotangent ``g`` it
   recomputes the terms, gives ``dW_k = Σ_g T_kᵀ g`` and ``db = Σ g`` in
@@ -20,23 +20,27 @@ Port of ``hl_hgat_tpu/ops/pallas_hodge.py``, forward and backward:
   Twice the forward's operations: 0.135 ms (f32) at the widest layer.
 * ``laguerre_terms_dense_bwd`` replaces ``_terms_bwd_kernel`` (:293-307,
   via ``_terms_vjp_bwd`` :348-375): ``dx`` by the adjoint recurrence over
-  the K term cotangents; the forward's operations and bytes.
+  the K term cotangents; the forward's operations and bytes, bound by the
+  bytes of the cotangents it reads.
 
 L is symmetric and is data: neither backward gives a gradient for it.
 
 The forward kernels are CUDA C++ in ``csrc/laguerre_dense.cu``, the
 backward kernels in ``csrc/laguerre_dense_bwd.cu`` (the headers have the
-designs).  The two fused kernels run every product on the tensor cores
-with float32 accumulation — bfloat16 as ``mma.sync.m16n8k16`` fed by
+designs).  All four run every product on the tensor cores with float32
+accumulation — bfloat16 as ``mma.sync.m16n8k16`` fed by
 ``ldmatrix``, float32 as three TF32 passes over operands split into a high
 and a low part, which keeps float32 accuracy — with L, the term tiles, g
 and the weight slices in shared memory in x's type and the global loads
-as 16-byte ``cp.async``.  Forward and backward run the recurrence once per
-(graph block, channel) for F <= 256; the forward takes any K, the
-backward K <= ``MAX_BWD_K`` (one register accumulator set per term).
-Both take any block size S <= ``MAX_BLOCK``, any C and F; at most 226 KB
-of shared memory, checked against ``_SMEM_LIMIT``.  The terms kernels are the first
-version on CUDA cores.
+as 16-byte ``cp.async``.  The fused forward and backward run the
+recurrence once per (graph block, channel) for F <= 256; the fused
+forward takes any K, its backward K <= ``MAX_BWD_K`` (one register
+accumulator set per term).  The terms kernels write (or read) the K terms
+through 16-byte stores (``cp.async`` loads); the terms backward streams
+the cotangents through its adjoint walk, so both take any K.  All take
+any block size S <= ``MAX_BLOCK``, any C and F; the fused kernels need at
+most 226 KB of shared memory, checked against ``_SMEM_LIMIT``, the terms
+kernels 106 KB (float32) or 54 KB (bfloat16) at S = 128, whatever K is.
 
 The public functions are ``torch.autograd.Function``s: forward and
 backward each launch their kernel for CUDA tensors and raise on anything
@@ -87,13 +91,13 @@ def _library(name: str = "laguerre_dense") -> ctypes.CDLL:
                 "hlhgat_laguerre_fused_fwd": ([p] * 6 + [i] * 6 + [p], i),
                 "hlhgat_laguerre_terms_fwd": ([p, p, p, i, i, i, i, i, p], i),
                 "hlhgat_laguerre_fused_smem": ([i, i, i], z),
+                "hlhgat_laguerre_terms_smem": ([i, i], z),
             }
         else:
             sigs = {
                 "hlhgat_laguerre_fused_bwd": ([p] * 8 + [i] * 7 + [p], i),
                 "hlhgat_laguerre_terms_bwd": ([p, p, p, i, i, i, i, i, p], i),
                 "hlhgat_laguerre_fused_bwd_smem": ([i, i, i], z),
-                "hlhgat_laguerre_terms_bwd_smem": ([i, i], z),
                 "hlhgat_laguerre_fused_bwd_splits": ([i, i, i], i),
             }
         sigs["hlhgat_cuda_error_string"] = ([i], ctypes.c_char_p)
@@ -138,7 +142,7 @@ _products: str | None = None  # None: exact float32 products; "tf32x3", "tf32": 
 @contextlib.contextmanager
 def emulated_products(mode: str | None):
     """Within the block the plain versions form every float32 matrix
-    product as the card's tensor cores would: ``"tf32x3"`` as the fused
+    product as the card's tensor cores would: ``"tf32x3"`` as the float32
     kernels do (each operand split into ``hi = tf32(a)`` and
     ``lo = tf32(a − hi)``, then ``a_lo·b_hi + a_hi·b_lo + a_hi·b_hi``
     summed in float32), ``"tf32"`` as one TF32 pass would.  bfloat16
@@ -386,8 +390,6 @@ def laguerre_terms_dense_bwd(l: torch.Tensor, dt: torch.Tensor, k: int) -> torch
     if dx.numel() == 0:
         return dx
     lib = _library("laguerre_dense_bwd")
-    if lib.hlhgat_laguerre_terms_bwd_smem(s, k) > _SMEM_LIMIT:
-        raise ValueError(f"K={k} needs more shared memory than a block has")
     l = l.to(dt.dtype).contiguous()
     dt = dt.contiguous()
     with torch.cuda.device(dt.device):

@@ -1,19 +1,33 @@
 #!/usr/bin/env python3
-"""The fused Laguerre kernels (forward and backward) on one CUDA card:
-build, registers and spills, kernel against plain version, times.
+"""The four Laguerre kernels (fused and terms, forward and backward) on one
+CUDA card: build, registers and spills, kernel against plain version, times.
 
     python3 scripts/fused_kernel_bench.py [--quick] [--graph-blocks 78]
+        [--only fused|terms] [--variant "NAME=VALUE ..." ...]
 
 Builds ``hl_hgat_tpu_torch/csrc`` with nvcc, prints what ``-Xptxas=-v``
-reports for the fused kernels, then for every shape and dtype holds
-``laguerre_dense_fused`` and ``laguerre_dense_fused_bwd`` against their
-plain versions (float32 <= 1e-4·max|ref|, bfloat16 <= 2e-2·max|ref|), checks
-that a second launch gives the same bits, and times kernel and plain
-version: device time by kernel from ``torch.profiler`` over 10 calls, and
-one call between two CUDA events (median of 20; for a kernel of a few µs
-that is the wrapper's and the launch's time).  L is a symmetric random
-matrix scaled to a spectrum of order one.  ``--quick`` checks without
-timing.  Exits non-zero on the first disagreement.  Needs a card.
+reports for the Laguerre kernels, then for every shape and dtype holds
+``laguerre_dense_fused``, ``laguerre_dense_fused_bwd``,
+``laguerre_terms_dense`` and ``laguerre_terms_dense_bwd`` against their
+plain versions (float32 <= 1e-4·max|ref|, bfloat16 <= 2e-2·max|ref|),
+checks that a second launch gives the same bits, and times kernel and
+plain version: device time (the fused kernels by CUDA kernel from
+``torch.profiler`` over 10 calls; the terms kernels, one CUDA kernel each,
+as ten calls replayed from a CUDA graph), and one call between two CUDA
+events (median of 20; for a kernel of a few µs that is the wrapper's and
+the launch's time).  L is a symmetric random matrix scaled to a spectrum of
+order one.  ``--quick`` checks without timing.  A shape the wrapper refuses is
+reported and skipped, so the script also times an older tree's kernels
+(copied into that tree's ``scripts/``).
+
+``--variant`` (repeatable) compares other builds of the terms kernels
+inside the same run: each is the default build plus ``-DNAME=VALUE``
+flags, e.g. ``--variant "HLHGAT_TERMS_WN_BF16=1 HLHGAT_TERMS_WNB_F32=1"``
+(the warp layouts: ``csrc/laguerre_common.cuh``).  The default and the
+variants are timed in turns (default, variants, variants reversed, default) at the zinc_pyr
+terms shapes, G graph blocks of 128, K=6, C = 64 / 128 / 256, after a
+check against the plain version, and summed per packed pass (4 / 6 / 6
+launches).  Exits non-zero on the first disagreement.  Needs a card.
 """
 
 from __future__ import annotations
@@ -28,10 +42,14 @@ import sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# (S, C, F, K): the four zinc_pyr shapes, then ragged and limit shapes
+# (S, C, F, K): the four zinc_pyr shapes, then ragged and limit shapes; the
+# terms kernels take (S, C, K) of each (F unused) and K = 10, beyond the
+# fused backward
 MAIN = [(128, 64, 64, 1), (128, 64, 64, 6), (128, 128, 128, 6), (128, 256, 256, 6)]
 EXTRA = [(128, 100, 72, 3), (128, 64, 64, 8), (96, 128, 128, 6), (13, 7, 130, 1),
          (30, 33, 65, 2), (96, 300, 8, 6), (128, 512, 256, 6), (128, 40, 300, 2)]
+TERMS_ONLY = [(128, 64, 0, 10)]
+PASS = {64: 4, 128: 6, 256: 6}  # terms launches per packed zinc_pyr pass, by C
 
 
 def median_ms(torch, fn, reps=20):
@@ -68,10 +86,118 @@ def device_ms(torch, fn, calls=10):
     return out
 
 
+def graph_ms(torch, fn, calls=10, reps=5):
+    """Device time of one call: ``calls`` calls captured into a CUDA graph,
+    the replay timed between two events (median of ``reps``)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return median_ms(torch, graph.replay, reps) / calls
+
+
+def symmetric_l(np, rng, g, s):
+    l32 = rng.standard_normal((g, s, s)).astype(np.float32)
+    return (l32 + l32.transpose(0, 2, 1)) / (2 * np.sqrt(s))
+
+
+def print_registers(cuda_build, lg):
+    """What ``-Xptxas=-v`` reported for each Laguerre kernel of the current
+    build; for the terms kernels also the shared memory a block takes at
+    S=128 and the blocks an H100 SM holds (the least of 228 KB of shared
+    memory with 1 KB reserved a block, 64 K registers allocated 8 a thread
+    at a time, 2048 threads)."""
+    cuda_build.build()
+    for name in ("laguerre_dense", "laguerre_dense_bwd"):
+        log = cuda_build.library_path(name).with_suffix(".log")
+        if not log.exists():  # an older tree's build keeps no log
+            continue
+        lines = log.read_text().splitlines()
+        for i, line in enumerate(lines):
+            hit = re.search(r"((?:fused|terms)_\w+?_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)", line)
+            if "Compiling entry" not in line or not hit:
+                continue
+            what = " ".join(x.strip().replace("ptxas info    : ", "") for x in lines[i + 1:i + 4]
+                            if "registers" in x or "bytes stack" in x)
+            bf16 = hit.group(2) != "f"
+            params = re.findall(r"Li(\d+)E", hit.group(3))
+            line = f"[build] {hit.group(1)}<{', '.join(['bfloat16' if bf16 else 'float'] + params)}>: {what}"
+            regs = re.search(r"Used (\d+) registers", what)
+            if hit.group(1).startswith("terms") and regs and params:
+                threads = 128 * int(params[-1])
+                smem = lg._library().hlhgat_laguerre_terms_smem(128, int(bf16))
+                per_block = -(-int(regs.group(1)) // 8) * 8 * threads
+                blocks = min(233472 // (smem + 1024), 65536 // per_block, 2048 // threads, 32)
+                line += f"; {threads} threads, {smem} bytes of shared memory at S=128, {blocks} blocks an SM"
+            print(line, flush=True)
+
+
+def compare_variants(torch, np, lg, cuda_build, variants, g, card):
+    """The terms kernels of the default build against each variant build,
+    timed in turns; returns the number of disagreements."""
+    base = cuda_build.NVCC_FLAGS
+    builds = [("default", ())] + [(v, tuple(f"-D{d}" for d in v.split())) for v in variants]
+    order = builds + builds[1:][::-1] + builds[:1]
+    rng = np.random.default_rng(1)
+    data = {}
+    for c in PASS:
+        l32 = symmetric_l(np, rng, g, 128)
+        x32 = rng.standard_normal((g, 128, c)).astype(np.float32)
+        dt32 = rng.standard_normal((6, g, 128, c)).astype(np.float32)
+        data[c] = (l32, x32, dt32)
+    times = {(name, d, w): [] for name, _ in builds for d in ("float32", "bfloat16")
+             for w in ("fwd", "bwd")}
+    first = {}  # the default build's outputs, against which each variant's bits are compared
+    bad = 0
+    try:
+        for name, flags in order:
+            cuda_build.NVCC_FLAGS = base + flags
+            lg._libs.clear()
+            print_registers(cuda_build, lg)
+            for dtype in ("float32", "bfloat16"):
+                td = getattr(torch, dtype)
+                per_pass = {"fwd": 0.0, "bwd": 0.0}
+                for c, n in PASS.items():
+                    l, x, dt = (torch.from_numpy(a).cuda().to(td) for a in data[c])
+                    runs = {"fwd": (lambda: lg.laguerre_terms_dense(l, x, 6),
+                                    lambda: lg.laguerre_terms_dense_plain(l, x, 6)),
+                            "bwd": (lambda: lg.laguerre_terms_dense_bwd(l, dt, 6),
+                                    lambda: lg.laguerre_terms_dense_bwd_plain(l, dt, 6))}
+                    for what, (kernel, plain) in runs.items():
+                        out, ref = kernel(), plain()
+                        rel = float((out.float() - ref.float()).abs().max()
+                                    / ref.float().abs().max())
+                        if not rel <= TOL[dtype]:
+                            print(f"FAIL variant {name} {what} {dtype} C={c}: {rel:.3e}")
+                            bad += 1
+                        same = torch.equal(first.setdefault((dtype, c, what), out), out)
+                        print(f"[variant] {name}: terms {what} {dtype} C={c} max|err|/max|ref| "
+                              f"{rel:.3e}, the default build's bits: {same}")
+                        per_pass[what] += n * graph_ms(torch, kernel)
+                for what, ms in per_pass.items():
+                    times[(name, dtype, what)].append(ms)
+                    print(f"[variant] {name}: terms {what} {dtype} {ms:.4f} ms per pass "
+                          f"[{card}]", flush=True)
+    finally:
+        cuda_build.NVCC_FLAGS = base
+        lg._libs.clear()
+    for (name, dtype, what), ms in times.items():
+        print(f"[variant] {name}: terms {what} {dtype} per pass, runs "
+              f"{', '.join(f'{t:.4f}' for t in ms)} ms, mean {statistics.mean(ms):.4f} [{card}]")
+    return bad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true", help="check only, no timing")
     ap.add_argument("--graph-blocks", type=int, default=78)
+    ap.add_argument("--only", choices=("fused", "terms"), default=None,
+                    help="check and time only these kernels")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="-D flags (space-separated NAME=VALUE) of a terms-kernel build to "
+                         "compare with the default one")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -83,15 +209,7 @@ def main() -> int:
     from hl_hgat_tpu_torch.ops import laguerre_dense as lg
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    for name, log in cuda_build.build().items():
-        lines = log.splitlines()
-        for i, line in enumerate(lines):
-            hit = re.search(r"(fused_\w+?_kernel)I(f|13__nv_bfloat16)(?:Li(\d)E)?", line)
-            if "Compiling entry" in line and hit:
-                what = " ".join(x.strip().replace("ptxas info    : ", "") for x in lines[i + 1:i + 4]
-                                if "registers" in x or "bytes stack" in x)
-                print(f"[build] {hit.group(1)}<{'float' if hit.group(2) == 'f' else 'bfloat16'}"
-                      f"{', ' + hit.group(3) if hit.group(3) else ''}>: {what}")
+    print_registers(cuda_build, lg)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -100,25 +218,41 @@ def main() -> int:
     g = args.graph_blocks
     rng = np.random.default_rng(0)
     bad = 0
-    for s, c, f, k in MAIN + EXTRA:
-        l32 = rng.standard_normal((g, s, s)).astype(np.float32)
-        l32 = (l32 + l32.transpose(0, 2, 1)) / (2 * np.sqrt(s))
+    terms_seen = set()
+    for s, c, f, k in MAIN + EXTRA + TERMS_ONLY:
+        l32 = symmetric_l(np, rng, g, s)
         x32 = rng.standard_normal((g, s, c)).astype(np.float32)
         w = torch.from_numpy(
             (rng.uniform(-1, 1, (k, c, f)) * np.sqrt(6.0 / (c + f))).astype(np.float32)).cuda()
         b = torch.from_numpy(rng.standard_normal(f).astype(np.float32)).cuda()
         cot32 = rng.standard_normal((g, s, f)).astype(np.float32)
+        dt32 = rng.standard_normal((k, g, s, c)).astype(np.float32)
+        fused = f > 0 and args.only != "terms"
+        terms = (s, c, k) not in terms_seen and args.only != "fused"
+        terms_seen.add((s, c, k))
         for dtype in ("float32", "bfloat16"):
             td = getattr(torch, dtype)
-            l, x, cot = (torch.from_numpy(a).cuda().to(td) for a in (l32, x32, cot32))
-            runs = {
-                "fwd": (lambda: lg.laguerre_dense_fused(l, x, w, b),
-                        lambda: lg.laguerre_dense_fused_plain(l, x, w, b)),
-                "bwd": (lambda: lg.laguerre_dense_fused_bwd(l, x, w, cot),
-                        lambda: lg.laguerre_dense_fused_bwd_plain(l, x, w, cot)),
-            }
+            l, x, cot, dt = (torch.from_numpy(a).cuda().to(td) for a in (l32, x32, cot32, dt32))
+            runs = {}
+            if fused:
+                runs["fwd"] = (lambda: lg.laguerre_dense_fused(l, x, w, b),
+                               lambda: lg.laguerre_dense_fused_plain(l, x, w, b))
+                runs["bwd"] = (lambda: lg.laguerre_dense_fused_bwd(l, x, w, cot),
+                               lambda: lg.laguerre_dense_fused_bwd_plain(l, x, w, cot))
+            if terms:
+                runs["terms fwd"] = (lambda: lg.laguerre_terms_dense(l, x, k),
+                                     lambda: lg.laguerre_terms_dense_plain(l, x, k))
+                runs["terms bwd"] = (lambda: lg.laguerre_terms_dense_bwd(l, dt, k),
+                                     lambda: lg.laguerre_terms_dense_bwd_plain(l, dt, k))
             for what, (kernel, plain) in runs.items():
-                outs, again, refs = kernel(), kernel(), plain()
+                shape = f"S={s} C={c} K={k}" if what.startswith("terms") else \
+                    f"S={s} C={c} F={f} K={k}"
+                try:
+                    outs, again = kernel(), kernel()
+                except ValueError as err:  # a shape an older tree's wrapper refuses
+                    print(f"[{what}] {dtype} G={g} {shape}: refused ({err}) [{card}]", flush=True)
+                    continue
+                refs = plain()
                 torch.cuda.synchronize()
                 if not isinstance(outs, tuple):
                     outs, again, refs = (outs,), (again,), (refs,)
@@ -127,19 +261,24 @@ def main() -> int:
                     rel = max(rel, float((o.float() - r.float()).abs().max())
                               / max(float(r.float().abs().max()), 1e-30))
                     if not torch.equal(o, o2):
-                        print(f"FAIL {what} {dtype} S={s} C={c} F={f} K={k}: second launch differs")
+                        print(f"FAIL {what} {dtype} {shape}: second launch differs")
                         bad += 1
-                line = f"[{what}] {dtype} G={g} S={s} C={c} F={f} K={k}: max|err|/max|ref| {rel:.3e}"
+                line = f"[{what}] {dtype} G={g} {shape}: max|err|/max|ref| {rel:.3e}"
                 if not rel <= TOL[dtype]:
                     line = "FAIL " + line
                     bad += 1
                 if not args.quick:
-                    by_kernel = device_ms(torch, kernel)
-                    parts = ", ".join(f"{n} {t:.4f}" for n, t in by_kernel.items())
-                    line += (f" device {sum(by_kernel.values()):.4f} ms ({parts}); one call "
-                             f"between events {median_ms(torch, kernel):.4f} ms, plain "
-                             f"{median_ms(torch, plain, 5):.4f} ms")
+                    if what.startswith("terms"):
+                        line += f" device {graph_ms(torch, kernel):.4f} ms (graph replay);"
+                    else:
+                        by_kernel = device_ms(torch, kernel)
+                        parts = ", ".join(f"{n} {t:.4f}" for n, t in by_kernel.items())
+                        line += f" device {sum(by_kernel.values()):.4f} ms ({parts});"
+                    line += (f" one call between events {median_ms(torch, kernel):.4f} ms, "
+                             f"plain {median_ms(torch, plain, 5):.4f} ms")
                 print(line + f" [{card}]", flush=True)
+    if args.variant:
+        bad += compare_variants(torch, np, lg, cuda_build, args.variant, g, card)
     return 1 if bad else 0
 
 

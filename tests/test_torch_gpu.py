@@ -17,8 +17,8 @@ from hl_hgat_tpu_torch.ops.dispatch import lap_matvec
 
 pytestmark = pytest.mark.gpu
 
-# f32: full float32 accuracy (the fused kernels split each operand for three
-# TF32 passes, the terms kernels use FMAs), only the summation order differs;
+# f32: full float32 accuracy (the kernels split each operand for three TF32
+# passes), only the summation order differs;
 # bf16: same rounding points, a flipped rounding of a term is one bf16 ulp
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -39,6 +39,11 @@ def _inputs(g, s, c, f, k, dtype, device, seed=0):
     b = rng.standard_normal(f).astype(np.float32)
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     return t(l).to(dtype), t(x).to(dtype), t(w), t(b)
+
+
+def _normal(shape, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device).to(dtype)
 
 
 def _check(out, ref, dtype):
@@ -82,8 +87,9 @@ def _offset_copy(t, elems=1):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_kernels_take_unaligned_views(cuda, dtype):
     """Contiguous inputs at a base that is not 16-byte aligned, and a
-    strided slice of a wider tensor: the kernels take the scalar load path
-    (or the wrapper's contiguous copy) and give the aligned call's bits."""
+    strided slice of a wider tensor: the fused and the terms kernels take
+    the scalar load path (or the wrapper's contiguous copy) and give the
+    aligned call's bits."""
     g, s, c, f, k = 3, 96, 72, 40, 4
     l, x, w, b = _inputs(g, s, c, f, k, dtype, cuda)
     cot = torch.from_numpy(
@@ -101,10 +107,28 @@ def test_fused_kernels_take_unaligned_views(cuda, dtype):
     assert not view.is_contiguous()
     assert torch.equal(lg.laguerre_dense_fused(l, view, w, b), out)
     _check(out, lg.laguerre_dense_fused_plain(l, x, w, b), dtype)
+    terms = lg.laguerre_terms_dense(l, x, k)
+    dt = _normal((k, g, s, c), 2, dtype, cuda)
+    dx = lg.laguerre_terms_dense_bwd(l, dt, k)
+    assert torch.equal(lg.laguerre_terms_dense(lo, xo, k), terms)
+    assert torch.equal(lg.laguerre_terms_dense(l, view, k), terms)
+    assert torch.equal(lg.laguerre_terms_dense_bwd(lo, _offset_copy(dt), k), dx)
+    _check(terms, lg.laguerre_terms_dense_plain(l, x, k), dtype)
+    _check(dx, lg.laguerre_terms_dense_bwd_plain(l, dt, k), dtype)
+
+
+# terms-kernel shapes: a main-path one, ragged C, K = 2 and K = 1 at small
+# blocks, then S = 77 with odd C, C = 520 (17 channel slices), K = 8 and
+# K = 10 at the largest block, more graph blocks than the card has SMs
+_TERMS_SHAPES = [
+    (3, 128, 64, 6), (2, 128, 100, 3), (4, 13, 7, 2), (1, 64, 40, 1),
+    (3, 77, 45, 4), (2, 128, 520, 6), (2, 128, 64, 8), (2, 128, 64, 10),
+    (200, 64, 40, 3),
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,s,c,k", [(3, 128, 64, 6), (2, 128, 100, 3), (4, 13, 7, 2), (1, 64, 40, 1)])
+@pytest.mark.parametrize("g,s,c,k", _TERMS_SHAPES)
 def test_terms_kernel_matches_plain(cuda, dtype, g, s, c, k):
     l, x, _, _ = _inputs(g, s, c, 1, k, dtype, cuda)
     before = lg.LAUNCHES["laguerre_terms_dense"]
@@ -113,6 +137,8 @@ def test_terms_kernel_matches_plain(cuda, dtype, g, s, c, k):
     assert lg.LAUNCHES["laguerre_terms_dense"] == before + 1
     assert out.dtype == dtype and out.shape == (k, g, s, c)
     _check(out, lg.laguerre_terms_dense_plain(l, x, k), dtype)
+    # no atomics, fixed tiling: a second launch gives the same bits
+    assert torch.equal(out, lg.laguerre_terms_dense(l, x, k))
 
 
 def test_wrappers_reject_what_the_kernel_cannot_take(cuda):
@@ -155,7 +181,7 @@ def test_fused_bwd_kernel_matches_plain(cuda, dtype, g, s, c, f, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,s,c,k", [(3, 128, 64, 6), (2, 128, 100, 3), (4, 13, 7, 2), (1, 64, 40, 1)])
+@pytest.mark.parametrize("g,s,c,k", _TERMS_SHAPES)
 def test_terms_bwd_kernel_matches_plain(cuda, dtype, g, s, c, k):
     l, _, _, _ = _inputs(g, s, c, 1, k, dtype, cuda)
     dt = torch.from_numpy(
@@ -167,6 +193,7 @@ def test_terms_bwd_kernel_matches_plain(cuda, dtype, g, s, c, k):
     assert lg.LAUNCHES["laguerre_terms_dense_bwd"] == before + 1
     assert dx.dtype == dtype and dx.shape == (g, s, c)
     _check(dx, lg.laguerre_terms_dense_bwd_plain(l, dt, k), dtype)
+    assert torch.equal(dx, lg.laguerre_terms_dense_bwd(l, dt, k))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -197,13 +224,14 @@ def test_backward_wrappers_reject_what_the_kernels_cannot_take(cuda):
     with pytest.raises(ValueError, match="K <= 8"):
         lg.laguerre_dense_fused_bwd(l, x, w, torch.zeros(1, 16, 8, device=cuda))
     # K = 8 at the largest block fits the fused backward (the adjoint walk
-    # runs in registers); the terms backward keeps all K cotangent tiles in
-    # shared memory and refuses K = 10 there
+    # runs in registers); the terms backward streams its walk and takes
+    # K = 10 there
     l, x, w, _ = _inputs(1, 128, 8, 8, 8, torch.float32, cuda)
     dx, dw, db = lg.laguerre_dense_fused_bwd(l, x, w, torch.zeros(1, 128, 8, device=cuda))
     assert not bool(dx.any()) and not bool(dw.any()) and not bool(db.any())
-    with pytest.raises(ValueError, match="shared memory"):
-        lg.laguerre_terms_dense_bwd(l, torch.zeros(10, 1, 128, 8, device=cuda), 10)
+    dt = _normal((10, 1, 128, 8), 3, torch.float32, cuda)
+    _check(lg.laguerre_terms_dense_bwd(l, dt, 10),
+           lg.laguerre_terms_dense_bwd_plain(l, dt, 10), torch.float32)
     with pytest.raises(ValueError, match="dt"):
         lg.laguerre_terms_dense_bwd(l, torch.zeros(3, 1, 128, 8, device=cuda), 2)
 

@@ -1,14 +1,15 @@
-"""The float32 arithmetic of the fused Laguerre kernels, emulated on the CPU.
+"""The float32 arithmetic of the Laguerre kernels, emulated on the CPU.
 
-On the card the float32 kernels form every matrix product on the tensor
-cores as three TF32 passes over operands split into a high and a low part
-(``csrc/laguerre_common.cuh``).  ``laguerre_dense.emulated_products`` makes
-the plain versions form their products the same way, so the arithmetic can
-be held against the exact float32 plain versions here: the three-pass form
-must stay within 1e-5 of max|ref| through a K = 6 and a K = 8 recurrence,
-forward and backward, and a single TF32 pass must visibly not (which is
-why the kernels take three).  Inputs come from a numpy seed; L is the real
-L0 of packed ZINC-like blocks (spectrum in [0, 2]).
+On the card the float32 kernels (fused and terms, forward and backward)
+form every matrix product on the tensor cores as three TF32 passes over
+operands split into a high and a low part (``csrc/laguerre_common.cuh``).
+``laguerre_dense.emulated_products`` makes the plain versions form their
+products the same way, so the arithmetic can be held against the exact
+float32 plain versions here: the three-pass form must stay within 1e-5 of
+max|ref| through a K = 6 and a K = 8 recurrence (the terms kernels also
+K = 10), forward and backward, and a single TF32 pass must visibly not
+(which is why the kernels take three).  Inputs come from a numpy seed; L
+is the real L0 of packed ZINC-like blocks (spectrum in [0, 2]).
 """
 
 import numpy as np
@@ -77,6 +78,32 @@ def test_three_pass_products_keep_float32_accuracy_backward(blocks, k, c, f):
         if name != "db":  # db is a plain sum: no product, no difference
             assert _rel(one, ref) > TF32_VISIBLE, name
     assert torch.equal(split[2], refs[2])
+
+
+@pytest.mark.parametrize("k", [6, 8, 10])
+def test_three_pass_products_keep_float32_accuracy_terms_forward(blocks, k):
+    x, _, _, _ = _inputs(blocks, 40, 1, k, seed=20 + k)
+    ref = lg.laguerre_terms_dense_plain(blocks, x, k)
+    with lg.emulated_products("tf32x3"):
+        split = lg.laguerre_terms_dense_plain(blocks, x, k)
+    with lg.emulated_products("tf32"):
+        single = lg.laguerre_terms_dense_plain(blocks, x, k)
+    assert _rel(split, ref) <= TOL_3X
+    assert _rel(single, ref) > TF32_VISIBLE
+
+
+@pytest.mark.parametrize("k", [6, 8, 10])
+def test_three_pass_products_keep_float32_accuracy_terms_backward(blocks, k):
+    rng = np.random.default_rng(30 + k)
+    g, s = blocks.shape[:2]
+    dt = torch.from_numpy(rng.standard_normal((k, g, s, 40)).astype(np.float32))
+    ref = lg.laguerre_terms_dense_bwd_plain(blocks, dt, k)
+    with lg.emulated_products("tf32x3"):
+        split = lg.laguerre_terms_dense_bwd_plain(blocks, dt, k)
+    with lg.emulated_products("tf32"):
+        single = lg.laguerre_terms_dense_bwd_plain(blocks, dt, k)
+    assert _rel(split, ref) <= TOL_3X
+    assert _rel(single, ref) > TF32_VISIBLE
 
 
 def test_split_is_exact_and_emulation_is_scoped():
