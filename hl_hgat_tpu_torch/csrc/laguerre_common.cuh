@@ -87,35 +87,19 @@ __host__ __device__ inline int pad32(int s) { return (s + 31) & ~31; }
 
 // Tiling of the terms kernels: a block owns one graph block and a slice of
 // kTermsCT = 32 channels (16 and 64 measured slower in both types), its
-// warps sit 4 along the rows (32 each) and wn (forward) or wnb (backward)
-// along the slice, so a warp owns 32 rows x 32 / wn channels.
-// -DHLHGAT_TERMS_WN_BF16=.. (_WNB_; _F32) build another layout for a
-// comparison on the card (scripts/fused_kernel_bench.py --variant).
-#ifndef HLHGAT_TERMS_WN_BF16
-#define HLHGAT_TERMS_WN_BF16 2
-#endif
-#ifndef HLHGAT_TERMS_WNB_BF16
-#define HLHGAT_TERMS_WNB_BF16 1
-#endif
-#ifndef HLHGAT_TERMS_WN_F32
-#define HLHGAT_TERMS_WN_F32 2
-#endif
-#ifndef HLHGAT_TERMS_WNB_F32
-#define HLHGAT_TERMS_WNB_F32 2
-#endif
+// warps sit 4 along the rows (32 each) and kWn (forward) or kWnb (backward)
+// along the slice, so a warp owns 32 rows x 32 / kWn channels.  These were
+// the fastest layouts measured on an H100 (PERF.md, kernels 2 and 4).
 constexpr int kTermsCT = 32;
-struct TermsWarps {
-  int wn, wnb;
-};
 template <typename T>
 struct TermsTile;
 template <>
 struct TermsTile<__nv_bfloat16> {
-  static constexpr TermsWarps kSpec{HLHGAT_TERMS_WN_BF16, HLHGAT_TERMS_WNB_BF16};
+  static constexpr int kWn = 2, kWnb = 1;
 };
 template <>
 struct TermsTile<float> {
-  static constexpr TermsWarps kSpec{HLHGAT_TERMS_WN_F32, HLHGAT_TERMS_WNB_F32};
+  static constexpr int kWn = 2, kWnb = 2;
 };
 
 __device__ inline unsigned smem_addr(const void* p) {
@@ -430,7 +414,7 @@ __device__ inline float2 laguerre_step2(float2 lt, float2 cur, float2 prev, int 
 // packed bf16x2 operations, each rounding once to bfloat16 (.rn, so never
 // contracted into an fma).  The exact result of an operation on two bfloat16
 // values rounded once is what Io<T>::round2 of the float result gives, so
-// these give laguerre_step2's bits with two conversions a pair, not seven.
+// these give laguerre_step2's bits with fewer conversions a pair.
 template <typename T>
 struct Pair;
 
@@ -458,8 +442,13 @@ struct Pair<__nv_bfloat16> {
   __device__ static V of(float a, float b) { return __floats2bfloat162_rn(a, b); }
   __device__ static V add(V a, V b) { return __hadd2_rn(a, b); }
   __device__ static V sub(V a, V b) { return __hsub2_rn(a, b); }
-  // s is a small integer or an already rounded coefficient: exact in bf16
-  __device__ static V mul(float s, V a) { return __hmul2_rn(__float2bfloat162_rn(s), a); }
+  // s·a in float, rounded once, as the plain version multiplies (s need not
+  // be a bfloat16): the float product is exact for the integer 2k+1 while
+  // K < 2^15 and for a coefficient already rounded to bfloat16
+  __device__ static V mul(float s, V a) {
+    const float2 f = __bfloat1622float2(a);
+    return __floats2bfloat162_rn(s * f.x, s * f.y);
+  }
   __device__ static V div(V a, float d) {
     const float2 f = __bfloat1622float2(a);
     return __floats2bfloat162_rn(Io<__nv_bfloat16>::div(f.x, d),

@@ -291,7 +291,7 @@ int launch_fused(const void* l_, const void* x_, const void* w_, const void* b_,
 template <typename T>
 int launch_terms(const void* l, const void* x, void* t, int G, int S, int C,
                  int K, cudaStream_t stream) {
-  constexpr int CT = kTermsCT, WN = TermsTile<T>::kSpec.wn;
+  constexpr int CT = kTermsCT, WN = TermsTile<T>::kWn;
   const size_t smem = terms_smem_bytes<T>(S);
   cudaError_t err = cudaFuncSetAttribute(
       terms_fwd_mma_kernel<T, WN>,
@@ -323,11 +323,6 @@ int hlhgat_laguerre_fused_fwd(const void* l, const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_fused<__nv_bfloat16>(l, x, w, b, out, wt, G, S, C, F, K, s)
               : launch_fused<float>(l, x, w, b, out, wt, G, S, C, F, K, s);
-}
-
-// Shared memory of a terms kernel's block (forward and backward alike).
-size_t hlhgat_laguerre_terms_smem(int S, int bf16) {
-  return bf16 ? terms_smem_bytes<__nv_bfloat16>(S) : terms_smem_bytes<float>(S);
 }
 
 // l [G,S,S], x [G,S,C] -> t [K,G,S,C], all in x's dtype.

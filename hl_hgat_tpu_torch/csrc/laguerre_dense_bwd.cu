@@ -194,7 +194,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   for (int kk = kMaxK - 1; kk > 1; --kk) {
     if (kk < K) {
       const float jf = (float)(kk - 1), a = 2.f * jf + 1.f, d = jf + 1.f;
-      const float coef = Io<T>::round(jf / d);
+      const float coef = R::round(jf / d);
       l_times_tile(bar[kk], lt, buf);
       buf ^= 1;
 #pragma unroll
@@ -598,7 +598,7 @@ int launch_fused_bwd(const void* l_, const void* x_, const void* w_,
 template <typename T>
 int launch_terms_bwd(const void* l, const void* dt, void* dx, int G, int S,
                      int C, int K, cudaStream_t stream) {
-  constexpr int CT = kTermsCT, WN = TermsTile<T>::kSpec.wnb;
+  constexpr int CT = kTermsCT, WN = TermsTile<T>::kWnb;
   if (K < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = terms_smem_bytes<T>(S);
   cudaError_t err = allow_smem(terms_bwd_mma_kernel<T, WN>, smem);

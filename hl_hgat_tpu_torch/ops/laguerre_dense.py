@@ -91,7 +91,6 @@ def _library(name: str = "laguerre_dense") -> ctypes.CDLL:
                 "hlhgat_laguerre_fused_fwd": ([p] * 6 + [i] * 6 + [p], i),
                 "hlhgat_laguerre_terms_fwd": ([p, p, p, i, i, i, i, i, p], i),
                 "hlhgat_laguerre_fused_smem": ([i, i, i], z),
-                "hlhgat_laguerre_terms_smem": ([i, i], z),
             }
         else:
             sigs = {

@@ -3,7 +3,7 @@
 CUDA card: build, registers and spills, kernel against plain version, times.
 
     python3 scripts/fused_kernel_bench.py [--quick] [--graph-blocks 78]
-        [--only fused|terms] [--variant "NAME=VALUE ..." ...]
+        [--only fused|terms]
 
 Builds ``hl_hgat_tpu_torch/csrc`` with nvcc, prints what ``-Xptxas=-v``
 reports for the Laguerre kernels, then for every shape and dtype holds
@@ -11,23 +11,14 @@ reports for the Laguerre kernels, then for every shape and dtype holds
 ``laguerre_terms_dense`` and ``laguerre_terms_dense_bwd`` against their
 plain versions (float32 <= 1e-4·max|ref|, bfloat16 <= 2e-2·max|ref|),
 checks that a second launch gives the same bits, and times kernel and
-plain version: device time (the fused kernels by CUDA kernel from
-``torch.profiler`` over 10 calls; the terms kernels, one CUDA kernel each,
-as ten calls replayed from a CUDA graph), and one call between two CUDA
-events (median of 20; for a kernel of a few µs that is the wrapper's and
-the launch's time).  L is a symmetric random matrix scaled to a spectrum of
-order one.  ``--quick`` checks without timing.  A shape the wrapper refuses is
-reported and skipped, so the script also times an older tree's kernels
-(copied into that tree's ``scripts/``).
-
-``--variant`` (repeatable) compares other builds of the terms kernels
-inside the same run: each is the default build plus ``-DNAME=VALUE``
-flags, e.g. ``--variant "HLHGAT_TERMS_WN_BF16=1 HLHGAT_TERMS_WNB_F32=1"``
-(the warp layouts: ``csrc/laguerre_common.cuh``).  The default and the
-variants are timed in turns (default, variants, variants reversed, default) at the zinc_pyr
-terms shapes, G graph blocks of 128, K=6, C = 64 / 128 / 256, after a
-check against the plain version, and summed per packed pass (4 / 6 / 6
-launches).  Exits non-zero on the first disagreement.  Needs a card.
+plain version as ``chip_smoke.py`` does: the kernel's device time as ten
+calls replayed from a CUDA graph (every CUDA kernel of a call counted),
+and one call between two CUDA events (median of 20; for a kernel of a few
+µs that is the wrapper's and the launch's time).  L is a symmetric random
+matrix scaled to a spectrum of order one.  ``--quick`` checks without
+timing.  A shape the wrapper refuses is reported and skipped, so the
+script also times an older tree's kernels (copied into that tree's
+``scripts/``).  Exits non-zero on the first disagreement.  Needs a card.
 """
 
 from __future__ import annotations
@@ -35,11 +26,12 @@ from __future__ import annotations
 import argparse
 import pathlib
 import re
-import statistics
 import subprocess
 import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+
+from chip_smoke import KERNEL_CALLS, graph_ms, median_ms  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # (S, C, F, K): the four zinc_pyr shapes, then ragged and limit shapes; the
@@ -49,53 +41,6 @@ MAIN = [(128, 64, 64, 1), (128, 64, 64, 6), (128, 128, 128, 6), (128, 256, 256, 
 EXTRA = [(128, 100, 72, 3), (128, 64, 64, 8), (96, 128, 128, 6), (13, 7, 130, 1),
          (30, 33, 65, 2), (96, 300, 8, 6), (128, 512, 256, 6), (128, 40, 300, 2)]
 TERMS_ONLY = [(128, 64, 0, 10)]
-PASS = {64: 4, 128: 6, 256: 6}  # terms launches per packed zinc_pyr pass, by C
-
-
-def median_ms(torch, fn, reps=20):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def device_ms(torch, fn, calls=10):
-    """Device time of one call of ``fn`` by kernel (``torch.profiler`` over
-    ``calls`` calls): an event pair around one call of a kernel of a few µs
-    measures the wrapper and the launch instead."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(evt, "self_device_time_total", None) or getattr(
-                evt, "self_cuda_time_total", 0.0)
-            name = evt.key.split("<")[0].split("::")[-1].split("(")[0].strip()[:28]
-            out[name] = out.get(name, 0.0) + us / 1e3 / calls
-    return out
-
-
-def graph_ms(torch, fn, calls=10, reps=5):
-    """Device time of one call: ``calls`` calls captured into a CUDA graph,
-    the replay timed between two events (median of ``reps``)."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return median_ms(torch, graph.replay, reps) / calls
 
 
 def symmetric_l(np, rng, g, s):
@@ -103,12 +48,9 @@ def symmetric_l(np, rng, g, s):
     return (l32 + l32.transpose(0, 2, 1)) / (2 * np.sqrt(s))
 
 
-def print_registers(cuda_build, lg):
+def print_registers(cuda_build):
     """What ``-Xptxas=-v`` reported for each Laguerre kernel of the current
-    build; for the terms kernels also the shared memory a block takes at
-    S=128 and the blocks an H100 SM holds (the least of 228 KB of shared
-    memory with 1 KB reserved a block, 64 K registers allocated 8 a thread
-    at a time, 2048 threads)."""
+    build, with the threads of a terms kernel's block."""
     cuda_build.build()
     for name in ("laguerre_dense", "laguerre_dense_bwd"):
         log = cuda_build.library_path(name).with_suffix(".log")
@@ -121,72 +63,12 @@ def print_registers(cuda_build, lg):
                 continue
             what = " ".join(x.strip().replace("ptxas info    : ", "") for x in lines[i + 1:i + 4]
                             if "registers" in x or "bytes stack" in x)
-            bf16 = hit.group(2) != "f"
             params = re.findall(r"Li(\d+)E", hit.group(3))
-            line = f"[build] {hit.group(1)}<{', '.join(['bfloat16' if bf16 else 'float'] + params)}>: {what}"
-            regs = re.search(r"Used (\d+) registers", what)
-            if hit.group(1).startswith("terms") and regs and params:
-                threads = 128 * int(params[-1])
-                smem = lg._library().hlhgat_laguerre_terms_smem(128, int(bf16))
-                per_block = -(-int(regs.group(1)) // 8) * 8 * threads
-                blocks = min(233472 // (smem + 1024), 65536 // per_block, 2048 // threads, 32)
-                line += f"; {threads} threads, {smem} bytes of shared memory at S=128, {blocks} blocks an SM"
+            dtype = "float" if hit.group(2) == "f" else "bfloat16"
+            line = f"[build] {hit.group(1)}<{', '.join([dtype] + params)}>: {what}"
+            if hit.group(1).startswith("terms") and params:
+                line += f"; {128 * int(params[-1])} threads"
             print(line, flush=True)
-
-
-def compare_variants(torch, np, lg, cuda_build, variants, g, card):
-    """The terms kernels of the default build against each variant build,
-    timed in turns; returns the number of disagreements."""
-    base = cuda_build.NVCC_FLAGS
-    builds = [("default", ())] + [(v, tuple(f"-D{d}" for d in v.split())) for v in variants]
-    order = builds + builds[1:][::-1] + builds[:1]
-    rng = np.random.default_rng(1)
-    data = {}
-    for c in PASS:
-        l32 = symmetric_l(np, rng, g, 128)
-        x32 = rng.standard_normal((g, 128, c)).astype(np.float32)
-        dt32 = rng.standard_normal((6, g, 128, c)).astype(np.float32)
-        data[c] = (l32, x32, dt32)
-    times = {(name, d, w): [] for name, _ in builds for d in ("float32", "bfloat16")
-             for w in ("fwd", "bwd")}
-    first = {}  # the default build's outputs, against which each variant's bits are compared
-    bad = 0
-    try:
-        for name, flags in order:
-            cuda_build.NVCC_FLAGS = base + flags
-            lg._libs.clear()
-            print_registers(cuda_build, lg)
-            for dtype in ("float32", "bfloat16"):
-                td = getattr(torch, dtype)
-                per_pass = {"fwd": 0.0, "bwd": 0.0}
-                for c, n in PASS.items():
-                    l, x, dt = (torch.from_numpy(a).cuda().to(td) for a in data[c])
-                    runs = {"fwd": (lambda: lg.laguerre_terms_dense(l, x, 6),
-                                    lambda: lg.laguerre_terms_dense_plain(l, x, 6)),
-                            "bwd": (lambda: lg.laguerre_terms_dense_bwd(l, dt, 6),
-                                    lambda: lg.laguerre_terms_dense_bwd_plain(l, dt, 6))}
-                    for what, (kernel, plain) in runs.items():
-                        out, ref = kernel(), plain()
-                        rel = float((out.float() - ref.float()).abs().max()
-                                    / ref.float().abs().max())
-                        if not rel <= TOL[dtype]:
-                            print(f"FAIL variant {name} {what} {dtype} C={c}: {rel:.3e}")
-                            bad += 1
-                        same = torch.equal(first.setdefault((dtype, c, what), out), out)
-                        print(f"[variant] {name}: terms {what} {dtype} C={c} max|err|/max|ref| "
-                              f"{rel:.3e}, the default build's bits: {same}")
-                        per_pass[what] += n * graph_ms(torch, kernel)
-                for what, ms in per_pass.items():
-                    times[(name, dtype, what)].append(ms)
-                    print(f"[variant] {name}: terms {what} {dtype} {ms:.4f} ms per pass "
-                          f"[{card}]", flush=True)
-    finally:
-        cuda_build.NVCC_FLAGS = base
-        lg._libs.clear()
-    for (name, dtype, what), ms in times.items():
-        print(f"[variant] {name}: terms {what} {dtype} per pass, runs "
-              f"{', '.join(f'{t:.4f}' for t in ms)} ms, mean {statistics.mean(ms):.4f} [{card}]")
-    return bad
 
 
 def main() -> int:
@@ -195,9 +77,6 @@ def main() -> int:
     ap.add_argument("--graph-blocks", type=int, default=78)
     ap.add_argument("--only", choices=("fused", "terms"), default=None,
                     help="check and time only these kernels")
-    ap.add_argument("--variant", action="append", default=[],
-                    help="-D flags (space-separated NAME=VALUE) of a terms-kernel build to "
-                         "compare with the default one")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -209,7 +88,7 @@ def main() -> int:
     from hl_hgat_tpu_torch.ops import laguerre_dense as lg
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    print_registers(cuda_build, lg)
+    print_registers(cuda_build)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -268,17 +147,10 @@ def main() -> int:
                     line = "FAIL " + line
                     bad += 1
                 if not args.quick:
-                    if what.startswith("terms"):
-                        line += f" device {graph_ms(torch, kernel):.4f} ms (graph replay);"
-                    else:
-                        by_kernel = device_ms(torch, kernel)
-                        parts = ", ".join(f"{n} {t:.4f}" for n, t in by_kernel.items())
-                        line += f" device {sum(by_kernel.values()):.4f} ms ({parts});"
-                    line += (f" one call between events {median_ms(torch, kernel):.4f} ms, "
-                             f"plain {median_ms(torch, plain, 5):.4f} ms")
+                    line += (f" device {graph_ms(torch, kernel, KERNEL_CALLS):.4f} ms;"
+                             f" one call between events {median_ms(torch, kernel, 20):.4f} ms,"
+                             f" plain {median_ms(torch, plain, 5):.4f} ms")
                 print(line + f" [{card}]", flush=True)
-    if args.variant:
-        bad += compare_variants(torch, np, lg, cuda_build, args.variant, g, card)
     return 1 if bad else 0
 
 
