@@ -2,6 +2,7 @@
 """GPU smoke run of the PyTorch port (``hl_hgat_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only [ell]   # phases 1, 2, 4 and 6 only (or 6)
 
 1. Builds the CUDA kernels from ``hl_hgat_tpu_torch/csrc`` (nvcc, sm_90a),
    prints the card's name and power limit, and reads the two Laguerre
@@ -10,19 +11,27 @@
    HGMMA), in float32 (3xTF32) and in bfloat16.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the zinc_pyr forward gives it (the batch's real L0 blocks, random
-   x/W/b) and, off the path, at a ragged shape, at K = 8 and at S = 96 (the
-   terms kernels also at K = 10), in float32 (max |err| <=
-   1e-4·max|ref|) and bfloat16 (<= 2e-2·max|ref|); a second launch of a
-   Laguerre kernel must give the same bits; times the
+   x/W/b) and, off the path, at a ragged shape, at K = 8, at S = 96 and at
+   K = 10 (beyond the 8 terms the fused backward holds at once), in
+   float32 (max |err| <= 1e-4·max|ref|) and bfloat16 (<= 2e-2·max|ref|); a
+   second launch of a Laguerre kernel must give the same bits; times the
    kernel as device time (ten calls replayed as one CUDA graph, every
    kernel of the call counted) and the plain version between CUDA events.
+   Every ``[kernel]`` line ends with a short hash of the kernel's output
+   bytes (``bits``), so two trees run in one call can be compared bit for
+   bit.
 3. Serves 384 synthetic ZINC-like graphs through ``Predictor`` with a
    full-width, seeded ``zinc_pyr`` in float32 and bfloat16, on three conv
    routes: plain torch, terms kernel + torch GEMMs, fused kernel (default).
    Outputs must be finite, agree route to route within the tolerances
    above, show 18 fused launches (fused route) or 16 terms launches (terms
    route) per forward, and the float32 card output must agree with the
-   port's CPU forward on the first 16 graphs.
+   port's CPU forward on the first 16 graphs.  Then a ``Predictor`` packed
+   with ``node_cap=128, edge_cap=256`` serves the same graphs in float32 on
+   the default route: its 256-row L1 blocks take the plain recurrence by
+   the conv's route rule, so a forward shows 9 fused launches (the node
+   convs) and not 18, and its predictions must equal the default-cap
+   predictor's within 1e-4.
 4. Holds each backward kernel (dx, dW, db) against its plain PyTorch
    version at the same shapes, same bounds, and times both.
 5. Trains the same model on the same 384 graphs through
@@ -46,7 +55,7 @@
    bit-equal; times kernel, plain version and ``torch.sparse.mm`` on a CSR
    tensor of the same operator (a yardstick, used nowhere in the package)
    as device time (CUDA graph replay; the library call from a
-   ``torch.profiler`` trace).
+   ``torch.profiler`` trace); each line hashes the output and dx bytes.
 7. Drives the flat (COO/ELL) layout at full width through ``Trainer``:
    ``zinc_pyr`` on the same 384 graphs (eval forward, a first step and 10
    timed steps on the ELL-kernel route, the plain gather route and the COO
@@ -64,6 +73,14 @@
 
 Any failed check exits non-zero before the result lines.  Needs one card;
 exits non-zero without one.
+
+``--kernels-only`` runs the build and the kernel checks alone (phases 2, 4
+and 6, with the card's line; ``--kernels-only ell`` phase 6 alone) and
+prints no result line; a shape that the tree's wrappers refuse is
+reported, not failed.  Copied into an older
+tree's checkout, it times and hashes that tree's kernels on the same
+inputs, so two trees can be compared in one call (parent, change, change,
+parent).
 """
 
 from __future__ import annotations
@@ -124,9 +141,27 @@ CROSS_LAYOUT_ATOL = 1e-4  # flat against packed predictions, float32
 NODE_GRAPHS, LINK_GRAPHS, LINK_STEPS = 32, 256, 5
 
 
+# --kernels-only: a shape the wrappers refuse (an older tree's limits) is
+# reported and skipped, not failed
+REPORT_REFUSALS = False
+WIDE_EDGE_CAP = 256  # L1 blocks over 128 rows: the conv's route rule
+WIDE_FUSED_PER_FORWARD = 9  # zinc_pyr's node convs; its 9 edge convs take the recurrence
+WIDE_ATOL = 1e-4  # float32 predictions, wide-cap against default-cap packing
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def bits(torch, *tensors) -> str:
+    """A short hash of the tensors' bytes: equal hashes, equal bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
 
 
 def median_ms(torch, fn, reps: int, inner: int = 1) -> float:
@@ -156,18 +191,19 @@ def device_ms(torch, fn, calls: int) -> float:
     a host clock or an event pair measures the wrapper and the launch."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            total_us += getattr(evt, "self_device_time_total", None) or getattr(
-                evt, "self_cuda_time_total", 0.0)
-    if not total_us > 0:
-        fail("the profiler recorded no device time")
-    return total_us / 1e3 / calls
+    for _ in range(3):  # a trace now and then comes back without its device events
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                total_us += getattr(evt, "self_device_time_total", None) or getattr(
+                    evt, "self_cuda_time_total", 0.0)
+        if total_us > 0:
+            return total_us / 1e3 / calls
+    fail("the profiler recorded no device time in three traces")
 
 
 def graph_ms(torch, fn, calls: int, reps: int = 5) -> float:
@@ -192,7 +228,14 @@ def check_one(torch, tag, dtype, kernel, plain, nbytes, flops, count, agg, same_
     several), then both timed; adds ``count`` launches' worth (one
     forward's or one backward's) to ``agg``.  ``same_bits``: a second
     launch must reproduce the first bit for bit."""
-    outs, refs = kernel(), plain()
+    try:
+        outs = kernel()
+    except ValueError as err:
+        if not REPORT_REFUSALS:
+            raise
+        print(f"[kernel] {tag}: refused ({err})", flush=True)
+        return
+    refs = plain()
     torch.cuda.synchronize()
     if not isinstance(outs, tuple):
         outs, refs = (outs,), (refs,)
@@ -217,7 +260,8 @@ def check_one(torch, tag, dtype, kernel, plain, nbytes, flops, count, agg, same_
     print(f"[kernel] {tag}: max|err| {err:.3e} (max|ref| {scale:.3e}) "
           f"kernel {ms:.4f} ms (a call through the wrapper {call_ms:.4f} ms) plain "
           f"{plain_ms:.4f} ms bound {max(by_bytes, by_ops):.4f} ms "
-          f"({'operations' if by_ops >= by_bytes else 'bytes'}) x{count}/pass", flush=True)
+          f"({'operations' if by_ops >= by_bytes else 'bytes'}) x{count}/pass "
+          f"bits {bits(torch, *outs)}", flush=True)
     agg["err"] = max(agg["err"], err)
     agg["ms"] += count * ms
     agg["plain_ms"] += count * plain_ms
@@ -237,10 +281,10 @@ def check_kernels(torch, np, lg, l_blocks, conv_shapes, rng):
         fused_counts[(k, c, f)] = fused_counts.get((k, c, f), 0) + 1
         if k > 1:
             terms_counts[(k, c)] = terms_counts.get((k, c), 0) + 1
-    # checked but not on the path (count 0): ragged C and F, the largest K the
-    # backward takes, and a block size under 128 (the leading 96 x 96 of L0);
-    # the terms kernels also at K = 10, which their streamed backward takes
-    off_path = [(s, 3, 100, 72), (s, 8, 64, 64), (96, 6, 128, 128)]
+    # checked but not on the path (count 0): ragged C and F, K = 8, a block
+    # size under 128 (the leading 96 x 96 of L0) and K = 10, beyond the 8
+    # terms the fused backward holds at once (the terms kernels too)
+    off_path = [(s, 3, 100, 72), (s, 8, 64, 64), (96, 6, 128, 128), (s, 10, 64, 64)]
     terms_off_path = [(s, 3, 100), (s, 8, 64), (96, 6, 128), (s, 10, 64)]
     summary = {}
     for dtype in ("float32", "bfloat16"):
@@ -545,7 +589,7 @@ def check_ell(torch, np, ell, cases, rng, card):
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} bound "
                   f"{max(by_bytes, by_ops):.5f} ms "
                   f"({'operations' if by_ops >= by_bytes else 'bytes'}) x{count}+{count}/step "
-                  f"[{card}]", flush=True)
+                  f"bits out {bits(torch, out)} dx {bits(torch, xk.grad)} [{card}]", flush=True)
             agg["err"] = max(agg["err"], err)
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("by_bytes", by_bytes),
                              ("by_ops", by_ops), ("bound", max(by_bytes, by_ops))):
@@ -626,16 +670,13 @@ def flat_task_phase(torch, np, ell, tag, make_model, batch, task, steps, per_ste
     return total, out32
 
 
-def flat_phase(torch, np, model32, samples, packed_pred32, card):
-    """The flat (COO/ELL) layout at full width; returns the ELL kernel's
-    per-step summary and its launches summed over every flat run."""
+def flat_batches(torch, np, samples):
+    """The three flat batches on the host and on the card, and their real
+    edge counts: zinc_pyr's 384 graphs (the packed path's samples),
+    pascalvoc_node's and pcqm_link's."""
     from hl_hgat_tpu_torch.complex.build import attach_link_pairs, collate
     from hl_hgat_tpu_torch.data.synthetic import (
         contact_like_samples, superpixel_like_samples, synthetic_zinc_batch)
-    from hl_hgat_tpu_torch.models import presets
-    from hl_hgat_tpu_torch.nn import conv
-    from hl_hgat_tpu_torch.ops import ell_spmm as ell
-    from hl_hgat_tpu_torch.train import Trainer, TrainerConfig, l1_loss
 
     t0 = time.perf_counter()
     zinc_host = synthetic_zinc_batch(BATCH_GRAPHS, seed=0, keig=16, embed_ids=True, with_ell=True)
@@ -646,10 +687,9 @@ def flat_phase(torch, np, model32, samples, packed_pred32, card):
     link_samples = contact_like_samples(np.random.default_rng(2), LINK_GRAPHS)
     link_host = attach_link_pairs(collate(link_samples, with_ell=True), link_samples,
                                   np.random.default_rng(3), n_queries=4, n_neg=8)
-    zinc, node, link = (b.to("cuda") for b in (zinc_host, node_host, link_host))
-    real = {k: int(b.level0.edge_mask.sum()) for k, b in
-            (("zinc", zinc_host), ("node", node_host), ("link", link_host))}
-    for k, b in (("zinc", zinc_host), ("node", node_host), ("link", link_host)):
+    hosts = {"zinc": zinc_host, "node": node_host, "link": link_host}
+    real = {k: int(b.level0.edge_mask.sum()) for k, b in hosts.items()}
+    for k, b in hosts.items():
         l0, l1 = b.level0.l0, b.level0.l1
         print(f"[data] flat {k}: {b.num_graphs} graphs, {int(b.level0.node_mask.sum())} nodes "
               f"(padded {l0.shape[0]}, ELL width {l0.ell_cols.shape[1]}, "
@@ -657,8 +697,15 @@ def flat_phase(torch, np, model32, samples, packed_pred32, card):
               f"{real[k]} edges (padded {l1.shape[0]}, width {l1.ell_cols.shape[1]}, "
               f"{100 * float((l1.ell_vals != 0).mean()):.1f}%)", flush=True)
     print(f"[data] flat batches built in {time.perf_counter() - t0:.2f} s host", flush=True)
+    return {k: b.to("cuda") for k, b in hosts.items()}, real
 
-    # ---- 6. kernel 5 against its plain version ------------------------------
+
+def ell_cases(model32, zinc, node):
+    """Kernel 5's cases: (tag, operator, trailing feature shape, launches
+    per flat zinc_pyr pass) at the widths of zinc_pyr's mat-vecs, then off
+    the path a ragged F = 37, a 3-D x and the node batch's operators."""
+    from hl_hgat_tpu_torch.nn import conv
+
     per_width = {}
     for m in model32.modules():
         if isinstance(m, conv.LaguerreConv) and m.weight.shape[0] > 1:
@@ -674,7 +721,31 @@ def flat_phase(torch, np, model32, samples, packed_pred32, card):
               ("zinc L1 3-D", zinc.level0.l1, (4, 32), 0)]
     for name, coo in (("node L0", node.level0.l0), ("node L1", node.level0.l1)):
         cases += [(name, coo, (c,), 0) for c in (64, 128, 256)]
-    summary = check_ell(torch, np, ell, cases, np.random.default_rng(4), card)
+    return cases
+
+
+def print_ell_summary(ell_summary, card):
+    for dtype, agg in ell_summary.items():
+        lib = "n/a" if agg["library_ms"] is None else f"{agg['library_ms']:.4f} ms"
+        print(f"[kernel] spmm_ell {dtype} per flat zinc_pyr step (80 + 80 launches): kernel "
+              f"{agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, torch.sparse.mm(CSR) {lib}, "
+              f"bound {agg['bound']:.4f} ms, max|err| {agg['err']:.3e} [{card}]", flush=True)
+
+
+def flat_phase(torch, np, model32, samples, packed_pred32, card):
+    """The flat (COO/ELL) layout at full width; returns the ELL kernel's
+    per-step summary and its launches summed over every flat run."""
+    from hl_hgat_tpu_torch.models import presets
+    from hl_hgat_tpu_torch.nn import conv
+    from hl_hgat_tpu_torch.ops import ell_spmm as ell
+    from hl_hgat_tpu_torch.train import Trainer, TrainerConfig, l1_loss
+
+    on_card, real = flat_batches(torch, np, samples)
+    zinc, node, link = on_card["zinc"], on_card["node"], on_card["link"]
+
+    # ---- 6. kernel 5 against its plain version ------------------------------
+    summary = check_ell(torch, np, ell, ell_cases(model32, zinc, node),
+                        np.random.default_rng(4), card)
 
     # ---- 7a. zinc_pyr on the three flat routes ------------------------------
     cfg = TrainerConfig(task="regression", lr=1e-3, weight_decay=1e-3)
@@ -805,7 +876,25 @@ def flat_phase(torch, np, model32, samples, packed_pred32, card):
     return summary, total
 
 
-def main() -> int:
+def print_laguerre_summary(summary, names, card):
+    for name in names:
+        for dtype in ("float32", "bfloat16"):
+            agg = summary[(name, dtype)]
+            print(f"[kernel] {name} {dtype} per step: kernel {agg['ms']:.4f} ms, plain "
+                  f"{agg['plain_ms']:.4f} ms, bound {agg['bound']:.4f} ms, max|err| "
+                  f"{agg['err']:.3e} [{card}]", flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="GPU smoke run of the PyTorch port")
+    ap.add_argument("--kernels-only", nargs="?", const="all", choices=("all", "ell"),
+                    help="build and check the kernels only (phases 2, 4 and 6; 'ell': "
+                         "phase 6), no result line")
+    args = ap.parse_args(argv)
+    global REPORT_REFUSALS
+    REPORT_REFUSALS = args.kernels_only is not None
     import torch
 
     if not torch.cuda.is_available():
@@ -868,6 +957,19 @@ def main() -> int:
     if len(conv_shapes) != 18:
         fail(f"zinc_pyr has {len(conv_shapes)} Laguerre convs, expected 18")
     l_blocks = torch.as_tensor(host_batch.level0.l0).cuda()
+    if args.kernels_only:
+        from hl_hgat_tpu_torch.ops import ell_spmm as ell
+
+        if args.kernels_only == "all":
+            summary = check_kernels(torch, np, lg, l_blocks, conv_shapes,
+                                    np.random.default_rng(1))
+            print_laguerre_summary(summary, list(lg.LAUNCHES), card)
+        on_card, _ = flat_batches(torch, np, samples)
+        print_ell_summary(check_ell(torch, np, ell, ell_cases(model32, on_card["zinc"],
+                                                              on_card["node"]),
+                                    np.random.default_rng(4), card), card)
+        print("[kernels-only] done, no result line", flush=True)
+        return 0
     summary = check_kernels(torch, np, lg, l_blocks, conv_shapes, np.random.default_rng(1))
 
     # ---- 3. the serving path ----------------------------------------------
@@ -925,6 +1027,29 @@ def main() -> int:
             if not err <= TOL[dtype] * cscale:
                 fail("card output disagrees with the CPU forward")
 
+    # ---- 3b. L1 blocks of 256 rows: the conv's route rule ------------------
+    wide = Predictor(model32, batch_size=BATCH_GRAPHS, edge_cap=WIDE_EDGE_CAP)
+    wide_batch = wide.collate(samples)
+    lg.reset_launch_counts()
+    wide_out = wide(samples)
+    counts = dict(lg.LAUNCHES)
+    if counts != {**none, "laguerre_dense_fused": WIDE_FUSED_PER_FORWARD}:
+        fail(f"node_cap 128, edge_cap {WIDE_EDGE_CAP}: launched {counts}, expected "
+             f"{WIDE_FUSED_PER_FORWARD} fused launches")
+    for name in launches:
+        launches[name] += counts[name]
+    if wide_out.shape != (BATCH_GRAPHS, 1) or not np.isfinite(wide_out).all():
+        fail(f"edge_cap {WIDE_EDGE_CAP}: output shape {wide_out.shape} or non-finite values")
+    err = float(np.abs(wide_out - packed_pred32).max())
+    wide_ms = median_ms(torch, lambda: wide.forward(wide_batch), 10)
+    print(f"[serve] float32 fused, node_cap 128 edge_cap {WIDE_EDGE_CAP}: "
+          f"{wide_batch.x_t.shape[0]} blocks, L1 blocks of {wide_batch.level0.l1.shape[1]} rows; "
+          f"forward {wide_ms:.3f} ms; {counts['laguerre_dense_fused']} fused launches a forward "
+          f"(the edge convs take the recurrence); max|err| vs default caps {err:.3e} "
+          f"(max|ref| {float(np.abs(packed_pred32).max()):.3e}) [{card}]", flush=True)
+    if not err <= WIDE_ATOL:
+        fail(f"edge_cap {WIDE_EDGE_CAP} predictions disagree with the default caps: {err:.3e}")
+
     for name in ("laguerre_dense_fused", "laguerre_terms_dense"):
         if launches[name] == 0:
             fail(f"{name} was never launched on the serving path")
@@ -951,15 +1076,7 @@ def main() -> int:
     }
     sources = {name: "hl_hgat_tpu_torch/csrc/laguerre_dense"
                + ("_bwd.cu" if name.endswith("_bwd") else ".cu") for name in replaces}
-    for name in replaces:
-        s16 = summary[(name, "bfloat16")]
-        s32 = summary[(name, "float32")]
-        print(f"[kernel] {name} float32 per step: kernel {s32['ms']:.4f} ms, plain "
-              f"{s32['plain_ms']:.4f} ms, bound {s32['bound']:.4f} ms, max|err| "
-              f"{s32['err']:.3e} [{card}]", flush=True)
-        print(f"[kernel] {name} bfloat16 per step: kernel {s16['ms']:.4f} ms, plain "
-              f"{s16['plain_ms']:.4f} ms, bound {s16['bound']:.4f} ms, max|err| "
-              f"{s16['err']:.3e} [{card}]", flush=True)
+    print_laguerre_summary(summary, replaces, card)
     kernels = []
     for name, where in replaces.items():
         s32 = summary[(name, "float32")]
@@ -973,11 +1090,7 @@ def main() -> int:
             "library_ms": None,
             "dtype": "float32", "per": "one zinc_pyr training step at batch 384",
         })
-    for dtype, agg in ell_summary.items():
-        lib = "n/a" if agg["library_ms"] is None else f"{agg['library_ms']:.4f} ms"
-        print(f"[kernel] spmm_ell {dtype} per flat zinc_pyr step (80 + 80 launches): kernel "
-              f"{agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, torch.sparse.mm(CSR) {lib}, "
-              f"bound {agg['bound']:.4f} ms, max|err| {agg['err']:.3e} [{card}]", flush=True)
+    print_ell_summary(ell_summary, card)
     e32 = ell_summary["float32"]
     kernels.append({
         "name": "spmm_ell", "route": "cuda",

@@ -14,20 +14,43 @@
 // the feature axis to fit its gather primitive; none of that carries over.
 // Here the gathered rows come from device memory through the 50 MB L2 (x of
 // the batches this package trains on is a few MB, so only the first touch
-// of a row goes to HBM).
+// of a row goes to HBM).  The flat batches are narrow (W = 11 to 26 slots a
+// row, 29-35 % of them non-zero), so what a launch waits on is the chain of
+// gathers each thread issues, and how many threads an SM holds to hide it.
 //
-// Design: threads run along the feature axis, so every gathered row of x is
-// read as consecutive addresses (VEC = 4 elements a thread when F is a
-// multiple of 4, else 1).  A block of 256 threads is `lanes` threads wide
-// and 256 / lanes rows high; `lanes` is the power of two that covers F / VEC
-// (8 to 256), so narrow feature widths still fill the block with rows.
-// Each thread keeps VEC float32 accumulators, walks the W slots of its row
-// in the fixed order j = 0 .. W-1 with a separate multiply and add (no
-// contraction: the arithmetic of acc = acc + x * v), and writes out once.
-// No atomics and no reduction across threads: a second launch gives the
-// same bits.  Padded slots (vals == 0, column in range) are multiplied like
-// any other, as the TPU kernel does.  Offsets are 64-bit: N·F passes 2^31
-// on the largest complexes.
+// Design:
+// * A thread owns one 16-byte chunk of a row: 4 float32 or 8 bfloat16
+//   features, so a bfloat16 thread issues 16-byte loads as a float32 one
+//   does.  A block of 256 threads covers whole rows of cpr = ceil(F / vec)
+//   chunks (a row wider than 256 chunks is cut into slices over blockIdx.y);
+//   the threads of a row cover its F features exactly, with no power-of-two
+//   rounding (F = 37 float32 takes 10 threads a row).  A thread finds its
+//   row and chunk with a multiply, not an integer division.  The launch plan
+//   is made by ops/ell_spmm.py::launch_plan.
+// * Ragged rows without a narrower path: when F's row stride or a base is
+//   not 16-byte aligned, a chunk is read as the 16 bytes at its address
+//   through the aligned 16-byte block that holds its first byte and, when it
+//   runs past that block, the next one (two aligned loads, then a shift by
+//   whole or half words), and written with element stores.  Nothing is
+//   padded or copied.
+// * Gathers in flight together: the slot loop runs in unrolled chunks of
+//   kUnroll = 4, issuing four independent row gathers (each after its
+//   column index) before the fixed-order adds, the last chunk predicated.
+// * Each thread loads its row's column indices and values itself: the
+//   threads of a row read the same words, which the L1 serves once a warp.
+//   Staging them once a row in shared memory (per block or per warp), or
+//   keeping 8 gathers in flight, or staging the gathers with cp.async, all
+//   measured slower on an H100: each costs registers or shared memory, and
+//   fewer threads fit an SM (PERF.md, kernel 5).  This kernel takes about 48
+//   registers a thread.
+// * Each thread keeps vec float32 accumulators and walks the W slots of its
+//   row in the fixed order j = 0 .. W-1 with a separate multiply and add (no
+//   contraction: the arithmetic of acc = acc + x * v), then writes out once.
+//   No atomics and no reduction across threads: a second launch gives the
+//   same bits, and the same bits as a one-slot-at-a-time loop.  Padded slots
+//   (vals == 0, column in range) are multiplied like any other, as the TPU
+//   kernel does, so 0·inf stays NaN.  Row offsets are 64-bit: N·F passes
+//   2^31 on the largest complexes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,108 +60,143 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 4;  // gathers a thread issues before it adds
 
 __device__ inline float to_float(float v) { return v; }
 __device__ inline float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T, int VEC>
-struct Row;
+__device__ inline unsigned word(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
 
-template <>
-struct Row<float, 1> {
-  __device__ static void load(const float* p, float (&v)[1]) { v[0] = *p; }
-  __device__ static void store(float* p, const float (&v)[1]) { *p = v[0]; }
-};
+// The 16 bytes at p, a T*.  kAligned: p is 16-byte aligned, one load.  Else
+// the aligned block holding p's first byte and, when the `bytes` that count
+// run past it, the next one, shifted down by p's offset (whole words for
+// float32, half words too for bfloat16).
+template <typename T, bool kAligned>
+__device__ inline uint4 load16(const T* p, int bytes) {
+  if constexpr (kAligned) return __ldg(reinterpret_cast<const uint4*>(p));
+  const size_t a = reinterpret_cast<size_t>(p);
+  const uint4* block = reinterpret_cast<const uint4*>(a & ~(size_t)15);
+  const int s = (int)(a & 15);
+  const uint4 w0 = __ldg(block);
+  const uint4 w1 = s + bytes > 16 ? __ldg(block + 1) : make_uint4(0u, 0u, 0u, 0u);
+  const unsigned w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  const int q = s >> 2;
+  unsigned o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned lo = q == 0 ? w[i] : q == 1 ? w[i + 1] : q == 2 ? w[i + 2] : w[i + 3];
+    if constexpr (sizeof(T) == 4) {
+      o[i] = lo;
+    } else {
+      const unsigned hi = q == 0 ? w[i + 1] : q == 1 ? w[i + 2] : q == 2 ? w[i + 3] : w[i + 4];
+      o[i] = __funnelshift_r(lo, hi, (s & 3) * 8);
+    }
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
 
-template <>
-struct Row<float, 4> {
-  __device__ static void load(const float* p, float (&v)[4]) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+// A chunk's 16 bytes as floats (exact).
+template <typename T>
+__device__ inline void widen(const uint4& r, float (&v)[16 / sizeof(T)]) {
+#pragma unroll
+  for (int i = 0; i < 16 / (int)sizeof(T); ++i) {
+    if constexpr (sizeof(T) == 4) {
+      v[i] = __uint_as_float(word(r, i));
+    } else {  // bfloat16: the upper half of a float
+      const unsigned w = word(r, i / 2);
+      v[i] = __uint_as_float((i & 1 ? w >> 16 : w & 0xffffu) << 16);
+    }
   }
-  __device__ static void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
+}
 
-template <>
-struct Row<__nv_bfloat16, 1> {
-  __device__ static void load(const __nv_bfloat16* p, float (&v)[1]) {
-    v[0] = __bfloat162float(*p);
-  }
-  __device__ static void store(__nv_bfloat16* p, const float (&v)[1]) {
-    *p = __float2bfloat16(v[0]);
-  }
-};
+__device__ inline void store1(float* p, float v) { *p = v; }
+__device__ inline void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-template <>
-struct Row<__nv_bfloat16, 4> {
-  __device__ static void load(const __nv_bfloat16* p, float (&v)[4]) {
-    const uint2 q = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
-    v[0] = __low2float(a), v[1] = __high2float(a);
-    v[2] = __low2float(b), v[3] = __high2float(b);
-  }
-  __device__ static void store(__nv_bfloat16* p, const float (&v)[4]) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 q;
-    q.x = *reinterpret_cast<const unsigned int*>(&a);
-    q.y = *reinterpret_cast<const unsigned int*>(&b);
-    *reinterpret_cast<uint2*>(p) = q;
-  }
-};
-
-// T: dtype of x and out; V: dtype of vals; VEC: features a thread owns.
-template <typename T, typename V, int VEC>
+// T: dtype of x and out; V: dtype of vals.  A block covers rows_b rows of
+// cpb chunks (blockIdx.y: the slice of a wider row); magic = floor(2^32 /
+// cpb) + 1 divides a thread index by cpb exactly.  kAligned: F's row stride
+// and the bases of x and out are 16-byte aligned.
+template <typename T, typename V, bool kAligned>
 __global__ void __launch_bounds__(kThreads)
 ell_spmm_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
                 const T* __restrict__ x, T* __restrict__ out, long long N,
-                int W, long long F, int lanes) {
-  const int tx = threadIdx.x % lanes, ty = threadIdx.x / lanes;
-  const long long r = (long long)blockIdx.x * (kThreads / lanes) + ty;
-  const long long f = ((long long)blockIdx.y * lanes + tx) * VEC;
-  if (r >= N || f >= F) return;
+                int W, int F, int cpb, int rows_b, unsigned long long magic) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int rl = (int)(((unsigned long long)threadIdx.x * magic) >> 32);
+  const long long r = (long long)blockIdx.x * rows_b + rl;
+  const int f = (blockIdx.y * cpb + (int)(threadIdx.x - rl * cpb)) * VEC;
+  if (rl >= rows_b || r >= N || f >= F) return;
+  const int need = F - f < VEC ? F - f : VEC;  // features of this chunk in the row
   const int* crow = cols + r * W;
   const V* vrow = vals + r * W;
   float acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-  for (int j = 0; j < W; ++j) {
-    const long long c = crow[j];
-    const float v = to_float(vrow[j]);
-    float xv[VEC];
-    Row<T, VEC>::load(x + c * F + f, xv);
+  for (int j0 = 0; j0 < W; j0 += kUnroll) {
+    uint4 raw[kUnroll];
+    float v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (j0 + u < W) {
+        v[u] = to_float(vrow[j0 + u]);
+        raw[u] = load16<T, kAligned>(x + (long long)crow[j0 + u] * F + f, need * (int)sizeof(T));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (j0 + u < W) {
+        float xv[VEC];
+        widen<T>(raw[u], xv);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(xv[i], v[u]));
+      }
+    }
+  }
+  T* o = out + r * F + f;
+  if constexpr (kAligned) {
+    uint4 q;
+    if constexpr (sizeof(T) == 4) {
+      q = make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]),
+                     __float_as_uint(acc[2]), __float_as_uint(acc[3]));
+    } else {
+      unsigned w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = __bfloat16_as_ushort(__float2bfloat16_rn(acc[2 * i])) |
+               (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(acc[2 * i + 1])) << 16;
+      q = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    *reinterpret_cast<uint4*>(o) = q;
+  } else {
 #pragma unroll
     for (int i = 0; i < VEC; ++i)
-      acc[i] = __fadd_rn(acc[i], __fmul_rn(xv[i], v));
+      if (i < need) store1(o + i, acc[i]);
   }
-  Row<T, VEC>::store(out + r * F + f, acc);
-}
-
-template <typename T, typename V, int VEC>
-int launch(const void* cols, const void* vals, const void* x, void* out,
-           long long N, int W, long long F, cudaStream_t stream) {
-  const long long per_row = F / VEC;  // VEC divides F
-  int lanes = 8;
-  while (lanes < kThreads && lanes < per_row) lanes *= 2;
-  const long long rows_per_block = kThreads / lanes;
-  const long long gx = (N + rows_per_block - 1) / rows_per_block;
-  const long long gy = (per_row + lanes - 1) / lanes;
-  if (gx > 2147483647LL || gy > 65535LL) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)gx, (unsigned)gy);
-  ell_spmm_kernel<T, V, VEC><<<grid, kThreads, 0, stream>>>(
-      static_cast<const int*>(cols), static_cast<const V*>(vals),
-      static_cast<const T*>(x), static_cast<T*>(out), N, W, F, lanes);
-  return (int)cudaGetLastError();
 }
 
 template <typename T, typename V>
-int launch_vec(const void* cols, const void* vals, const void* x, void* out,
-               long long N, int W, long long F, cudaStream_t stream) {
-  return F % 4 == 0 ? launch<T, V, 4>(cols, vals, x, out, N, W, F, stream)
-                    : launch<T, V, 1>(cols, vals, x, out, N, W, F, stream);
+int launch(const void* cols, const void* vals, const void* x, void* out,
+           long long N, int W, long long F, int aligned, int cpb, int rows_b,
+           cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const long long cpr = (F + VEC - 1) / VEC;
+  if (F > 2147483647LL || cpb < 1 || cpb > kThreads || cpb > cpr || rows_b < 1 ||
+      rows_b * cpb > kThreads || (rows_b > 1 && cpb != cpr))
+    return (int)cudaErrorInvalidValue;
+  if (aligned && ((F * sizeof(T)) % 16 || reinterpret_cast<size_t>(x) % 16 ||
+                  reinterpret_cast<size_t>(out) % 16))
+    return (int)cudaErrorMisalignedAddress;
+  const long long gx = (N + rows_b - 1) / rows_b, gy = (cpr + cpb - 1) / cpb;
+  if (gx > 2147483647LL || gy > 65535LL) return (int)cudaErrorInvalidConfiguration;
+  const unsigned long long magic = (1ULL << 32) / (unsigned)cpb + 1;
+  const dim3 grid((unsigned)gx, (unsigned)gy);
+  auto k = aligned ? ell_spmm_kernel<T, V, true> : ell_spmm_kernel<T, V, false>;
+  k<<<grid, kThreads, 0, stream>>>(static_cast<const int*>(cols), static_cast<const V*>(vals),
+                                   static_cast<const T*>(x), static_cast<T*>(out), N, W,
+                                   (int)F, cpb, rows_b, magic);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -147,20 +205,22 @@ extern "C" {
 
 // cols [N, W] int32 (every entry in [0, N)), vals [N, W], x [N, F] ->
 // out [N, F], all row-major and dense; x_bf16 / vals_bf16 != 0: bfloat16,
-// else float32.  x and out must be 16-byte aligned when F is a multiple of
-// 4.  Returns a cudaError_t.
+// else float32.  aligned != 0: F's row stride and x and out are 16-byte
+// aligned; cpb: 16-byte chunks of a row a block covers (all of them, or 256
+// of a wider row), rows_b: rows a block covers, rows_b·cpb <= 256.
+// Returns a cudaError_t.
 int hlhgat_ell_spmm(const void* cols, const void* vals, const void* x,
-                    void* out, long long N, int W, long long F, int x_bf16,
-                    int vals_bf16, void* stream) {
+                    void* out, long long N, int W, long long F, int aligned,
+                    int cpb, int rows_b, int x_bf16, int vals_bf16, void* stream) {
   if (N <= 0 || F <= 0) return 0;
   if (W < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
     return vals_bf16
-               ? launch_vec<__nv_bfloat16, __nv_bfloat16>(cols, vals, x, out, N, W, F, s)
-               : launch_vec<__nv_bfloat16, float>(cols, vals, x, out, N, W, F, s);
-  return vals_bf16 ? launch_vec<float, __nv_bfloat16>(cols, vals, x, out, N, W, F, s)
-                   : launch_vec<float, float>(cols, vals, x, out, N, W, F, s);
+               ? launch<__nv_bfloat16, __nv_bfloat16>(cols, vals, x, out, N, W, F, aligned, cpb, rows_b, s)
+               : launch<__nv_bfloat16, float>(cols, vals, x, out, N, W, F, aligned, cpb, rows_b, s);
+  return vals_bf16 ? launch<float, __nv_bfloat16>(cols, vals, x, out, N, W, F, aligned, cpb, rows_b, s)
+                   : launch<float, float>(cols, vals, x, out, N, W, F, aligned, cpb, rows_b, s);
 }
 
 const char* hlhgat_cuda_error_string(int code) {

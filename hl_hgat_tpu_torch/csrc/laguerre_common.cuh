@@ -52,7 +52,6 @@ struct Io<float> {
   __device__ static void store(float* p, size_t i, float v) { p[i] = v; }
   __device__ static float round(float v) { return v; }
   __device__ static float div(float a, float b) { return a / b; }
-  __device__ static float2 round2(float2 v) { return v; }
 };
 
 template <>
@@ -70,10 +69,6 @@ struct Io<__nv_bfloat16> {
   // (2 ulp of float32) rounds to the same bfloat16 as the exact one for the
   // small integer divisors of the recurrence.
   __device__ static float div(float a, float b) { return __fdividef(a, b); }
-  // both halves rounded with one packed conversion
-  __device__ static float2 round2(float2 v) {
-    return __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
-  }
 };
 
 // ---------------------------------------------------------------------------
@@ -81,7 +76,6 @@ struct Io<__nv_bfloat16> {
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaThreads = 512;  // 16 warps: the fused kernels' blocks
-constexpr int kMaxK = 8;          // register accumulator sets of the backward
 
 __host__ __device__ inline int pad32(int s) { return (s + 31) & ~31; }
 
@@ -327,20 +321,6 @@ __device__ inline void warp_gemm(float (&acc)[MT][NT][4], const T* a, int lda,
   }
 }
 
-// Two neighbouring elements (an accumulator's column pair) as floats.
-__device__ inline float2 ld_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ inline float2 ld_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ inline void st_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ inline void st_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // A [rows_t, cols_t] tile of src (row stride ld_src) into dst (row stride
 // ld_dst), zero beyond rows_valid x cols_valid.  16-byte cp.async where it
 // can, scalar loads elsewhere; the caller waits (cp_async_wait_all) and
@@ -394,27 +374,13 @@ __device__ inline void store_tile(T* dst, size_t ld_dst, const T* src,
   }
 }
 
-// T_{k+1} at two neighbouring coordinates from lt = (L T_k), cur = T_k,
-// prev = T_{k-1} there, rounded where the JAX kernel rounds.
-template <typename T>
-__device__ inline float2 laguerre_step2(float2 lt, float2 cur, float2 prev, int k) {
-  using R = Io<T>;
-  const float2 v = R::round2(lt);
-  if (k == 0) return R::round2(make_float2(cur.x - v.x, cur.y - v.y));
-  const float kf = (float)k, a = 2.f * kf + 1.f, d = kf + 1.f;
-  const float2 ac = R::round2(make_float2(a * cur.x, a * cur.y));
-  float2 s = R::round2(make_float2(ac.x - v.x, ac.y - v.y));
-  const float2 kp = R::round2(make_float2(kf * prev.x, kf * prev.y));
-  s = R::round2(make_float2(s.x - kp.x, s.y - kp.y));
-  return R::round2(make_float2(R::div(s.x, d), R::div(s.y, d)));
-}
-
 // Two neighbouring elements of a tile (an accumulator's column pair) in T's
-// own arithmetic, for the terms kernels: float2 for float; for bfloat16 the
-// packed bf16x2 operations, each rounding once to bfloat16 (.rn, so never
-// contracted into an fma).  The exact result of an operation on two bfloat16
-// values rounded once is what Io<T>::round2 of the float result gives, so
-// these give laguerre_step2's bits with fewer conversions a pair.
+// own arithmetic, for every Laguerre kernel's elementwise steps: float2 for
+// float; for bfloat16 the packed bf16x2 operations, each rounding once to
+// bfloat16 (.rn, so never contracted into an fma).  The exact result of an
+// operation on two bfloat16 values rounded once is what rounding the float
+// result to bfloat16 gives, so these follow the JAX kernels' rounding points
+// with two conversions a pair instead of seven.
 template <typename T>
 struct Pair;
 
@@ -456,8 +422,8 @@ struct Pair<__nv_bfloat16> {
   }
 };
 
-// laguerre_step2 on a Pair: T_{k+1} from lt = (L T_k), cur = T_k, prev =
-// T_{k-1} at two neighbouring coordinates.
+// T_{k+1} from lt = (L T_k), cur = T_k, prev = T_{k-1} at two neighbouring
+// coordinates, rounded where the JAX kernel rounds.
 template <typename T>
 __device__ inline typename Pair<T>::V laguerre_step_pair(float lt0, float lt1,
                                                          typename Pair<T>::V cur,

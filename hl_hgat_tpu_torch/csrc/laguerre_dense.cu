@@ -46,7 +46,8 @@
 //   it).  G=78 blocks fill 59 % of the 132 SMs.
 // * Rounding follows the JAX kernel: L and W are cast to x's dtype, each
 //   L·T product is accumulated in f32 and rounded to x's dtype, every
-//   elementwise step of the combine is rounded to x's dtype, the output
+//   elementwise step of the combine is rounded to x's dtype (Pair<T>, as in
+//   every Laguerre kernel: packed bf16x2 operations in bf16), the output
 //   GEMMs accumulate in f32 and the sum plus the f32 bias is rounded once.
 //   The tensor cores sum in another order than a sequential loop, so a bf16
 //   result may differ from the plain version by an ulp; two launches on the
@@ -86,6 +87,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
                          const T* __restrict__ w, const float* __restrict__ b,
                          T* __restrict__ out, int S, int C, int F, int K) {
   using M = Mma<T>;
+  using P = Pair<T>;
   constexpr int CT = M::kCT, FT = 32 * NT;
   constexpr int NTL = CT / 32;  // n8-tiles a warp owns in L·T
   constexpr int ldt = CT + M::kPadN, ldw = FT + M::kPadNP;
@@ -147,12 +149,9 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
             for (int h = 0; h < 2; ++h) {
               const int at = (m0 + 16 * mi + gid + 8 * h) * ldt + c_w + 8 * ni +
                              2 * tig;
-              const float2 tc = ld_pair(cur + at);
-              float2 tp = make_float2(0.f, 0.f);
-              if (k > 0) tp = ld_pair(other + at);
-              const float2 tn = laguerre_step2<T>(
-                  make_float2(lt[mi][ni][2 * h], lt[mi][ni][2 * h + 1]), tc, tp, k);
-              st_pair(other + at, tn.x, tn.y);
+              const typename P::V tp = k > 0 ? P::ld(other + at) : P::of(0.f, 0.f);
+              P::st(other + at, laguerre_step_pair<T>(lt[mi][ni][2 * h], lt[mi][ni][2 * h + 1],
+                                                      P::ld(cur + at), tp, k));
             }
       }
     }
@@ -171,8 +170,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
       for (int ni = 0; ni < NT; ++ni) {
         const int f = f0 + wn * (FT / 4) + 8 * ni + 2 * tig;
         if (f + 1 < F && pair_ok) {
-          st_pair(orow + f, acc[mi][ni][2 * h] + b[f],
-                  acc[mi][ni][2 * h + 1] + b[f + 1]);
+          P::st(orow + f, P::of(acc[mi][ni][2 * h] + b[f], acc[mi][ni][2 * h + 1] + b[f + 1]));
         } else {
           if (f < F) Io<T>::store(orow, f, acc[mi][ni][2 * h] + b[f]);
           if (f + 1 < F) Io<T>::store(orow, f + 1, acc[mi][ni][2 * h + 1] + b[f + 1]);

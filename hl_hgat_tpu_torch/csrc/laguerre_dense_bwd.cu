@@ -34,32 +34,39 @@
 // operands in shared memory in x's type; 16 warps a block; 16-byte cp.async
 // loads with a scalar path for ragged edges and unaligned bases):
 // - dx (fused_bwd_dx_mma_kernel): one block per (graph block, 32-wide
-//   C-slice).  It streams g and the K weight slices in F-chunks (64 features
-//   in bf16, 32 in f32; double-buffered with cp.async, so a chunk arrives
-//   while the last one is multiplied) and keeps all K products
-//   bar_k = g W_k^T as f32 accumulators in registers (8 a term and thread),
-//   one g fragment serving the K terms.  The adjoint walk then runs in those
-//   registers: only the tile that L multiplies next goes through shared
-//   memory (two tiles, alternating), L·bar comes back at the accumulator's
-//   own coordinates and the two cotangents below are updated in place.  So
-//   shared memory holds L, two [S,32] tiles and the streamed chunks: 162 KB
-//   in bf16, 226 KB in f32 at S=128, K=8 — every K <= 8 fits.
+//   C-slice).  It takes the terms in chunks of at most 8 (kTermChunk), from
+//   the top of the walk down.  For each chunk it streams g and the chunk's
+//   weight slices in F-chunks (64 features in bf16, 32 in f32;
+//   double-buffered with cp.async, so a chunk arrives while the last one is
+//   multiplied) and keeps the chunk's products bar_k = g W_k^T as f32
+//   accumulators in registers (8 a term and thread), one g fragment serving
+//   the chunk's terms.  The adjoint walk then runs through the chunk in
+//   registers: two cotangents are carried from step to step (and from chunk
+//   to chunk) as element pairs in x's arithmetic (Pair<T>), only the tile
+//   that L multiplies next goes through shared memory (two tiles,
+//   alternating), and L·bar comes back at the accumulator's own coordinates.
+//   So shared memory holds L, two [S,32] tiles and the streamed chunks of g
+//   and of at most 8 weight slices: 162 KB in bf16, 226 KB in f32 at S=128,
+//   whatever K is; g is read once a chunk of terms.
 // - dW/db partials (fused_bwd_dw_mma_kernel): one block per (16-channel
 //   C-slice, 256-wide F-tile, slice of the graph blocks), about one block an
 //   SM.  It walks its graph blocks in a fixed order with L, the x slice and
 //   g loaded once per graph block, recomputes the terms once per (graph
 //   block, channel) for F <= 256 with two rotating tiles (T_{k+1} is written
 //   over T_{k-1}) and adds T_k^T g into one register accumulator set per
-//   term (8 a term and thread, hence K <= 8).  Blocks of the first C-slice
-//   also sum g over rows for db.  Each writes its partial tile; no atomics.
-//   Shared memory at S=128: L, two [S,16] tiles and g [S,256]: 112 KB in
-//   bf16, 222 KB in f32.
+//   term of a chunk of at most 8 (8 a term and thread).  With K <= 8 the
+//   sets run over all of the block's graph blocks and are written once; with
+//   more, each chunk's sets are added into the block's own share of the
+//   partials after each graph block and cleared, while the recurrence runs
+//   on.  Blocks of the first C-slice also sum g over rows for db.  No
+//   atomics.  Shared memory at S=128: L, two [S,16] tiles and g [S,256]:
+//   112 KB in bf16, 222 KB in f32.
 // - reduce (reduce_partials_kernel): adds the slices' partials in slice order
 //   into dW and db.
 // The sum order depends on the shapes only, so the gradient is the same from
 // run to run.
 // * Block sizes S <= 128 of any value are padded with zeros to a multiple
-//   of 32 rows in shared memory; any C and F; K <= 8.
+//   of 32 rows in shared memory; any C, F and K.
 // * Rounding follows the JAX kernel: g and W are taken in x's dtype; bar_k
 //   and each L·bar product are accumulated in f32 and rounded to x's dtype;
 //   every elementwise step of the walk is rounded to x's dtype (the j/(j+1)
@@ -88,277 +95,10 @@
 namespace {
 
 constexpr int kDxCT = 32;           // channel slice of the dx kernel
+constexpr int kTermChunk = 8;       // terms whose products or dW a block holds at once
 constexpr int kDwCT = 16;           // dW tile: channels ...
 constexpr int kDwFT = 256;          // ... x features
 constexpr int kTargetBlocks = 132;  // one block an SM on an H100
-
-// Warp (wm, wn) of the 4 x 4 layout owns rows 32 wm .. + 31 and columns
-// 8 wn .. + 7 of the block's [S, 32] slice of every bar_k.
-template <typename T>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-    fused_bwd_dx_mma_kernel(const T* __restrict__ l, const T* __restrict__ w,
-                            const T* __restrict__ gout, T* __restrict__ dx,
-                            int S, int C, int F, int K) {
-  using M = Mma<T>;
-  constexpr int CT = kDxCT, FK = M::kCT;
-  constexpr int ldb = CT + M::kPadN, ldg = FK + M::kPadKP, ldw = FK + M::kPadKP;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int sp = pad32(S), ldl = sp + M::kPadK;
-  T* ls = reinterpret_cast<T*>(smem_raw);
-  T* bt = ls + sp * ldl;      // 2 tiles [sp][ldb]: the walk's operand
-  T* gs = bt + 2 * sp * ldb;  // 2 chunks of g [sp][ldg]
-  T* ws = gs + 2 * sp * ldg;  // 2 chunks of W [K][CT][ldw]
-  const int g = blockIdx.x, c0 = blockIdx.y * CT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int m0 = (warp >> 2) * 32, n0 = (warp & 3) * 8;
-  const bool active = m0 < sp;
-  const int chunks = (F + FK - 1) / FK;
-  const T* gg = gout + (size_t)g * S * F;
-
-  auto load_chunk = [&](int ch, int buf) {
-    const int f0 = ch * FK;
-    load_tile_async<T>(gs + buf * sp * ldg, ldg, gg + f0, F, sp, FK, S, F - f0);
-    for (int k = 0; k < K; ++k)
-      load_tile_async<T>(ws + (buf * K + k) * CT * ldw, ldw,
-                         w + ((size_t)k * C + c0) * F + f0, F, CT, FK, C - c0,
-                         F - f0);
-  };
-
-  load_tile_async<T>(ls, ldl, l + (size_t)g * S * S, S, sp, sp, S, S);
-  load_chunk(0, 0);
-
-  // bar[k] += g[rows, chunk] @ W_k[columns, chunk]^T, one g fragment for all k
-  float bar[kMaxK][2][4] = {};
-  for (int ch = 0; ch < chunks; ++ch) {
-    cp_async_wait_all();
-    __syncthreads();  // this chunk is whole; the last chunk's reads are done
-    if (ch + 1 < chunks) load_chunk(ch + 1, (ch + 1) & 1);
-    if (!active) continue;
-    const T* ga = gs + (ch & 1) * sp * ldg + m0 * ldg;
-    const T* wb = ws + (ch & 1) * K * CT * ldw + n0 * ldw;
-#pragma unroll 2
-    for (int k0 = 0; k0 < FK; k0 += M::kDepth) {
-      typename M::AFrag af[2];
-      M::template load_a_kmajor<true>(af[0], ga + k0, ldg);
-      M::template load_a_kmajor<true>(af[1], ga + 16 * ldg + k0, ldg);
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        if (k < K) {
-          typename M::BFrag bf;
-          M::template load_b_kmajor<true>(bf, wb + k * CT * ldw + k0, ldw);
-          M::mma(bar[k][0], af[0], bf);
-          M::mma(bar[k][1], af[1], bf);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 t = Io<T>::round2(
-            make_float2(bar[k][mi][2 * h], bar[k][mi][2 * h + 1]));
-        bar[k][mi][2 * h] = t.x;
-        bar[k][mi][2 * h + 1] = t.y;
-      }
-
-  // lt = L @ v for the warp's coordinates: v goes through the shared tile
-  // `buf`, which nobody reads any more (the barrier before the last use of
-  // the other tile came after every read of this one).
-  auto l_times_tile = [&](const float (&v)[2][4], float (&lt)[2][1][4], int buf) {
-    T* tile = bt + buf * sp * ldb;
-    if (active) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          st_pair(tile + (m0 + 16 * mi + gid + 8 * h) * ldb + n0 + 2 * tig,
-                  v[mi][2 * h], v[mi][2 * h + 1]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) lt[mi][0][r] = 0.f;
-    if (active)
-      warp_gemm<T, 2, 1, true, false>(lt, ls + m0 * ldl, ldl, tile + n0, ldb, sp);
-  };
-
-  using R = Io<T>;
-  int buf = 0;
-  float lt[2][1][4];
-#pragma unroll
-  for (int kk = kMaxK - 1; kk > 1; --kk) {
-    if (kk < K) {
-      const float jf = (float)(kk - 1), a = 2.f * jf + 1.f, d = jf + 1.f;
-      const float coef = R::round(jf / d);
-      l_times_tile(bar[kk], lt, buf);
-      buf ^= 1;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float* bt2 = &bar[kk][mi][2 * h];      // read
-          float* b1 = &bar[kk - 1][mi][2 * h];   // += (-L bar + (2j+1) bar) / (j+1)
-          float* b2 = &bar[kk - 2][mi][2 * h];   // -= j/(j+1) bar
-          const float2 lv = R::round2(make_float2(lt[mi][0][2 * h], lt[mi][0][2 * h + 1]));
-          const float2 av = R::round2(make_float2(a * bt2[0], a * bt2[1]));
-          float2 s = R::round2(make_float2(av.x - lv.x, av.y - lv.y));
-          s = R::round2(make_float2(R::div(s.x, d), R::div(s.y, d)));
-          s = R::round2(make_float2(b1[0] + s.x, b1[1] + s.y));
-          b1[0] = s.x;
-          b1[1] = s.y;
-          const float2 cv = R::round2(make_float2(coef * bt2[0], coef * bt2[1]));
-          const float2 t = R::round2(make_float2(b2[0] - cv.x, b2[1] - cv.y));
-          b2[0] = t.x;
-          b2[1] = t.y;
-        }
-    }
-  }
-  if (K > 1) {
-    l_times_tile(bar[1], lt, buf);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float* b0 = &bar[0][mi][2 * h];
-        const float* b1 = &bar[1][mi][2 * h];
-        const float2 lv = R::round2(make_float2(lt[mi][0][2 * h], lt[mi][0][2 * h + 1]));
-        const float2 sum = R::round2(make_float2(b0[0] + b1[0], b0[1] + b1[1]));
-        const float2 t = R::round2(make_float2(sum.x - lv.x, sum.y - lv.y));
-        b0[0] = t.x;
-        b0[1] = t.y;
-      }
-  }
-  if (!active) return;
-  const bool pair_ok =
-      C % 2 == 0 && reinterpret_cast<size_t>(dx) % (2 * sizeof(T)) == 0;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = m0 + 16 * mi + gid + 8 * h, c = c0 + n0 + 2 * tig;
-      if (r >= S) continue;
-      T* drow = dx + ((size_t)g * S + r) * C;
-      if (c + 1 < C && pair_ok) {
-        st_pair(drow + c, bar[0][mi][2 * h], bar[0][mi][2 * h + 1]);
-      } else {
-        if (c < C) Io<T>::store(drow, c, bar[0][mi][2 * h]);
-        if (c + 1 < C) Io<T>::store(drow, c + 1, bar[0][mi][2 * h + 1]);
-      }
-    }
-}
-
-// partial[split][K*C*F + F]: this slice's share of dW (then db).  The
-// recurrence runs on an 8 x 2 warp layout (rows 16 rm .., half the channel
-// slice each); the accumulation T_k^T g splits the F-tile over the 16 warps.
-template <typename T>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-    fused_bwd_dw_mma_kernel(const T* __restrict__ l, const T* __restrict__ x,
-                            const T* __restrict__ gout,
-                            float* __restrict__ partial, int G, int S, int C,
-                            int F, int K) {
-  using M = Mma<T>;
-  constexpr int CT = kDwCT, FT = kDwFT;
-  constexpr int MT = CT / 16;    // m16-tiles of the accumulation
-  constexpr int NTA = FT / 128;  // n8-tiles a warp owns in the accumulation
-  constexpr int NTL = CT / 16;   // n8-tiles a warp owns in L·T
-  constexpr int ldt = CT + M::kPadN, ldg = FT + M::kPadN;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int sp = pad32(S), ldl = sp + M::kPadK;
-  T* ls = reinterpret_cast<T*>(smem_raw);
-  T* tb = ls + sp * ldl;      // 2 rotating term tiles [sp][ldt]
-  T* gs = tb + 2 * sp * ldt;  // g[:, f0:f0+FT] as [sp][ldg]
-  const int c0 = blockIdx.x * CT, f0 = blockIdx.y * FT;
-  const int split = blockIdx.z, n_split = gridDim.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int rm0 = (warp >> 1) * 16, rn0 = (warp & 1) * (CT / 2);
-  const bool rec_on = rm0 < sp;
-  const int an0 = warp * (FT / 16);
-  const bool acc_on = f0 + an0 < F;
-  const bool sums_db = blockIdx.x == 0 && threadIdx.x < FT &&
-                       f0 + (int)threadIdx.x < F;
-
-  float acc[kMaxK][MT][NTA][4] = {};
-  float db = 0.f;
-  for (int g = split; g < G; g += n_split) {
-    __syncthreads();  // the previous graph block's reads are done
-    load_tile_async<T>(ls, ldl, l + (size_t)g * S * S, S, sp, sp, S, S);
-    load_tile_async<T>(tb, ldt, x + (size_t)g * S * C + c0, C, sp, CT, S, C - c0);
-    load_tile_async<T>(gs, ldg, gout + (size_t)g * S * F + f0, F, sp, FT, S,
-                       F - f0);
-    cp_async_wait_all();
-    __syncthreads();
-    if (sums_db)
-      for (int r = 0; r < S; ++r) db += Io<T>::load(gs, r * ldg + threadIdx.x);
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k < K) {
-        const T* cur = tb + (k & 1) * sp * ldt;
-        T* other = tb + ((k + 1) & 1) * sp * ldt;  // T_{k-1}, receives T_{k+1}
-        // acc[k] += T_k^T @ g[:, own features]
-        if (acc_on)
-          warp_gemm<T, MT, NTA, false, false>(acc[k], cur, ldt, gs + an0, ldg, sp);
-        if (k + 1 < K) {
-          if (rec_on) {
-            float lt[1][NTL][4] = {};
-            warp_gemm<T, 1, NTL, true, false>(lt, ls + rm0 * ldl, ldl, cur + rn0,
-                                              ldt, sp);
-#pragma unroll
-            for (int ni = 0; ni < NTL; ++ni)
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int at = (rm0 + gid + 8 * h) * ldt + rn0 + 8 * ni + 2 * tig;
-                const float2 tc = ld_pair(cur + at);
-                float2 tp = make_float2(0.f, 0.f);
-                if (k > 0) tp = ld_pair(other + at);
-                const float2 tn = laguerre_step2<T>(
-                    make_float2(lt[0][ni][2 * h], lt[0][ni][2 * h + 1]), tc, tp, k);
-                st_pair(other + at, tn.x, tn.y);
-              }
-          }
-          __syncthreads();  // T_{k+1} is whole; T_k's readers are done
-        }
-      }
-    }
-  }
-  const size_t n_w = (size_t)K * C * F;
-  float* mine = partial + (size_t)split * (n_w + F);
-  if (acc_on) {
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k < K) {
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < NTA; ++ni)
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const int c = c0 + 16 * mi + gid + 8 * (r >> 1);
-              const int f = f0 + an0 + 8 * ni + 2 * tig + (r & 1);
-              if (c < C && f < F)
-                mine[((size_t)k * C + c) * F + f] = acc[k][mi][ni][r];
-            }
-      }
-    }
-  }
-  if (sums_db) mine[n_w + f0 + threadIdx.x] = db;
-}
-
-// out[i] = partial[0][i] + partial[1][i] + ... in slice order.
-__global__ void reduce_partials_kernel(const float* __restrict__ partial,
-                                       float* __restrict__ out, size_t n,
-                                       int n_split) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < n_split; ++p) s += partial[(size_t)p * n + i];
-  out[i] = s;
-}
 
 // A warp's share of a tile at its accumulator coordinates, v[2][NT][2]
 // (rows 16 mi + gid + 8 h, columns 8 ni + 2 tig and the next, from the tile
@@ -385,6 +125,311 @@ __device__ inline void frag_from_tile(const T* p, int ld, typename Pair<T>::V (&
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         v[mi][ni][h] = Pair<T>::ld(p + (16 * mi + gid + 8 * h) * ld + 8 * ni + 2 * tig);
+}
+
+// Warp (wm, wn) of the 4 x 4 layout owns rows 32 wm .. + 31 and columns
+// 8 wn .. + 7 of the block's [S, 32] slice of every bar_k.  The terms come in
+// chunks of at most kTermChunk, from the top of the walk down: a chunk's
+// products g W_k^T are formed in registers (g streamed once a chunk), then
+// the walk runs through the chunk.  Between steps the walk carries
+// cur = b̄_kk (whole) and nx1 = b̄_{kk-1} (its product plus the step above)
+// in registers at the accumulator's coordinates; step kk takes b̄_{kk-2}'s
+// product from the chunk.
+template <typename T>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    fused_bwd_dx_mma_kernel(const T* __restrict__ l, const T* __restrict__ w,
+                            const T* __restrict__ gout, T* __restrict__ dx,
+                            int S, int C, int F, int K) {
+  using M = Mma<T>;
+  using P = Pair<T>;
+  using V = typename P::V;
+  constexpr int CT = kDxCT, FK = M::kCT, KC = kTermChunk;
+  constexpr int ldb = CT + M::kPadN, ldg = FK + M::kPadKP, ldw = FK + M::kPadKP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int sp = pad32(S), ldl = sp + M::kPadK;
+  const int kc = K < KC ? K : KC;  // W slices a chunk buffer holds
+  T* ls = reinterpret_cast<T*>(smem_raw);
+  T* bt = ls + sp * ldl;      // 2 tiles [sp][ldb]: the walk's operand, then dx
+  T* gs = bt + 2 * sp * ldb;  // 2 chunks of g [sp][ldg]
+  T* ws = gs + 2 * sp * ldg;  // 2 chunks of W [kc][CT][ldw]
+  const int g = blockIdx.x, c0 = blockIdx.y * CT;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = (warp >> 2) * 32, n0 = (warp & 3) * 8;
+  const bool active = m0 < sp;
+  const int corner = m0 * ldb + n0;
+  const int chunks = (F + FK - 1) / FK;
+  // step n of the products: term chunk n / chunks, F-chunk n % chunks
+  const int steps = (K + KC - 1) / KC * chunks;
+  const T* gg = gout + (size_t)g * S * F;
+
+  auto load_step = [&](int n, int buf) {
+    const int hi = K - n / chunks * KC, lo = hi > KC ? hi - KC : 0;
+    const int f0 = n % chunks * FK;
+    load_tile_async<T>(gs + buf * sp * ldg, ldg, gg + f0, F, sp, FK, S, F - f0);
+    for (int k = lo; k < hi; ++k)
+      load_tile_async<T>(ws + (buf * kc + k - lo) * CT * ldw, ldw,
+                         w + ((size_t)k * C + c0) * F + f0, F, CT, FK, C - c0,
+                         F - f0);
+  };
+
+  // lt = L @ v for the warp's coordinates: v goes through the shared tile
+  // `buf`, which nobody reads any more (the barrier before the last use of
+  // the other tile came after every read of this one).
+  int buf = 0;
+  float lt[2][1][4];
+  auto l_times = [&](const V (&v)[2][1][2]) {
+    T* tile = bt + buf * sp * ldb;
+    if (active) frag_to_tile<T, 1>(tile + corner, ldb, v);
+    __syncthreads();
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) lt[mi][0][r] = 0.f;
+    if (active)
+      warp_gemm<T, 2, 1, true, false>(lt, ls + m0 * ldl, ldl, tile + n0, ldb, sp);
+    buf ^= 1;
+  };
+
+  float bar[KC][2][4];  // g W_k^T of the chunk's terms lo + j
+  V cur[2][1][2], nx1[2][1][2];
+
+  // bar[j] = g W_{lo+j}^T for j < nk, term chunk tc: steps tc·chunks ..
+  auto products = [&](int tc, int nk) {
+#pragma unroll
+    for (int j = 0; j < KC; ++j)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) bar[j][mi][r] = 0.f;
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int n = tc * chunks + ch;
+      cp_async_wait_all();
+      __syncthreads();  // this step's chunk is whole; the last step's reads are done
+      if (n + 1 < steps) load_step(n + 1, (n + 1) & 1);
+      if (!active) continue;
+      // bar[j] += g[rows, chunk] @ W_{lo+j}[columns, chunk]^T, one g fragment for all j
+      const T* ga = gs + (n & 1) * sp * ldg + m0 * ldg;
+      const T* wb = ws + (n & 1) * kc * CT * ldw + n0 * ldw;
+#pragma unroll 2
+      for (int k0 = 0; k0 < FK; k0 += M::kDepth) {
+        typename M::AFrag af[2];
+        M::template load_a_kmajor<true>(af[0], ga + k0, ldg);
+        M::template load_a_kmajor<true>(af[1], ga + 16 * ldg + k0, ldg);
+#pragma unroll
+        for (int j = 0; j < KC; ++j) {
+          if (j < nk) {
+            typename M::BFrag bf;
+            M::template load_b_kmajor<true>(bf, wb + j * CT * ldw + k0, ldw);
+            M::mma(bar[j][0], af[0], bf);
+            M::mma(bar[j][1], af[1], bf);
+          }
+        }
+      }
+    }
+  };
+  // at the top of the walk b̄_{K-1} and b̄_{K-2} start as their products
+  auto start_walk = [&](int nk) {
+#pragma unroll
+    for (int j = 0; j < KC; ++j)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const V p = P::of(bar[j][mi][2 * h], bar[j][mi][2 * h + 1]);
+          if (j == nk - 1) cur[mi][0][h] = p;
+          if (j == nk - 2) nx1[mi][0][h] = p;
+        }
+  };
+  // steps kk = lo + top .. lo + 2 through the chunk
+  auto walk = [&](int lo, int top) {
+#pragma unroll
+    for (int j = KC + 1; j >= 2; --j) {
+      if (j > top) continue;
+      // b̄_{kk-1} += (-L b̄_kk + (2i+1) b̄_kk) / (i+1) and
+      // b̄_{kk-2} -= i/(i+1) b̄_kk with i = kk - 1, then the window moves down
+      const float jf = (float)(lo + j - 1), a = 2.f * jf + 1.f, d = jf + 1.f;
+      const float coef = Io<T>::round(jf / d);
+      l_times(cur);
+      if (!active) continue;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const V b0 = cur[mi][0][h];
+          const V lv = P::of(lt[mi][0][2 * h], lt[mi][0][2 * h + 1]);
+          cur[mi][0][h] = P::add(nx1[mi][0][h], P::div(P::sub(P::mul(a, b0), lv), d));
+          nx1[mi][0][h] = P::sub(P::of(bar[j - 2][mi][2 * h], bar[j - 2][mi][2 * h + 1]),
+                                 P::mul(coef, b0));
+        }
+    }
+  };
+
+  load_tile_async<T>(ls, ldl, l + (size_t)g * S * S, S, sp, sp, S, S);
+  load_step(0, 0);
+  if (K <= KC) {  // one chunk: the terms and the walk's coefficients are constants
+    products(0, K);
+    start_walk(K);
+    walk(0, K - 1);
+  } else {
+    // chunks from the top down; the walk carries cur and nx1 from one to the
+    // next, whose first step is the one above it
+    for (int tc = 0, hi = K; hi > 0; ++tc, hi -= KC) {
+      const int lo = hi > KC ? hi - KC : 0;
+      products(tc, hi - lo);
+      if (tc == 0) start_walk(hi - lo);
+      walk(lo, tc == 0 ? hi - lo - 1 : hi - lo + 1);
+    }
+  }
+  if (K > 1) {  // cur = b̄_1, nx1 = b̄_0: dx = b̄_0 + b̄_1 - L b̄_1
+    l_times(cur);
+    if (active) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const V lv = P::of(lt[mi][0][2 * h], lt[mi][0][2 * h + 1]);
+          cur[mi][0][h] = P::sub(P::add(nx1[mi][0][h], cur[mi][0][h]), lv);
+        }
+    }
+  }
+  // dx (in cur) leaves through the tile l_times would write next, with
+  // 16-byte stores
+  T* tile = bt + buf * sp * ldb;
+  if (active) frag_to_tile<T, 1>(tile + corner, ldb, cur);
+  __syncthreads();
+  store_tile<T>(dx + (size_t)g * S * C + c0, C, tile, ldb, S, CT, C - c0);
+}
+
+// partial[split][K*C*F + F]: this slice's share of dW (then db).  The
+// recurrence runs on an 8 x 2 warp layout (rows 16 rm .., half the channel
+// slice each); the accumulation T_k^T g splits the F-tile over the 16 warps.
+// dW is accumulated for kTermChunk terms at a time: with K <= kTermChunk
+// over all of the slice's graph blocks, written once; with more terms each
+// chunk of each graph block is added into the block's own share of partial
+// (in graph-block order) and the registers are cleared, while the
+// recurrence runs on from the two tiles in shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    fused_bwd_dw_mma_kernel(const T* __restrict__ l, const T* __restrict__ x,
+                            const T* __restrict__ gout,
+                            float* __restrict__ partial, int G, int S, int C,
+                            int F, int K) {
+  using M = Mma<T>;
+  using P = Pair<T>;
+  constexpr int CT = kDwCT, FT = kDwFT, KC = kTermChunk;
+  constexpr int MT = CT / 16;    // m16-tiles of the accumulation
+  constexpr int NTA = FT / 128;  // n8-tiles a warp owns in the accumulation
+  constexpr int NTL = CT / 16;   // n8-tiles a warp owns in L·T
+  static_assert(KC % 2 == 0, "a chunk starts at an even term");
+  constexpr int ldt = CT + M::kPadN, ldg = FT + M::kPadN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int sp = pad32(S), ldl = sp + M::kPadK;
+  T* ls = reinterpret_cast<T*>(smem_raw);
+  T* tb = ls + sp * ldl;      // 2 rotating term tiles [sp][ldt]
+  T* gs = tb + 2 * sp * ldt;  // g[:, f0:f0+FT] as [sp][ldg]
+  const int c0 = blockIdx.x * CT, f0 = blockIdx.y * FT;
+  const int split = blockIdx.z, n_split = gridDim.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rm0 = (warp >> 1) * 16, rn0 = (warp & 1) * (CT / 2);
+  const bool rec_on = rm0 < sp;
+  const int an0 = warp * (FT / 16);
+  const bool acc_on = f0 + an0 < F;
+  const bool sums_db = blockIdx.x == 0 && threadIdx.x < FT &&
+                       f0 + (int)threadIdx.x < F;
+  const size_t n_w = (size_t)K * C * F;
+  float* mine = partial + (size_t)split * (n_w + F);
+
+  float acc[KC][MT][NTA][4] = {};
+  // acc of the terms lo .. into mine (added to what is there unless first),
+  // then cleared
+  auto flush = [&](int lo, bool first) {
+    if (!acc_on) return;
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      if (lo + j < K) {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NTA; ++ni)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int c = c0 + 16 * mi + gid + 8 * (r >> 1);
+              const int f = f0 + an0 + 8 * ni + 2 * tig + (r & 1);
+              if (c < C && f < F) {
+                float* dst = mine + ((size_t)(lo + j) * C + c) * F + f;
+                *dst = first ? acc[j][mi][ni][r] : *dst + acc[j][mi][ni][r];
+              }
+              acc[j][mi][ni][r] = 0.f;
+            }
+      }
+    }
+  };
+
+  // acc[j] += T_{lo+j}^T g for the chunk's terms, the recurrence running on
+  // from the two tiles (lo is even, so T_k sits in tile k & 1 = j & 1)
+  auto terms = [&](int lo) {
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      const int k = lo + j;
+      if (k < K) {
+        const T* cur = tb + (j & 1) * sp * ldt;
+        T* other = tb + ((j + 1) & 1) * sp * ldt;  // T_{k-1}, receives T_{k+1}
+        if (acc_on)
+          warp_gemm<T, MT, NTA, false, false>(acc[j], cur, ldt, gs + an0, ldg, sp);
+        if (k + 1 < K) {
+          if (rec_on) {
+            float lt[1][NTL][4] = {};
+            warp_gemm<T, 1, NTL, true, false>(lt, ls + rm0 * ldl, ldl, cur + rn0, ldt, sp);
+#pragma unroll
+            for (int ni = 0; ni < NTL; ++ni)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int at = (rm0 + gid + 8 * h) * ldt + rn0 + 8 * ni + 2 * tig;
+                const typename P::V tp = k > 0 ? P::ld(other + at) : P::of(0.f, 0.f);
+                P::st(other + at, laguerre_step_pair<T>(lt[0][ni][2 * h], lt[0][ni][2 * h + 1],
+                                                        P::ld(cur + at), tp, k));
+              }
+          }
+          __syncthreads();  // T_{k+1} is whole; T_k's readers are done
+        }
+      }
+    }
+  };
+
+  float db = 0.f;
+  for (int g = split; g < G; g += n_split) {
+    __syncthreads();  // the previous graph block's reads are done
+    load_tile_async<T>(ls, ldl, l + (size_t)g * S * S, S, sp, sp, S, S);
+    load_tile_async<T>(tb, ldt, x + (size_t)g * S * C + c0, C, sp, CT, S, C - c0);
+    load_tile_async<T>(gs, ldg, gout + (size_t)g * S * F + f0, F, sp, FT, S,
+                       F - f0);
+    cp_async_wait_all();
+    __syncthreads();
+    if (sums_db)
+      for (int r = 0; r < S; ++r) db += Io<T>::load(gs, r * ldg + threadIdx.x);
+    if (K <= KC) {  // one chunk: the term index is a constant
+      terms(0);
+    } else {
+      for (int lo = 0; lo < K; lo += KC) {
+        terms(lo);
+        flush(lo, g == split);
+      }
+    }
+  }
+  if (K <= KC) flush(0, true);
+  if (sums_db) mine[n_w + f0 + threadIdx.x] = db;
+}
+
+// out[i] = partial[0][i] + partial[1][i] + ... in slice order.
+__global__ void reduce_partials_kernel(const float* __restrict__ partial,
+                                       float* __restrict__ out, size_t n,
+                                       int n_split) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < n_split; ++p) s += partial[(size_t)p * n + i];
+  out[i] = s;
 }
 
 // Warp w owns rows 32 (w / WN) .. + 31 and the channels (CT / WN)·(w % WN)
@@ -509,11 +554,11 @@ __global__ void __launch_bounds__(128 * WN, 4 / WN)
 template <typename T>
 size_t dx_smem_bytes(int S, int K) {
   using M = Mma<T>;
-  const int sp = pad32(S);
+  const int sp = pad32(S), kc = K < kTermChunk ? K : kTermChunk;
   return sizeof(T) * ((size_t)sp * (sp + M::kPadK) +
                       2 * (size_t)sp * (kDxCT + M::kPadN) +
                       2 * (size_t)sp * (M::kCT + M::kPadKP) +
-                      2 * (size_t)K * kDxCT * (M::kCT + M::kPadKP));
+                      2 * (size_t)kc * kDxCT * (M::kCT + M::kPadKP));
 }
 
 template <typename T>
@@ -557,7 +602,7 @@ int launch_fused_bwd(const void* l_, const void* x_, const void* w_,
   const T* g = static_cast<const T*>(g_);
   const T* w = static_cast<const T*>(w_);
   float* partial = static_cast<float*>(partial_);
-  if (K < 1 || K > kMaxK || n_split < 1 || n_split > G)
+  if (K < 1 || n_split < 1 || n_split > G)
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (sizeof(T) != sizeof(float)) {

@@ -34,13 +34,16 @@ and a low part, which keeps float32 accuracy — with L, the term tiles, g
 and the weight slices in shared memory in x's type and the global loads
 as 16-byte ``cp.async``.  The fused forward and backward run the
 recurrence once per (graph block, channel) for F <= 256; the fused
-forward takes any K, its backward K <= ``MAX_BWD_K`` (one register
-accumulator set per term).  The terms kernels write (or read) the K terms
+backward holds the products and dW of at most 8 terms at a time and
+carries its adjoint walk from one chunk of terms to the next, so it takes
+any K, as the forward does.  The terms kernels write (or read) the K terms
 through 16-byte stores (``cp.async`` loads); the terms backward streams
 the cotangents through its adjoint walk, so both take any K.  All take
 any block size S <= ``MAX_BLOCK``, any C and F; the fused kernels need at
 most 226 KB of shared memory, checked against ``_SMEM_LIMIT``, the terms
 kernels 106 KB (float32) or 54 KB (bfloat16) at S = 128, whatever K is.
+A conv on larger blocks takes the plain recurrence by its shape
+(``nn/conv.py::laguerre_matvec``); these wrappers raise on S > 128.
 
 The public functions are ``torch.autograd.Function``s: forward and
 backward each launch their kernel for CUDA tensors and raise on anything
@@ -68,8 +71,6 @@ LAUNCHES = {
 }
 MAX_BLOCK = 128  # L tile held in shared memory: S <= 128
 _SMEM_LIMIT = 232448  # bytes a block may opt into on sm_90
-
-MAX_BWD_K = 8  # the backward kernels keep one register accumulator set per term
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -346,15 +347,13 @@ def laguerre_dense_fused_bwd(
     if c_w != c or g.shape != (n_g, s, f) or k < 1:
         raise ValueError(
             f"need w [K,{c},F] and g [{n_g},{s},F], got {tuple(w.shape)}, {tuple(g.shape)}")
-    if k > MAX_BWD_K:
-        raise ValueError(f"the backward kernel takes K <= {MAX_BWD_K}, got {k}")
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
     n_w = k * c * f
     dwdb = torch.zeros(n_w + f, dtype=torch.float32, device=x.device)
     if x.numel() and g.numel():
         lib = _library("laguerre_dense_bwd")
         if lib.hlhgat_laguerre_fused_bwd_smem(s, k, _bf16(x)) > _SMEM_LIMIT:
-            raise ValueError(f"K={k} needs more shared memory than a block has")
+            raise ValueError(f"S={s} needs more shared memory than a block has")
         n_split = lib.hlhgat_laguerre_fused_bwd_splits(n_g, c, f)
         partial = torch.empty((n_split, n_w + f), dtype=torch.float32, device=x.device)
         l = l.to(x.dtype).contiguous()

@@ -34,13 +34,13 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 from chip_smoke import KERNEL_CALLS, graph_ms, median_ms  # noqa: E402
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# (S, C, F, K): the four zinc_pyr shapes, then ragged and limit shapes; the
-# terms kernels take (S, C, K) of each (F unused) and K = 10, beyond the
-# fused backward
+# (S, C, F, K): the four zinc_pyr shapes, then ragged and limit shapes, K = 10
+# and 16 (beyond the 8 terms the fused backward holds at once); the terms
+# kernels take (S, C, K) of each (F unused)
 MAIN = [(128, 64, 64, 1), (128, 64, 64, 6), (128, 128, 128, 6), (128, 256, 256, 6)]
 EXTRA = [(128, 100, 72, 3), (128, 64, 64, 8), (96, 128, 128, 6), (13, 7, 130, 1),
-         (30, 33, 65, 2), (96, 300, 8, 6), (128, 512, 256, 6), (128, 40, 300, 2)]
-TERMS_ONLY = [(128, 64, 0, 10)]
+         (30, 33, 65, 2), (96, 300, 8, 6), (128, 512, 256, 6), (128, 40, 300, 2),
+         (128, 64, 64, 10), (128, 64, 64, 16)]
 
 
 def symmetric_l(np, rng, g, s):
@@ -98,7 +98,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     bad = 0
     terms_seen = set()
-    for s, c, f, k in MAIN + EXTRA + TERMS_ONLY:
+    for s, c, f, k in MAIN + EXTRA:
         l32 = symmetric_l(np, rng, g, s)
         x32 = rng.standard_normal((g, s, c)).astype(np.float32)
         w = torch.from_numpy(
@@ -106,7 +106,7 @@ def main() -> int:
         b = torch.from_numpy(rng.standard_normal(f).astype(np.float32)).cuda()
         cot32 = rng.standard_normal((g, s, f)).astype(np.float32)
         dt32 = rng.standard_normal((k, g, s, c)).astype(np.float32)
-        fused = f > 0 and args.only != "terms"
+        fused = args.only != "terms"
         terms = (s, c, k) not in terms_seen and args.only != "fused"
         terms_seen.add((s, c, k))
         for dtype in ("float32", "bfloat16"):

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from hl_hgat_tpu.complex.dense import collate_dense_packed as jcollate
+from hl_hgat_tpu.nn import conv as jconv
 from hl_hgat_tpu.nn.conv import laguerre_matvec as jlaguerre_matvec
 from hl_hgat_tpu.nn.interaction import NodeEdgeInt as JNodeEdgeInt
 from hl_hgat_tpu.nn.norm import MaskedBatchNorm as JMaskedBatchNorm
@@ -105,6 +106,41 @@ def test_laguerre_conv_routes_match_jax(rng, route, k):
         conv.use_fused_dense(prev[0])
         conv.use_terms_kernel(prev[1])
     ref = jlaguerre_matvec(jnp.asarray(x), jnp.asarray(l), jnp.asarray(w), jnp.asarray(b))
+    np.testing.assert_allclose(ours, ref, **F32)
+
+
+@pytest.mark.parametrize("route", ["fused", "terms"])
+def test_blocks_over_128_rows_take_the_recurrence_by_shape(rng, route, monkeypatch):
+    """The route rule: S = 256 blocks take the plain recurrence on either
+    kernel route and equal the JAX package's default conv route (plain XLA,
+    Pallas kernels off); no kernel wrapper is called for them, and one is
+    for S = 128."""
+    g, s, c, f, k = 2, 256, 6, 5, 4
+    l = rng.standard_normal((g, s, s)).astype(np.float32)
+    l = (l + l.transpose(0, 2, 1)) / (2 * np.sqrt(s))  # symmetric, spectrum O(1)
+    x = rng.standard_normal((g, s, c)).astype(np.float32)
+    w = rng.standard_normal((k, c, f)).astype(np.float32) * 0.1
+    b = rng.standard_normal(f).astype(np.float32)
+    calls = []
+    for name in ("laguerre_dense_fused", "laguerre_terms_dense"):
+        real = getattr(conv, name)
+        monkeypatch.setattr(conv, name, lambda *a, _r=real, _n=name: calls.append(_n) or _r(*a))
+    prev = conv.use_fused_dense(), conv.use_terms_kernel()
+    try:
+        conv.use_fused_dense(route == "fused")
+        conv.use_terms_kernel(route == "terms")
+        ours = conv.laguerre_matvec(*(torch.from_numpy(a) for a in (x, l, w, b)))
+        assert calls == []
+        conv.laguerre_matvec(torch.from_numpy(x[:, :128]),
+                             torch.from_numpy(np.ascontiguousarray(l[:, :128, :128])),
+                             torch.from_numpy(w), torch.from_numpy(b))
+        assert len(calls) == 1 and calls[0].split("_")[1] == ("dense" if route == "fused" else "terms")
+    finally:
+        conv.use_fused_dense(prev[0])
+        conv.use_terms_kernel(prev[1])
+    assert not jconv.use_fused_dense() and not jconv.use_terms_kernel()  # the JAX default
+    ref = jlaguerre_matvec(jnp.asarray(x), jnp.asarray(l), jnp.asarray(w), jnp.asarray(b))
+    assert ours.shape == (g, s, f)
     np.testing.assert_allclose(ours, ref, **F32)
 
 

@@ -11,6 +11,7 @@ import torch
 
 from hl_hgat_tpu_torch.complex.batch import CooMatrix
 from hl_hgat_tpu_torch.complex.build import coo_to_ell
+from hl_hgat_tpu_torch.nn import conv
 from hl_hgat_tpu_torch.ops import ell_spmm
 from hl_hgat_tpu_torch.ops import laguerre_dense as lg
 from hl_hgat_tpu_torch.ops.dispatch import lap_matvec
@@ -219,13 +220,37 @@ def test_autograd_reaches_the_backward_kernels(cuda, dtype):
     _check(xt.grad.cpu(), xc.grad, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,s,c,f,k", [
+    (3, 128, 64, 64, 9), (3, 128, 64, 64, 10), (2, 128, 64, 64, 16), (3, 77, 45, 37, 10),
+])
+def test_fused_bwd_kernel_takes_any_k(cuda, dtype, g, s, c, f, k):
+    """Beyond 8 terms the backward takes its products and dW in chunks of
+    8 and carries the adjoint walk across them: the same function as the
+    plain version, a second launch bit-equal."""
+    l, x, w, _ = _inputs(g, s, c, f, k, dtype, cuda)
+    cot = _normal((g, s, f), 1, dtype, cuda)
+    got = lg.laguerre_dense_fused_bwd(l, x, w, cot)
+    torch.cuda.synchronize()
+    for a, r in zip(got, lg.laguerre_dense_fused_bwd_plain(l, x, w, cot)):
+        _check(a, r, dtype)
+    for a, r in zip(got, lg.laguerre_dense_fused_bwd(l, x, w, cot)):
+        assert torch.equal(a, r)
+
+
 def test_backward_wrappers_reject_what_the_kernels_cannot_take(cuda):
+    # K = 9 runs (the fused backward takes any K); a block over 128 rows and
+    # a cotangent of another shape are refused
     l, x, w, _ = _inputs(1, 16, 8, 8, 9, torch.float32, cuda)
-    with pytest.raises(ValueError, match="K <= 8"):
-        lg.laguerre_dense_fused_bwd(l, x, w, torch.zeros(1, 16, 8, device=cuda))
-    # K = 8 at the largest block fits the fused backward (the adjoint walk
-    # runs in registers); the terms backward streams its walk and takes
-    # K = 10 there
+    dx, dw, db = lg.laguerre_dense_fused_bwd(l, x, w, torch.zeros(1, 16, 8, device=cuda))
+    assert not bool(dx.any()) and not bool(dw.any()) and not bool(db.any())
+    with pytest.raises(ValueError, match="need w"):
+        lg.laguerre_dense_fused_bwd(l, x, w, torch.zeros(1, 16, 9, device=cuda))
+    lb, xb, wb, _ = _inputs(1, 136, 8, 8, 2, torch.float32, cuda)
+    with pytest.raises(ValueError, match="block size"):
+        lg.laguerre_dense_fused_bwd(lb, xb, wb, torch.zeros(1, 136, 8, device=cuda))
+    # K = 8 at the largest block fits the fused backward; the terms backward
+    # streams its walk and takes K = 10 there
     l, x, w, _ = _inputs(1, 128, 8, 8, 8, torch.float32, cuda)
     dx, dw, db = lg.laguerre_dense_fused_bwd(l, x, w, torch.zeros(1, 128, 8, device=cuda))
     assert not bool(dx.any()) and not bool(dw.any()) and not bool(db.any())
@@ -234,6 +259,33 @@ def test_backward_wrappers_reject_what_the_kernels_cannot_take(cuda):
            lg.laguerre_terms_dense_bwd_plain(l, dt, 10), torch.float32)
     with pytest.raises(ValueError, match="dt"):
         lg.laguerre_terms_dense_bwd(l, torch.zeros(3, 1, 128, 8, device=cuda), 2)
+
+
+@pytest.mark.parametrize("route", ["fused", "terms"])
+def test_conv_takes_blocks_over_128_rows_by_the_route_rule(cuda, route):
+    """S = 256 blocks take the plain recurrence on either kernel route (a
+    rule on shape, no launch), forward and backward; S = 128 blocks launch."""
+    prev = conv.use_fused_dense(), conv.use_terms_kernel()
+    try:
+        conv.use_fused_dense(route == "fused")
+        conv.use_terms_kernel(route == "terms")
+        l, x, w, b = _inputs(2, 256, 24, 16, 4, torch.float32, cuda)
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        lg.reset_launch_counts()
+        out = conv.laguerre_matvec(leaves[0], l, leaves[1], leaves[2])
+        out.backward(_normal(tuple(out.shape), 4, torch.float32, cuda))
+        torch.cuda.synchronize()
+        assert all(n == 0 for n in lg.LAUNCHES.values()), lg.LAUNCHES
+        conv.use_fused_dense(False)
+        conv.use_terms_kernel(False)
+        _check(out, conv.laguerre_matvec(x, l, w, b), torch.float32)
+        conv.use_fused_dense(route == "fused")
+        conv.use_terms_kernel(route == "terms")
+        conv.laguerre_matvec(x[:, :128], l[:, :128, :128].contiguous(), w, b)
+        assert sum(lg.LAUNCHES.values()) == 1
+    finally:
+        conv.use_fused_dense(prev[0])
+        conv.use_terms_kernel(prev[1])
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +354,12 @@ def test_ell_kernel_takes_an_unaligned_view(cuda):
     flat.copy_(view)
     _ell_check(ell_spmm.spmm_ell(cols, vals, flat),
                ell_spmm.spmm_ell_plain(cols, vals, flat), torch.float32)
+    # bfloat16 offset by one element (2 B): the same bits as the aligned call
+    x16 = view.to(torch.bfloat16).contiguous()
+    off = torch.zeros(100 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(100, 64)
+    off.copy_(x16)
+    vals16 = vals.to(torch.bfloat16)
+    assert torch.equal(ell_spmm.spmm_ell(cols, vals16, off), ell_spmm.spmm_ell(cols, vals16, x16))
 
 
 def test_ell_padding_slots_multiply_like_any_other(cuda):
@@ -363,3 +421,57 @@ def test_ell_route_switch_and_rejections(cuda):
         ell_spmm.spmm_ell(cols.long(), vals, x)
     with pytest.raises(ValueError, match="same CUDA device"):
         ell_spmm.spmm_ell(cols.cpu(), vals, x)
+
+
+def _ell_exact(n, f, w, dtype, device, seed=0, vals_dtype=None):
+    """cols, vals [n, w] with a random count of live slots a row (every row
+    has padding when w > 1: column 0, value 0) and x [n, f]."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, n, (n, w)).astype(np.int32)
+    vals = rng.standard_normal((n, w)).astype(np.float32)
+    live = rng.integers(1, w + 1, n) if w > 1 else np.ones(n, int)
+    pad = np.arange(w)[None, :] >= live[:, None]
+    cols[pad], vals[pad] = 0, 0.0
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return t(cols), t(vals).to(vals_dtype or dtype), t(x).to(dtype)
+
+
+# F across the chunk layouts (1, 3, 37, 130 and bfloat16 300: rows off
+# 16-byte boundaries, each chunk read through the aligned blocks around it;
+# 64 and float32 300: aligned 16-byte chunks), W = 1, the flat batches' 11
+# and a wide 64, N = 1003 not a multiple of the rows of a block
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 3, 37, 64, 130, 300])
+@pytest.mark.parametrize("w", [1, 11, 64])
+def test_ell_kernel_widths_and_slots(cuda, dtype, f, w):
+    cols, vals, x = _ell_exact(1003, f, w, dtype, cuda, seed=f * 100 + w)
+    out = ell_spmm.spmm_ell(cols, vals, x)
+    torch.cuda.synchronize()
+    _ell_check(out, ell_spmm.spmm_ell_plain(cols, vals, x), dtype)
+    assert torch.equal(out, ell_spmm.spmm_ell(cols, vals, x))
+
+
+@pytest.mark.parametrize("f", [3, 37, 64])
+def test_ell_kernel_bf16_values_with_f32_features(cuda, f):
+    cols, vals, x = _ell_exact(517, f, 11, torch.float32, cuda, vals_dtype=torch.bfloat16)
+    out = ell_spmm.spmm_ell(cols, vals, x)
+    assert out.dtype == torch.float32
+    _ell_check(out, ell_spmm.spmm_ell_plain(cols, vals, x), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [37, 64])
+def test_ell_inf_in_the_padding_row_gives_nan_as_the_plain_version(cuda, dtype, f):
+    """Every padding slot points at row 0: with an inf there, 0·inf is NaN in
+    each padded row, in the kernel as in the plain version."""
+    cols, vals, x = _ell_exact(300, f, 11, dtype, cuda, seed=5)
+    x[0, f // 2] = float("inf")
+    out = ell_spmm.spmm_ell(cols, vals, x)
+    ref = ell_spmm.spmm_ell_plain(cols, vals, x)
+    assert torch.isnan(out).any()
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert torch.equal(torch.isinf(out), torch.isinf(ref))
+    fin = torch.isfinite(ref)
+    _ell_check(out[fin], ref[fin], dtype)
+    assert torch.equal(out.view(torch.uint8), ell_spmm.spmm_ell(cols, vals, x).view(torch.uint8))

@@ -109,6 +109,30 @@ def test_fused_vjp_matches_pallas_over_two_channel_tiles():
     _close(tb.grad, rdb, "float32", "db")
 
 
+@pytest.mark.parametrize("k", [9, 10])
+def test_fused_conv_gradients_beyond_eight_terms_match_jax_grad(k):
+    """K = 9 and 10, beyond the 8 terms the card's fused backward holds at
+    once: the fused conv's gradients against ``jax.grad`` through the JAX
+    kernel (float32, the model-level bounds)."""
+    l, x, w, b, cot = _kernel_inputs(2, 16, 12, 10, k)
+    prev = conv.use_fused_dense()
+    try:
+        conv.use_fused_dense(True)
+        m = conv.LaguerreConv(12, 10, k)
+        m.load_state_dict({"weight": torch.from_numpy(w), "bias": torch.from_numpy(b)})
+        tx = torch.from_numpy(x).requires_grad_()
+        (m(tx, torch.from_numpy(l)) * torch.from_numpy(cot)).sum().backward()
+    finally:
+        conv.use_fused_dense(prev)
+    rdx, rdw, rdb = jax.grad(
+        lambda xx, ww, bb: jnp.sum(pallas_hodge.laguerre_dense_fused(jnp.asarray(l), xx, ww, bb)
+                                   * cot), argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    for ours, ref, name in ((tx.grad, rdx, "dx"), (m.weight.grad, rdw, "dw"),
+                            (m.bias.grad, rdb, "db")):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), err_msg=name, **MODEL)
+
+
 @pytest.mark.parametrize("g,s,c,f,k", KERNEL_SHAPES)
 def test_fused_plain_backward_matches_autograd_of_plain_forward(g, s, c, f, k):
     """Same math, other association (adjoint walk vs reverse-mode through
