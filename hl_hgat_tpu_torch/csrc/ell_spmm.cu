@@ -27,12 +27,14 @@
 //   rounding (F = 37 float32 takes 10 threads a row).  A thread finds its
 //   row and chunk with a multiply, not an integer division.  The launch plan
 //   is made by ops/ell_spmm.py::launch_plan.
-// * Ragged rows without a narrower path: when F's row stride or a base is
-//   not 16-byte aligned, a chunk is read as the 16 bytes at its address
-//   through the aligned 16-byte block that holds its first byte and, when it
-//   runs past that block, the next one (two aligned loads, then a shift by
-//   whole or half words), and written with element stores.  Nothing is
-//   padded or copied.
+// * Ragged rows keep the 16-byte chunk: when F's row stride or a base is
+//   not 16-byte aligned, a float32 chunk is read as its (up to) four words,
+//   a bfloat16 chunk as the 16 bytes at its address through the aligned
+//   16-byte block that holds its first byte and, when it runs past that
+//   block, the next one (two aligned loads, then a shift by half words);
+//   both are written with element stores.  (Windows for float32 and element
+//   loads for bfloat16 measured slower at F = 37.)  Nothing is padded or
+//   copied.
 // * Gathers in flight together: the slot loop runs in unrolled chunks of
 //   kUnroll = 4, issuing four independent row gathers (each after its
 //   column index) before the fixed-order adds, the last chunk predicated.
@@ -69,32 +71,38 @@ __device__ inline unsigned word(const uint4& r, int i) {
   return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
 }
 
-// The 16 bytes at p, a T*.  kAligned: p is 16-byte aligned, one load.  Else
-// the aligned block holding p's first byte and, when the `bytes` that count
-// run past it, the next one, shifted down by p's offset (whole words for
-// float32, half words too for bfloat16).
+// The 16 bytes at p, a T*, of which the first `bytes` count.  kAligned: p is
+// 16-byte aligned, one load.  Else float32 loads the words that count one by
+// one, and bfloat16 loads the aligned block holding p's first byte and, when
+// the bytes that count run past it, the next one, shifted down by p's offset.
 template <typename T, bool kAligned>
 __device__ inline uint4 load16(const T* p, int bytes) {
-  if constexpr (kAligned) return __ldg(reinterpret_cast<const uint4*>(p));
-  const size_t a = reinterpret_cast<size_t>(p);
-  const uint4* block = reinterpret_cast<const uint4*>(a & ~(size_t)15);
-  const int s = (int)(a & 15);
-  const uint4 w0 = __ldg(block);
-  const uint4 w1 = s + bytes > 16 ? __ldg(block + 1) : make_uint4(0u, 0u, 0u, 0u);
-  const unsigned w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-  const int q = s >> 2;
-  unsigned o[4];
+  if constexpr (kAligned) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else if constexpr (sizeof(T) == 4) {
+    const unsigned* q = reinterpret_cast<const unsigned*>(p);
+    unsigned o[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const unsigned lo = q == 0 ? w[i] : q == 1 ? w[i + 1] : q == 2 ? w[i + 2] : w[i + 3];
-    if constexpr (sizeof(T) == 4) {
-      o[i] = lo;
-    } else {
+    for (int i = 0; i < 4; ++i)
+      if (4 * i < bytes) o[i] = __ldg(q + i);
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  } else {
+    const size_t a = reinterpret_cast<size_t>(p);
+    const uint4* block = reinterpret_cast<const uint4*>(a & ~(size_t)15);
+    const int s = (int)(a & 15);
+    const uint4 w0 = __ldg(block);
+    const uint4 w1 = s + bytes > 16 ? __ldg(block + 1) : make_uint4(0u, 0u, 0u, 0u);
+    const unsigned w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const int q = s >> 2, sh = (s & 3) * 8;
+    unsigned o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned lo = q == 0 ? w[i] : q == 1 ? w[i + 1] : q == 2 ? w[i + 2] : w[i + 3];
       const unsigned hi = q == 0 ? w[i + 1] : q == 1 ? w[i + 2] : q == 2 ? w[i + 3] : w[i + 4];
-      o[i] = __funnelshift_r(lo, hi, (s & 3) * 8);
+      o[i] = __funnelshift_r(lo, hi, sh);
     }
+    return make_uint4(o[0], o[1], o[2], o[3]);
   }
-  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 // A chunk's 16 bytes as floats (exact).

@@ -96,8 +96,9 @@ def launch_plan(f: int, elem_bytes: int, *bases: int) -> tuple[bool, int, int]:
     chunks, or, for a row wider than the block, one slice of ``cpb =
     BLOCK_THREADS`` chunks (the grid's second axis walks the slices).
     ``aligned``: the row stride and every base are 16-byte aligned, so each
-    chunk is one 16-byte load and store; else the kernel reads a chunk
-    through the aligned blocks around it and writes it element by element."""
+    chunk is one 16-byte load and store; else the kernel reads a chunk by
+    words (float32) or through the aligned 16-byte blocks around it
+    (bfloat16) and writes it element by element."""
     vec = 16 // elem_bytes
     cpr = -(-f // vec)
     cpb = min(cpr, BLOCK_THREADS)
