@@ -24,17 +24,14 @@
 //   does.  A block of 256 threads covers whole rows of cpr = ceil(F / vec)
 //   chunks (a row wider than 256 chunks is cut into slices over blockIdx.y);
 //   the threads of a row cover its F features exactly, with no power-of-two
-//   rounding (F = 37 float32 takes 10 threads a row).  A thread finds its
-//   row and chunk with a multiply, not an integer division.  The launch plan
-//   is made by ops/ell_spmm.py::launch_plan.
-// * Ragged rows keep the 16-byte chunk: when F's row stride or a base is
-//   not 16-byte aligned, a float32 chunk is read as its (up to) four words,
-//   a bfloat16 chunk as the 16 bytes at its address through the aligned
-//   16-byte block that holds its first byte and, when it runs past that
-//   block, the next one (two aligned loads, then a shift by half words);
-//   both are written with element stores.  (Windows for float32 and element
-//   loads for bfloat16 measured slower at F = 37.)  Nothing is padded or
-//   copied.
+//   rounding (F = 37 float32 takes 10 threads a row).  launch() plans this
+//   from F alone.  A thread finds its row and chunk with a multiply by a
+//   magic number, not an integer division (bfloat16 lost 4 % a flat step
+//   to the division on an H100: PERF.md, kernel 5).
+// * Ragged rows keep the layout: when F's row stride or the base of x or out
+//   is not 16-byte aligned, a chunk is read and written element by element
+//   (the elements of the row's last chunk that lie in the row).  Nothing is
+//   padded or copied.
 // * Gathers in flight together: the slot loop runs in unrolled chunks of
 //   kUnroll = 4, issuing four independent row gathers (each after its
 //   column index) before the fixed-order adds, the last chunk predicated.
@@ -71,36 +68,22 @@ __device__ inline unsigned word(const uint4& r, int i) {
   return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
 }
 
-// The 16 bytes at p, a T*, of which the first `bytes` count.  kAligned: p is
-// 16-byte aligned, one load.  Else float32 loads the words that count one by
-// one, and bfloat16 loads the aligned block holding p's first byte and, when
-// the bytes that count run past it, the next one, shifted down by p's offset.
+__device__ inline unsigned bits_of(float v) { return __float_as_uint(v); }
+__device__ inline unsigned bits_of(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
+
+// The chunk of n <= 16 / sizeof(T) elements at p as 16 bytes, zero past n.
+// kAligned: p is 16-byte aligned and n is the whole chunk, one load; else
+// one load an element.
 template <typename T, bool kAligned>
-__device__ inline uint4 load16(const T* p, int bytes) {
+__device__ inline uint4 load16(const T* p, int n) {
   if constexpr (kAligned) {
     return __ldg(reinterpret_cast<const uint4*>(p));
-  } else if constexpr (sizeof(T) == 4) {
-    const unsigned* q = reinterpret_cast<const unsigned*>(p);
+  } else {
+    constexpr int kPer = 4 / sizeof(T);  // elements a word
     unsigned o[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (4 * i < bytes) o[i] = __ldg(q + i);
-    return make_uint4(o[0], o[1], o[2], o[3]);
-  } else {
-    const size_t a = reinterpret_cast<size_t>(p);
-    const uint4* block = reinterpret_cast<const uint4*>(a & ~(size_t)15);
-    const int s = (int)(a & 15);
-    const uint4 w0 = __ldg(block);
-    const uint4 w1 = s + bytes > 16 ? __ldg(block + 1) : make_uint4(0u, 0u, 0u, 0u);
-    const unsigned w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-    const int q = s >> 2, sh = (s & 3) * 8;
-    unsigned o[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const unsigned lo = q == 0 ? w[i] : q == 1 ? w[i + 1] : q == 2 ? w[i + 2] : w[i + 3];
-      const unsigned hi = q == 0 ? w[i + 1] : q == 1 ? w[i + 2] : q == 2 ? w[i + 3] : w[i + 4];
-      o[i] = __funnelshift_r(lo, hi, sh);
-    }
+    for (int i = 0; i < 16 / (int)sizeof(T); ++i)
+      if (i < n) o[i / kPer] |= bits_of(__ldg(p + i)) << (32 / kPer) * (i % kPer);
     return make_uint4(o[0], o[1], o[2], o[3]);
   }
 }
@@ -124,8 +107,8 @@ __device__ inline void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16
 
 // T: dtype of x and out; V: dtype of vals.  A block covers rows_b rows of
 // cpb chunks (blockIdx.y: the slice of a wider row); magic = floor(2^32 /
-// cpb) + 1 divides a thread index by cpb exactly.  kAligned: F's row stride
-// and the bases of x and out are 16-byte aligned.
+// cpb) + 1 divides a thread index (< 256) by cpb (<= 256) exactly.
+// kAligned: F's row stride and the bases of x and out are 16-byte aligned.
 template <typename T, typename V, bool kAligned>
 __global__ void __launch_bounds__(kThreads)
 ell_spmm_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
@@ -149,7 +132,7 @@ ell_spmm_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
     for (int u = 0; u < kUnroll; ++u) {
       if (j0 + u < W) {
         v[u] = to_float(vrow[j0 + u]);
-        raw[u] = load16<T, kAligned>(x + (long long)crow[j0 + u] * F + f, need * (int)sizeof(T));
+        raw[u] = load16<T, kAligned>(x + (long long)crow[j0 + u] * F + f, need);
       }
     }
 #pragma unroll
@@ -186,16 +169,14 @@ ell_spmm_kernel(const int* __restrict__ cols, const V* __restrict__ vals,
 
 template <typename T, typename V>
 int launch(const void* cols, const void* vals, const void* x, void* out,
-           long long N, int W, long long F, int aligned, int cpb, int rows_b,
-           cudaStream_t stream) {
+           long long N, int W, long long F, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
+  if (F > 2147483647LL) return (int)cudaErrorInvalidValue;
   const long long cpr = (F + VEC - 1) / VEC;
-  if (F > 2147483647LL || cpb < 1 || cpb > kThreads || cpb > cpr || rows_b < 1 ||
-      rows_b * cpb > kThreads || (rows_b > 1 && cpb != cpr))
-    return (int)cudaErrorInvalidValue;
-  if (aligned && ((F * sizeof(T)) % 16 || reinterpret_cast<size_t>(x) % 16 ||
-                  reinterpret_cast<size_t>(out) % 16))
-    return (int)cudaErrorMisalignedAddress;
+  const int cpb = cpr < kThreads ? (int)cpr : kThreads;
+  const int rows_b = kThreads / cpb;
+  const bool aligned = (F * sizeof(T)) % 16 == 0 && reinterpret_cast<size_t>(x) % 16 == 0 &&
+                       reinterpret_cast<size_t>(out) % 16 == 0;
   const long long gx = (N + rows_b - 1) / rows_b, gy = (cpr + cpb - 1) / cpb;
   if (gx > 2147483647LL || gy > 65535LL) return (int)cudaErrorInvalidConfiguration;
   const unsigned long long magic = (1ULL << 32) / (unsigned)cpb + 1;
@@ -213,22 +194,18 @@ extern "C" {
 
 // cols [N, W] int32 (every entry in [0, N)), vals [N, W], x [N, F] ->
 // out [N, F], all row-major and dense; x_bf16 / vals_bf16 != 0: bfloat16,
-// else float32.  aligned != 0: F's row stride and x and out are 16-byte
-// aligned; cpb: 16-byte chunks of a row a block covers (all of them, or 256
-// of a wider row), rows_b: rows a block covers, rows_b·cpb <= 256.
-// Returns a cudaError_t.
+// else float32.  Returns a cudaError_t.
 int hlhgat_ell_spmm(const void* cols, const void* vals, const void* x,
-                    void* out, long long N, int W, long long F, int aligned,
-                    int cpb, int rows_b, int x_bf16, int vals_bf16, void* stream) {
+                    void* out, long long N, int W, long long F, int x_bf16,
+                    int vals_bf16, void* stream) {
   if (N <= 0 || F <= 0) return 0;
   if (W < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
-    return vals_bf16
-               ? launch<__nv_bfloat16, __nv_bfloat16>(cols, vals, x, out, N, W, F, aligned, cpb, rows_b, s)
-               : launch<__nv_bfloat16, float>(cols, vals, x, out, N, W, F, aligned, cpb, rows_b, s);
-  return vals_bf16 ? launch<float, __nv_bfloat16>(cols, vals, x, out, N, W, F, aligned, cpb, rows_b, s)
-                   : launch<float, float>(cols, vals, x, out, N, W, F, aligned, cpb, rows_b, s);
+    return vals_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(cols, vals, x, out, N, W, F, s)
+                     : launch<__nv_bfloat16, float>(cols, vals, x, out, N, W, F, s);
+  return vals_bf16 ? launch<float, __nv_bfloat16>(cols, vals, x, out, N, W, F, s)
+                   : launch<float, float>(cols, vals, x, out, N, W, F, s);
 }
 
 const char* hlhgat_cuda_error_string(int code) {

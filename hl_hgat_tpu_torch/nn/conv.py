@@ -11,13 +11,10 @@ Routes for dense [G, S, S] operators, as in the JAX package:
   terms, the per-term GEMMs run in torch (`_combine_terms`);
 * else the plain recurrence and GEMMs in torch.
 
-Route rule on shape: blocks of more than ``MAX_BLOCK`` (128) rows take the
-plain recurrence on either kernel route — the route the JAX package takes
-by default for every block size.  The kernels hold L in shared memory and
-take S <= 128; their wrappers raise on more.  The rule is decided from the
-operator's shape before any launch, so a batch packed with
-``edge_cap=256`` runs its 128-row node convs through the kernel and its
-256-row edge convs through the recurrence.
+The kernels hold L in shared memory and take blocks of at most
+``ops.laguerre_dense.MAX_BLOCK`` (128) rows: on the card, either kernel
+route raises on larger blocks (a batch packed with ``edge_cap=256``) until
+kernels that stream L in row bands exist.
 
 A `CooMatrix` operator (the flat layout) always takes the plain
 recurrence; each of its mat-vecs goes through ``ops.dispatch.lap_matvec``,
@@ -38,7 +35,6 @@ from torch import nn
 from hl_hgat_tpu_torch.nn.gemm import stack_gemm
 from hl_hgat_tpu_torch.ops.dispatch import lap_matvec
 from hl_hgat_tpu_torch.ops.laguerre_dense import (
-    MAX_BLOCK,
     laguerre_dense_fused,
     laguerre_terms_dense,
 )
@@ -89,15 +85,12 @@ def laguerre_matvec(
     x: torch.Tensor, lap, weights: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
     """Functional Laguerre filter: weights [K, C, F], bias [F]; x [G, S, C]
-    with dense blocks, or flat [N, C] / [N, T, C] with a `CooMatrix`.
-    Dense blocks of more than ``MAX_BLOCK`` rows take the plain recurrence
-    whatever the route flags say (the module docstring's route rule)."""
+    with dense blocks, or flat [N, C] / [N, T, C] with a `CooMatrix`."""
     k = weights.shape[0]
-    kernel_block = (isinstance(lap, torch.Tensor) and lap.dim() == 3 and x.dim() == 3
-                    and lap.shape[-1] <= MAX_BLOCK)
-    if kernel_block and use_fused_dense():
+    dense = isinstance(lap, torch.Tensor) and lap.dim() == 3 and x.dim() == 3
+    if dense and use_fused_dense():
         return laguerre_dense_fused(lap, x, weights, bias)
-    if kernel_block and use_terms_kernel() and k > 1:
+    if dense and use_terms_kernel() and k > 1:
         terms = list(laguerre_terms_dense(lap, x, k).unbind(0))
         return _combine_terms(terms, weights, bias, x.dtype)
     return _combine_terms(polynomial_terms(x, lap, k), weights, bias, x.dtype)

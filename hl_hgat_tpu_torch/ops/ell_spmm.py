@@ -11,15 +11,14 @@ accumulated in float32 and rounded once to x's dtype.  Padding slots carry
 ``vals == 0`` and a column in range.  On an H100 the kernel is bound by
 bytes (cols and vals read once, x read once, out written once).
 
-The kernel is CUDA C++ in ``csrc/ell_spmm.cu`` (its header has the design);
-``launch_plan`` chooses its launch shape.  ``spmm_ell`` launches it for CUDA
-tensors and raises on anything it does not take; it runs the plain version,
-``spmm_ell_plain``, only for tensors on the CPU.  ``spmm_ell_symmetric`` is
-the differentiable form: because the operator equals its transpose, ``dx``
-is the same kernel on the cotangent; ``dvals`` (an SDDMM on the ELL
-pattern, masked where ``vals == 0``) is plain torch, as it is plain XLA in
-the JAX package, and is computed only when asked for — operators are data,
-and no model asks.
+The kernel is CUDA C++ in ``csrc/ell_spmm.cu`` (its header has the design).
+``spmm_ell`` launches it for CUDA tensors and raises on anything it does not
+take; it runs the plain version, ``spmm_ell_plain``, only for tensors on the
+CPU.  ``spmm_ell_symmetric`` is the differentiable form: because the
+operator equals its transpose, ``dx`` is the same kernel on the cotangent;
+``dvals`` (an SDDMM on the ELL pattern, masked where ``vals == 0``) is plain
+torch, as it is plain XLA in the JAX package, and is computed only when
+asked for — operators are data, and no model asks.
 
 ``LAUNCHES`` counts kernel launches: ``spmm_ell`` in the forward,
 ``spmm_ell_bwd`` for ``dx`` in the backward.  ``use_ell_kernel(False)``
@@ -34,8 +33,6 @@ import ctypes
 import torch
 
 LAUNCHES = {"spmm_ell": 0, "spmm_ell_bwd": 0}
-
-BLOCK_THREADS = 256  # csrc/ell_spmm.cu: kThreads, one 16-byte chunk of a row each
 
 _lib: ctypes.CDLL | None = None
 _ell_kernel_flag = True
@@ -63,7 +60,7 @@ def _library() -> ctypes.CDLL:
 
         lib = cuda_build.load("ell_spmm")
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hlhgat_ell_spmm.argtypes = [p, p, p, p, q, i, q, i, i, i, i, i, p]
+        lib.hlhgat_ell_spmm.argtypes = [p, p, p, p, q, i, q, i, i, p]
         lib.hlhgat_ell_spmm.restype = i
         lib.hlhgat_cuda_error_string.argtypes = [i]
         lib.hlhgat_cuda_error_string.restype = ctypes.c_char_p
@@ -83,27 +80,6 @@ def _check_shapes(ell_cols: torch.Tensor, ell_vals: torch.Tensor, x: torch.Tenso
             f"N={x.shape[0]})")
     if ell_cols.shape[1] < 1:
         raise ValueError("ELL width must be at least 1")
-
-
-def launch_plan(f: int, elem_bytes: int, *bases: int) -> tuple[bool, int, int]:
-    """The kernel's launch shape for x [N, f] with ``elem_bytes``-byte
-    elements and the data pointers ``bases`` (x and out): ``(aligned, cpb,
-    rows_b)``.
-
-    A thread owns a 16-byte chunk, ``vec = 16 // elem_bytes`` features; a
-    row has ``cpr = ceil(f / vec)`` chunks, the last one cut at f.  A block
-    of ``BLOCK_THREADS`` covers ``rows_b`` whole rows of ``cpb = cpr``
-    chunks, or, for a row wider than the block, one slice of ``cpb =
-    BLOCK_THREADS`` chunks (the grid's second axis walks the slices).
-    ``aligned``: the row stride and every base are 16-byte aligned, so each
-    chunk is one 16-byte load and store; else the kernel reads a chunk by
-    words (float32) or through the aligned 16-byte blocks around it
-    (bfloat16) and writes it element by element."""
-    vec = 16 // elem_bytes
-    cpr = -(-f // vec)
-    cpb = min(cpr, BLOCK_THREADS)
-    aligned = f * elem_bytes % 16 == 0 and all(b % 16 == 0 for b in bases)
-    return aligned, cpb, BLOCK_THREADS // cpb
 
 
 def spmm_ell_plain(ell_cols: torch.Tensor, ell_vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -144,15 +120,13 @@ def _launch(ell_cols, ell_vals, x, counter: str) -> torch.Tensor:
         return out.reshape(x.shape)
     cols = ell_cols.contiguous()
     vals = ell_vals.contiguous()
-    f = flat.shape[1]
     # a ragged F, or a view into a larger buffer that starts off a 16-byte
     # boundary, takes the kernel's unaligned path: x is not copied
-    aligned, cpb, rows_b = launch_plan(f, flat.element_size(), flat.data_ptr(), out.data_ptr())
     lib = _library()
     with torch.cuda.device(x.device):
         code = lib.hlhgat_ell_spmm(
             cols.data_ptr(), vals.data_ptr(), flat.data_ptr(), out.data_ptr(),
-            n, w, f, int(aligned), cpb, rows_b, int(x.dtype == torch.bfloat16),
+            n, w, flat.shape[1], int(x.dtype == torch.bfloat16),
             int(vals.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -42,8 +42,6 @@ the cotangents through its adjoint walk, so both take any K.  All take
 any block size S <= ``MAX_BLOCK``, any C and F; the fused kernels need at
 most 226 KB of shared memory, checked against ``_SMEM_LIMIT``, the terms
 kernels 106 KB (float32) or 54 KB (bfloat16) at S = 128, whatever K is.
-A conv on larger blocks takes the plain recurrence by its shape
-(``nn/conv.py::laguerre_matvec``); these wrappers raise on S > 128.
 
 The public functions are ``torch.autograd.Function``s: forward and
 backward each launch their kernel for CUDA tensors and raise on anything

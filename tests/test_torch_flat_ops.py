@@ -528,36 +528,22 @@ def test_cast_operators_casts_coo_and_ell_values(flat_pair):
     assert dispatch.cast_operators(coo, torch.bfloat16).level0.l0.ell_vals is None
 
 
-@pytest.mark.parametrize("elem_bytes", [4, 2])
-def test_ell_launch_plan_covers_every_feature_once(elem_bytes):
-    """``launch_plan`` for every F from 1 to 1100, with the kernel's layout
-    (thread t of block (bx, by) owns the 16-byte chunk by·cpb + t % cpb of
-    row bx·rows_b + t // cpb, the division done as a multiply by
-    floor(2^32 / cpb) + 1, the last chunk of a row cut at F): every (row,
-    feature) has exactly one thread, and a chunk is one aligned 16-byte
-    access only when the row stride and both bases allow it."""
-    threads = ell_spmm.BLOCK_THREADS
-    vec = 16 // elem_bytes
-    tid = np.arange(threads)
-    for f in range(1, 1101):
-        for bases in ((0, 0), (256, 512), (4, 0), (0, 8)):
-            aligned, cpb, rows_b = ell_spmm.launch_plan(f, elem_bytes, *bases)
-            assert aligned == (f * elem_bytes % 16 == 0 and bases[0] % 16 == 0
-                               and bases[1] % 16 == 0)
-        cpr = -(-f // vec)
-        assert 1 <= cpb <= threads and rows_b * cpb <= threads
-        assert cpb == cpr or (cpb == threads and rows_b == 1)
-        magic = np.uint64((1 << 32) // cpb + 1)
-        rl = ((tid.astype(np.uint64) * magic) >> np.uint64(32)).astype(np.int64)
-        assert (rl == tid // cpb).all()
-        n = 2 * rows_b + 1  # a ragged last block
-        cover = np.zeros((n, f + vec), np.int64)
-        for bx in range(-(-n // rows_b)):
-            for by in range(-(-cpr // cpb)):
-                r = bx * rows_b + rl
-                f0 = (by * cpb + tid - rl * cpb) * vec
-                live = (rl < rows_b) & (r < n) & (f0 < f)
-                need = np.minimum(vec, f - f0)
-                for rr, ff, nn in zip(r[live], f0[live], need[live]):
-                    cover[rr, ff:ff + nn] += 1
-        assert (cover[:, :f] == 1).all() and not cover[:, f:].any(), f
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ell_inf_in_the_padding_row_gives_nan_as_the_pallas_kernel(rng, dtype):
+    """Padding slots (column 0, value 0) are multiplied like any other, as
+    the TPU kernel does: with an inf in row 0 of x, every padded row's
+    output is NaN in that feature, in the plain version as in the Pallas
+    kernel (interpret mode), and the other entries agree."""
+    rows, cols, vals, _ = _symmetric_coo(rng, 30, 60, pad=3)
+    ec, ev = build.coo_to_ell(rows, cols, vals, 30)
+    assert (ev == 0).any()
+    x = rng.standard_normal((30, 9)).astype(np.float32)
+    x[0, 4] = np.inf
+    out = ell_spmm.spmm_ell(_t(ec), _t(ev, dtype), _t(x, dtype)).float().numpy()
+    ref = np.asarray(pallas_spmm.spmm_ell_symmetric(
+        jnp.asarray(ec), jnp.asarray(ev, dtype), jnp.asarray(x, dtype)), np.float32)
+    assert np.isnan(out).any()
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
+    np.testing.assert_array_equal(np.isinf(out), np.isinf(ref))
+    fin = np.isfinite(ref)
+    _close(torch.from_numpy(out[fin]), ref[fin], dtype)
