@@ -2,13 +2,14 @@
 """GPU smoke run of the PyTorch port (``hl_hgat_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only [ell]   # phases 1, 2, 4 and 6 only (or 6)
+    python3 chip_smoke.py --kernels-only [resident|band|ell]   # the kernel phases only
 
 1. Builds the CUDA kernels from ``hl_hgat_tpu_torch/csrc`` (nvcc, sm_90a),
-   prints the card's name and power limit, and reads the two Laguerre
+   prints the card's name and power limit, and reads the three Laguerre
    libraries with ``cuobjdump -sass``: every Laguerre kernel, fused and
-   terms, forward and backward, must hold tensor-core opcodes (HMMA /
-   HGMMA), in float32 (3xTF32) and in bfloat16.
+   terms, forward and backward, and every product kernel of the band
+   library, must hold tensor-core opcodes (HMMA / HGMMA), in float32
+   (3xTF32) and in bfloat16.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the zinc_pyr forward gives it (the batch's real L0 blocks, random
    x/W/b) and, off the path, at a ragged shape, at K = 8, at S = 96 and at
@@ -20,6 +21,13 @@
    Every ``[kernel]`` line ends with a short hash of the kernel's output
    bytes (``bits``), so two trees run in one call can be compared bit for
    bit.
+2b. Holds the four Laguerre kernels on blocks over 128 rows (the band
+   kernels of ``csrc/laguerre_band.cu``) against their plain versions,
+   forward and backward, both dtypes, same bounds, a second launch
+   bit-equal: every distinct conv shape over 128 rows of the pooled path
+   below (its 256-row L1 blocks; coarse-level blocks too where they exceed
+   128 rows), counted per pass, and off the path the same graphs' 512-row
+   L1 blocks at K = 4, C = F = 64 and 128.
 3. Serves 384 synthetic ZINC-like graphs through ``Predictor`` with a
    full-width, seeded ``zinc_pyr`` in float32 and bfloat16, on three conv
    routes: plain torch, terms kernel + torch GEMMs, fused kernel (default).
@@ -63,8 +71,26 @@
    pairs each (MRR from ``Trainer.evaluate``, 5 steps, 36 + 33 launches:
    the link head never reads the last edge conv, so its three mat-vecs
    have no backward).
-8. Prints one ``{"kernels": [...]}`` line (five kernels) and, last, the
-   ``{"ok": true, ...}`` line.
+3b. Serves the same 384 graphs with ``Predictor(edge_cap=256)`` (256-row
+   L1 blocks, the band kernels) in both dtypes, 18 fused launches a
+   forward, predictions equal to the 128-row packing's within the kernel
+   tolerances; then trains zinc_pyr ZINC_WIDE_STEPS steps at edge_cap 128
+   and at 256 (18 + 18 launches a step), the first losses equal.
+8. The pooled path: ``cifar10sp_attpool`` at full width (channels (2,2,2),
+   filters (64,128,256), K=4, MLP (256,), 10 classes) on POOLED_GRAPHS
+   synthetic cifar10sp graphs (``data/synthetic.pooled_like_samples``, one
+   coarsened level) packed with node_cap 128, edge_cap 256.  In each dtype
+   it serves them through ``Predictor`` (14 fused launches a forward;
+   fused route against the plain route, float32 card against the CPU on
+   16 graphs), holds the gradients with BN on running statistics against
+   the plain route, and trains POOLED_STEPS steps through ``Trainer``
+   (classification task; 14 + 14 launches a step, finite losses, non-zero
+   conv gradients); forward and step ms with the device's busy share from
+   a ``torch.profiler`` window.  Then one eval forward of the flat layout
+   on the ELL kernel (36 launches), held against the packed predictions.
+9. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
+   over every phase's main-path runs) and, last, the ``{"ok": true, ...}``
+   line.
 
 Any failed check exits non-zero before the result lines.  Needs one card;
 exits non-zero without one.
@@ -95,7 +121,9 @@ PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # the kernels that must hold tensor-core opcodes, in both dtypes
 MMA_KERNELS = {"laguerre_dense": ("fused_fwd_mma_kernel", "terms_fwd_mma_kernel"),
                "laguerre_dense_bwd": ("fused_bwd_dx_mma_kernel", "fused_bwd_dw_mma_kernel",
-                                      "terms_bwd_mma_kernel")}
+                                      "terms_bwd_mma_kernel"),
+               "laguerre_band": ("band_step_kernel", "band_out_kernel", "band_bar_kernel",
+                                 "band_dw_kernel")}
 KERNEL_CALLS = 10  # calls per CUDA graph when a Laguerre kernel is timed
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # relative to max|ref|
 # Whole-model gradients, one computation against another: the worst leaf's
@@ -134,6 +162,9 @@ FLAT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 FLAT_BF16_COSINE = 0.9  # bf16 whole-gradient agreement between flat routes, BN on running stats
 CROSS_LAYOUT_ATOL = 1e-4  # flat against packed predictions, float32
 NODE_GRAPHS, LINK_GRAPHS, LINK_STEPS = 32, 256, 5
+# the pooled path: cifar10sp_attpool on the JAX CLI's synthetic cifar10sp
+# graphs, packed at edge_cap 256; zinc_pyr's training steps at edge_cap 256
+POOLED_GRAPHS, POOLED_STEPS, ZINC_WIDE_STEPS = 128, 4, 3
 
 
 def fail(msg: str) -> None:
@@ -250,6 +281,54 @@ def check_one(torch, tag, dtype, kernel, plain, nbytes, flops, count, agg, same_
     agg["bound"] += count * max(by_bytes, by_ops)
 
 
+def check_fused_pair(torch, lg, dtype, label, lb, x, w, b, cot, count, summary):
+    """The fused forward and backward against their plain versions on one
+    case; ``label`` names the case after the dtype."""
+    g, sb, c = x.shape
+    k, _, f = w.shape
+    es = x.element_size()
+    shape = f"{dtype} {label}G={g} S={sb} C={c} F={f} K={k}"
+    check_one(
+        torch, f"laguerre_dense_fused {shape}", dtype,
+        lambda: lg.laguerre_dense_fused(lb, x, w, b),
+        lambda: lg.laguerre_dense_fused_plain(lb, x, w, b),
+        (g * sb * sb + g * sb * c + g * sb * f) * es + (k * c * f + f) * 4,
+        2 * g * sb * (sb * c * (k - 1) + k * c * f),
+        count, summary[("laguerre_dense_fused", dtype)], same_bits=True)
+    check_one(
+        torch, f"laguerre_dense_fused_bwd {shape}", dtype,
+        lambda: lg.laguerre_dense_fused_bwd(lb, x, w, cot),
+        lambda: lg.laguerre_dense_fused_bwd_plain(lb, x, w, cot),
+        g * (sb * sb + 2 * sb * c + 2 * sb * f) * es + (2 * k * c * f + f) * 4,
+        4 * g * sb * (sb * c * (k - 1) + k * c * f),
+        count, summary[("laguerre_dense_fused_bwd", dtype)], same_bits=True)
+
+
+def check_terms_pair(torch, lg, dtype, label, lb, x, dt, count, summary):
+    """The terms forward and backward against their plain versions."""
+    g, sb, c = x.shape
+    k = dt.shape[0]
+    nbytes = (g * sb * sb + g * sb * c + k * g * sb * c) * x.element_size()
+    flops = 2 * g * sb * sb * c * (k - 1)
+    shape = f"{dtype} {label}G={g} S={sb} C={c} K={k}"
+    check_one(
+        torch, f"laguerre_terms_dense {shape}", dtype,
+        lambda: lg.laguerre_terms_dense(lb, x, k),
+        lambda: lg.laguerre_terms_dense_plain(lb, x, k),
+        nbytes, flops, count, summary[("laguerre_terms_dense", dtype)], same_bits=True)
+    check_one(
+        torch, f"laguerre_terms_dense_bwd {shape}", dtype,
+        lambda: lg.laguerre_terms_dense_bwd(lb, dt, k),
+        lambda: lg.laguerre_terms_dense_bwd_plain(lb, dt, k),
+        nbytes, flops, count, summary[("laguerre_terms_dense_bwd", dtype)], same_bits=True)
+
+
+def empty_summary(lg):
+    return {(name, dtype): dict(ms=0.0, plain_ms=0.0, by_bytes=0.0, by_ops=0.0, bound=0.0,
+                                err=0.0)
+            for name in lg.LAUNCHES for dtype in ("float32", "bfloat16")}
+
+
 def check_kernels(torch, np, lg, l_blocks, conv_shapes, seed):
     """Kernel vs plain at every distinct main-path shape, both dtypes.  Each
     case draws its inputs from its own generator, seeded by ``seed`` and its
@@ -269,14 +348,10 @@ def check_kernels(torch, np, lg, l_blocks, conv_shapes, seed):
     # terms the fused backward holds at once (the terms kernels too)
     off_path = [(s, 3, 100, 72), (s, 8, 64, 64), (96, 6, 128, 128), (s, 10, 64, 64)]
     terms_off_path = [(s, 3, 100), (s, 8, 64), (96, 6, 128), (s, 10, 64)]
-    summary = {}
+    summary = empty_summary(lg)
     for dtype in ("float32", "bfloat16"):
         td = getattr(torch, dtype)
-        es = torch.tensor([], dtype=td).element_size()
         l = l_blocks.to(td)
-        for name in lg.LAUNCHES:
-            summary[(name, dtype)] = dict(ms=0.0, plain_ms=0.0, by_bytes=0.0,
-                                          by_ops=0.0, bound=0.0, err=0.0)
 
         def feats(rng, c, rows=s):
             return torch.from_numpy(
@@ -290,41 +365,15 @@ def check_kernels(torch, np, lg, l_blocks, conv_shapes, seed):
             w = torch.from_numpy((rng.uniform(-1, 1, (k, c, f)) * np.sqrt(6.0 / (c + f))
                                   ).astype(np.float32)).cuda()
             b = torch.from_numpy(rng.standard_normal(f).astype(np.float32)).cuda()
-            check_one(
-                torch, f"laguerre_dense_fused {dtype} G={g} S={sb} C={c} F={f} K={k}", dtype,
-                lambda: lg.laguerre_dense_fused(lb, x, w, b),
-                lambda: lg.laguerre_dense_fused_plain(lb, x, w, b),
-                (g * sb * sb + g * sb * c + g * sb * f) * es + (k * c * f + f) * 4,
-                2 * g * sb * (sb * c * (k - 1) + k * c * f),
-                count, summary[("laguerre_dense_fused", dtype)], same_bits=True)
             cot = feats(rng, f, sb)
-            check_one(
-                torch, f"laguerre_dense_fused_bwd {dtype} G={g} S={sb} C={c} F={f} K={k}", dtype,
-                lambda: lg.laguerre_dense_fused_bwd(lb, x, w, cot),
-                lambda: lg.laguerre_dense_fused_bwd_plain(lb, x, w, cot),
-                g * (sb * sb + 2 * sb * c + 2 * sb * f) * es + (2 * k * c * f + f) * 4,
-                4 * g * sb * (sb * c * (k - 1) + k * c * f),
-                count, summary[("laguerre_dense_fused_bwd", dtype)], same_bits=True)
+            check_fused_pair(torch, lg, dtype, "", lb, x, w, b, cot, count, summary)
         terms_cases = [(s, k, c, count) for (k, c), count in terms_counts.items()]
         for sb, k, c, count in terms_cases + [(*shape, 0) for shape in terms_off_path]:
             lb = l if sb == s else l[:, :sb, :sb].contiguous()
             rng = np.random.default_rng([seed, sb, k, c])
             x = feats(rng, c, sb)
-            nbytes = (g * sb * sb + g * sb * c + k * g * sb * c) * es
-            flops = 2 * g * sb * sb * c * (k - 1)
-            check_one(
-                torch, f"laguerre_terms_dense {dtype} G={g} S={sb} C={c} K={k}", dtype,
-                lambda: lg.laguerre_terms_dense(lb, x, k),
-                lambda: lg.laguerre_terms_dense_plain(lb, x, k),
-                nbytes, flops, count, summary[("laguerre_terms_dense", dtype)],
-                same_bits=True)
             dt = torch.stack([feats(rng, c, sb) for _ in range(k)])
-            check_one(
-                torch, f"laguerre_terms_dense_bwd {dtype} G={g} S={sb} C={c} K={k}", dtype,
-                lambda: lg.laguerre_terms_dense_bwd(lb, dt, k),
-                lambda: lg.laguerre_terms_dense_bwd_plain(lb, dt, k),
-                nbytes, flops, count, summary[("laguerre_terms_dense_bwd", dtype)],
-                same_bits=True)
+            check_terms_pair(torch, lg, dtype, "", lb, x, dt, count, summary)
     return summary
 
 
@@ -861,6 +910,304 @@ def flat_phase(torch, np, model32, samples, packed_pred32, card):
     return summary, total
 
 
+def check_band_kernels(torch, np, lg, cases, seed):
+    """The four Laguerre kernels against their plain versions on blocks
+    over 128 rows (the band kernels), both dtypes; ``cases`` holds
+    ``(tag, l_blocks [G,S,S] float32, K, C, F, launches per pass)``.  Each
+    case draws its inputs from its own generator.  Returns per-kernel,
+    per-dtype sums over one pass's launches, as ``check_kernels`` does."""
+    summary = empty_summary(lg)
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        for tag, l32, k, c, f, count in cases:
+            g, sb = l32.shape[:2]
+            lb = l32.to(td)
+            rng = np.random.default_rng([seed, sb, k, c, f])
+
+            def feats(width):
+                return torch.from_numpy(
+                    rng.standard_normal((g, sb, width)).astype(np.float32)).cuda().to(td)
+
+            x = feats(c)
+            w = torch.from_numpy((rng.uniform(-1, 1, (k, c, f)) * np.sqrt(6.0 / (c + f))
+                                  ).astype(np.float32)).cuda()
+            b = torch.from_numpy(rng.standard_normal(f).astype(np.float32)).cuda()
+            cot = feats(f)
+            check_fused_pair(torch, lg, dtype, f"{tag} ", lb, x, w, b, cot, count, summary)
+            if k > 1:
+                dt = torch.stack([feats(c) for _ in range(k)])
+                check_terms_pair(torch, lg, dtype, f"{tag} ", lb, x, dt, count, summary)
+    return summary
+
+
+def conv_calls(torch, conv, model, batch):
+    """``(operator, K, C, F)`` of every dense Laguerre conv of one eval
+    forward, in call order (read by hooks on the plain route, which
+    launches no kernel)."""
+    calls = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: calls.append((args[1], *mod.weight.shape)))
+        for m in model.modules() if isinstance(m, conv.LaguerreConv)]
+    prev = conv.use_fused_dense(), conv.use_terms_kernel()
+    conv.use_fused_dense(False)
+    conv.use_terms_kernel(False)
+    try:
+        model.eval()
+        with torch.inference_mode():
+            model(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+        conv.use_fused_dense(prev[0])
+        conv.use_terms_kernel(prev[1])
+    return calls
+
+
+def band_cases(torch, np, conv, model, batch, wide_l1):
+    """Kernel cases over 128 rows: every distinct (operator, K, C, F) of the
+    pooled model's forward with S > 128, counted per pass, then off the
+    path the 512-row L1 blocks ``wide_l1`` at K = 4, C = F = 64 and 128."""
+    counted = {}
+    for lap, k, c, f in conv_calls(torch, conv, model, batch):
+        if lap.shape[1] > 128:
+            key = (lap.data_ptr(), int(k), int(c), int(f))
+            lap0, n = counted.get(key, (lap, 0))
+            counted[key] = (lap0, n + 1)
+    if not counted:
+        fail("the pooled batch has no block over 128 rows")
+    cases = [("pooled", lap.float(), k, c, f, n)
+             for (_, k, c, f), (lap, n) in sorted(counted.items(), key=lambda kv: kv[0][1:])]
+    cases += [("wide", wide_l1, 4, w, w, 0) for w in (64, 128)]
+    return cases
+
+
+def band_phase(torch, np, lg, conv, model32, pooled_batch, wide_l1, card):
+    """Phase 2b: the band kernels at the pooled path's shapes and at 512
+    rows; returns the summary over one pooled forward's (backward's)
+    launches over 128 rows."""
+    cases = band_cases(torch, np, conv, model32, pooled_batch, wide_l1)
+    summary = check_band_kernels(torch, np, lg, cases, 2)
+    for name in lg.LAUNCHES:
+        for dtype in ("float32", "bfloat16"):
+            agg = summary[(name, dtype)]
+            print(f"[kernel] {name} {dtype} blocks over 128 rows, per pooled pass: kernel "
+                  f"{agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, bound "
+                  f"{agg['bound']:.4f} ms, max|err| {agg['err']:.3e} [{card}]", flush=True)
+    return summary
+
+
+def zinc_wide_phase(torch, np, lg, model32, samples, served, card):
+    """Phase 3b: zinc_pyr served through ``Predictor(edge_cap=256)`` (256-row
+    L1 blocks, the band kernels) in both dtypes, held against the 128-row
+    packing's predictions ``served[dtype]``; then ZINC_WIDE_STEPS training
+    steps at ``edge_cap=256`` in float32, the first loss against the
+    128-row packing's.  Returns the launches."""
+    from hl_hgat_tpu_torch.complex.dense import collate_dense_packed
+    from hl_hgat_tpu_torch.models import presets
+    from hl_hgat_tpu_torch.serving import Predictor
+    from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
+
+    total = {name: 0 for name in lg.LAUNCHES}
+    for dtype in ("float32", "bfloat16"):
+        model = model32 if dtype == "float32" else presets.zinc_pyr(
+            compute_dtype=dtype, seed=0)[0]
+        pred = Predictor(model, batch_size=BATCH_GRAPHS, edge_cap=256)
+        batch = pred.collate(samples)
+        if batch.levels[0].l1.shape[1] != 256:
+            fail(f"Predictor(edge_cap=256) packed L1 blocks of {batch.levels[0].l1.shape[1]}")
+        lg.reset_launch_counts()
+        out = pred(samples)
+        counts = dict(lg.LAUNCHES)
+        if counts["laguerre_dense_fused"] != 18 or sum(counts.values()) != 18:
+            fail(f"zinc_pyr edge_cap=256 {dtype} forward launched {counts}")
+        for name in total:
+            total[name] += counts[name]
+        ref = served[dtype]
+        err, scale = float(np.abs(out - ref).max()), float(np.abs(ref).max())
+        if out.shape != ref.shape or not np.isfinite(out).all() or not err <= TOL[dtype] * scale:
+            fail(f"zinc_pyr edge_cap=256 {dtype}: max|err| {err:.3e} against the 128-row "
+                 f"packing (max|ref| {scale:.3e})")
+        fwd_ms = median_ms(torch, lambda: pred.forward(batch), 10)
+        print(f"[serve] zinc_pyr {dtype} edge_cap=256 ({batch.x_t.shape[0]} blocks, L1 "
+              f"{batch.levels[0].l1.shape[1]} rows): forward {fwd_ms:.3f} ms, 18 fused launches; "
+              f"vs edge_cap=128 max|err| {err:.3e} (max|ref| {scale:.3e}) [{card}]", flush=True)
+    cfg = TrainerConfig(task="regression", lr=1e-3, weight_decay=1e-3)
+    firsts = {}
+    for cap in (128, 256):
+        trainer = Trainer(copy.deepcopy(model32), cfg)
+        batch = collate_dense_packed(samples, edge_cap=cap).to("cuda")
+        lg.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(batch) for _ in range(ZINC_WIDE_STEPS)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / ZINC_WIDE_STEPS
+        counts = dict(lg.LAUNCHES)
+        want = {**{n: 0 for n in lg.LAUNCHES}, "laguerre_dense_fused": 18 * ZINC_WIDE_STEPS,
+                "laguerre_dense_fused_bwd": 18 * ZINC_WIDE_STEPS}
+        if counts != want:
+            fail(f"zinc_pyr edge_cap={cap} training launched {counts}, expected {want}")
+        values = [float(v) for v in losses]
+        if not all(np.isfinite(values)):
+            fail(f"zinc_pyr edge_cap={cap}: non-finite loss {values}")
+        firsts[cap] = values[0]
+        if cap == 256:
+            for name in total:
+                total[name] += counts[name]
+        print(f"[train] zinc_pyr float32 edge_cap={cap}: {ZINC_WIDE_STEPS} steps, "
+              f"{step_ms:.3f} ms a step (first included), 18 + 18 launches a step, loss "
+              f"{values[0]:.5f} -> {values[-1]:.5f} [{card}]", flush=True)
+    if not abs(firsts[256] - firsts[128]) <= TOL["float32"] * abs(firsts[128]):
+        fail(f"zinc_pyr first loss {firsts[256]} at edge_cap=256 vs {firsts[128]} at 128")
+    return total
+
+
+def busy_share(torch, fn, calls: int) -> tuple[float, float]:
+    """(device kernel ms, busy share) over ``calls`` calls of ``fn`` traced
+    by ``torch.profiler``: the kernels' summed device time over the
+    window's wall time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    return dev_us / 1e3 / calls, dev_us / 1e6 / wall
+
+
+def pooled_phase(torch, np, lg, ell, model32, samples, card):
+    """Phase 8: cifar10sp_attpool at full width on POOLED_GRAPHS packed graphs
+    (node_cap 128, edge_cap 256): served through ``Predictor`` and trained
+    POOLED_STEPS steps through ``Trainer`` in both dtypes on the default
+    fused route, with the launch counts of each run; gradients with BN on
+    running statistics held against the plain route; one eval forward of
+    the flat layout on the ELL kernel, held against the packed
+    predictions.  Returns (Laguerre launches, ELL launches)."""
+    from hl_hgat_tpu_torch.complex.build import collate
+    from hl_hgat_tpu_torch.models import presets
+    from hl_hgat_tpu_torch.nn import conv
+    from hl_hgat_tpu_torch.serving import Predictor
+    from hl_hgat_tpu_torch.train import Trainer, TrainerConfig, softmax_ce_loss
+
+    per_fwd = sum(1 for m in model32.modules() if isinstance(m, conv.LaguerreConv))
+    if per_fwd != 14:
+        fail(f"cifar10sp_attpool has {per_fwd} Laguerre convs, expected 14")
+    total = {name: 0 for name in lg.LAUNCHES}
+    cfg = TrainerConfig(task="classification", lr=1e-3, weight_decay=1e-3, metric_mode="max")
+    preds32 = None
+    for dtype in ("float32", "bfloat16"):
+        model = model32 if dtype == "float32" else presets.cifar10sp_attpool(
+            compute_dtype=dtype, seed=0)[0]
+        pred = Predictor(model, batch_size=POOLED_GRAPHS, edge_cap=256)
+        batch = pred.collate(samples)
+        lg.reset_launch_counts()
+        out = pred(samples)
+        counts = dict(lg.LAUNCHES)
+        if counts["laguerre_dense_fused"] != per_fwd or sum(counts.values()) != per_fwd:
+            fail(f"cifar10sp_attpool {dtype} forward launched {counts}")
+        for name in total:
+            total[name] += counts[name]
+        if out.shape != (POOLED_GRAPHS, 10) or not np.isfinite(out).all():
+            fail(f"cifar10sp_attpool {dtype}: output {out.shape} or not finite")
+        conv.use_fused_dense(False)
+        ref = pred(samples)
+        conv.use_fused_dense(True)
+        err, scale = float(np.abs(out - ref).max()), float(np.abs(ref).max())
+        if not err <= TOL[dtype] * scale:
+            fail(f"cifar10sp_attpool {dtype}: fused route vs plain route max|err| {err:.3e} "
+                 f"> {TOL[dtype]}·{scale:.3e}")
+        fwd_ms = median_ms(torch, lambda: pred.forward(batch), 10)
+        fwd_dev, fwd_busy = busy_share(torch, lambda: pred.forward(batch), 3)
+        print(f"[pooled] cifar10sp_attpool {dtype}: {batch.x_t.shape[0]} blocks, L1 "
+              f"{[lvl.l1.shape[1] for lvl in batch.levels]} rows by level; forward "
+              f"{fwd_ms:.3f} ms (device {fwd_dev:.3f} ms, busy {100 * fwd_busy:.1f}%), "
+              f"{POOLED_GRAPHS / fwd_ms * 1e3:.1f} graphs/s; fused vs plain route max|err| "
+              f"{err:.3e} (max|ref| {scale:.3e}); launches/forward {per_fwd} [{card}]",
+              flush=True)
+        if dtype == "float32":
+            preds32 = out
+            cpu_out = Predictor(copy.deepcopy(model).to("cpu"), batch_size=16, edge_cap=256,
+                                device="cpu")(samples[:16])
+            cerr = float(np.abs(out[:16] - cpu_out).max())
+            print(f"[pooled] float32 card vs CPU forward (16 graphs): max|err| {cerr:.3e} "
+                  f"(max|ref| {float(np.abs(cpu_out).max()):.3e})", flush=True)
+            if not cerr <= TOL[dtype] * float(np.abs(cpu_out).max()):
+                fail("cifar10sp_attpool: card output disagrees with the CPU forward")
+
+        # gradients with BN on running statistics (no dropout): fused vs plain route
+        grads = {}
+        for fused in (True, False):
+            conv.use_fused_dense(fused)
+            m = copy.deepcopy(model).eval()
+            loss = softmax_ce_loss(m(batch), batch.y.reshape(-1).long())
+            loss.backward()
+            grads[fused] = (float(loss.detach()), {
+                n: (torch.zeros_like(q) if q.grad is None else q.grad.detach().clone())
+                for n, q in m.named_parameters()})
+        conv.use_fused_dense(True)
+        if not abs(grads[True][0] - grads[False][0]) <= TOL[dtype] * abs(grads[False][0]):
+            fail(f"cifar10sp_attpool {dtype}: eval loss {grads[True][0]} vs {grads[False][0]}")
+        tag = f"pooled cifar10sp_attpool {dtype} fused vs plain route, BN on running statistics"
+        if dtype == "float32":
+            compare_grads(tag, grads[True][1], grads[False][1], (), EVAL_LEAF_TOL[dtype],
+                          EVAL_NORM_TOL[dtype])
+        else:
+            compare_grads(tag, grads[True][1], grads[False][1], (), cosine=TRAIN_BF16_COSINE)
+
+        trainer = Trainer(copy.deepcopy(model), cfg)
+        lg.reset_launch_counts()
+        losses = [trainer.train_step(batch)]
+        torch.cuda.synchronize()
+        for name, m in trainer.model.named_modules():
+            if isinstance(m, conv.LaguerreConv) and not bool((m.weight.grad != 0).any()):
+                fail(f"cifar10sp_attpool {dtype}: {name}.weight has no gradient")
+        t0 = time.perf_counter()
+        for _ in range(POOLED_STEPS - 1):
+            losses.append(trainer.train_step(batch))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (POOLED_STEPS - 1)
+        counts = dict(lg.LAUNCHES)
+        want = {**{n: 0 for n in lg.LAUNCHES}, "laguerre_dense_fused": per_fwd * POOLED_STEPS,
+                "laguerre_dense_fused_bwd": per_fwd * POOLED_STEPS}
+        if counts != want:
+            fail(f"cifar10sp_attpool {dtype}: {counts} over {POOLED_STEPS} steps, expected {want}")
+        for name in total:
+            total[name] += counts[name]
+        values = [float(v) for v in losses]
+        if not all(np.isfinite(values)):
+            fail(f"cifar10sp_attpool {dtype}: non-finite loss {values}")
+        step_dev, step_busy = busy_share(torch, lambda: trainer.train_step(batch), 2)
+        print(f"[pooled] cifar10sp_attpool {dtype}: step {step_ms:.3f} ms (device {step_dev:.3f} "
+              f"ms, busy {100 * step_busy:.1f}%), {POOLED_GRAPHS / step_ms * 1e3:.1f} graphs/s; "
+              f"loss {values[0]:.5f} -> {values[-1]:.5f} over {POOLED_STEPS} steps; launches/step "
+              f"{per_fwd} + {per_fwd} [{card}]", flush=True)
+
+    # the flat layout's eval forward on the ELL kernel
+    flat = collate(samples, with_ell=True).to("cuda")
+    model32.eval()
+    ell.reset_launch_counts()
+    with torch.inference_mode():
+        out = model32(flat)
+    torch.cuda.synchronize()
+    ell_counts = dict(ell.LAUNCHES)
+    per_flat = sum(int(m.weight.shape[0]) - 1 for m in model32.modules()
+                   if isinstance(m, conv.LaguerreConv))
+    if ell_counts != {"spmm_ell": per_flat, "spmm_ell_bwd": 0}:
+        fail(f"cifar10sp_attpool flat forward launched {ell_counts}, expected {per_flat}")
+    err = float(np.abs(out.float().cpu().numpy() - preds32).max())
+    scale = float(np.abs(preds32).max())
+    print(f"[pooled] cifar10sp_attpool float32 flat (ELL) vs packed predictions: max|err| "
+          f"{err:.3e} (max|ref| {scale:.3e}); ELL launches {per_flat} [{card}]", flush=True)
+    if not err <= TOL["float32"] * scale:
+        fail("cifar10sp_attpool: the flat and the packed layout disagree")
+    return total, ell_counts
+
+
 def print_laguerre_summary(summary, names, card):
     for name in names:
         for dtype in ("float32", "bfloat16"):
@@ -874,9 +1221,11 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="GPU smoke run of the PyTorch port")
-    ap.add_argument("--kernels-only", nargs="?", const="all", choices=("all", "ell"),
-                    help="build and check the kernels only (phases 2, 4 and 6; 'ell': "
-                         "phase 6), no result line")
+    ap.add_argument("--kernels-only", nargs="?", const="all",
+                    choices=("all", "resident", "band", "ell"),
+                    help="build and check the kernels only (phases 2, 2b, 4 and 6; "
+                         "'resident': 2 and 4, blocks of at most 128 rows; 'band': 2b, "
+                         "blocks over 128 rows; 'ell': 6), no result line")
     args = ap.parse_args(argv)
     import torch
 
@@ -890,6 +1239,7 @@ def main(argv=None) -> int:
     from hl_hgat_tpu_torch.data.synthetic import zinc_like_samples
     from hl_hgat_tpu_torch.models import presets
     from hl_hgat_tpu_torch.nn import conv
+    from hl_hgat_tpu_torch.ops import ell_spmm as ell
     from hl_hgat_tpu_torch.ops import laguerre_dense as lg
     from hl_hgat_tpu_torch.serving import Predictor
 
@@ -913,6 +1263,8 @@ def main(argv=None) -> int:
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
     for lib, wanted in MMA_KERNELS.items():
+        if lib not in cuda_build.SOURCES:  # an older tree, run for comparison
+            continue
         counts = cuda_build.tensor_core_opcodes(lib)
         for kernel, n in sorted(counts.items()):
             print(f"[build] {lib}: {n} tensor-core opcodes in {kernel}", flush=True)
@@ -940,23 +1292,47 @@ def main(argv=None) -> int:
     if len(conv_shapes) != 18:
         fail(f"zinc_pyr has {len(conv_shapes)} Laguerre convs, expected 18")
     l_blocks = torch.as_tensor(host_batch.level0.l0).cuda()
-    if args.kernels_only:
-        from hl_hgat_tpu_torch.ops import ell_spmm as ell
 
-        if args.kernels_only == "all":
+    def pooled_setup():
+        """The pooled path's samples, model, packed batch on the card and the
+        512-row L1 blocks of the same samples."""
+        from hl_hgat_tpu_torch.data.synthetic import pooled_like_samples
+
+        t0 = time.perf_counter()
+        pooled_samples = pooled_like_samples(np.random.default_rng(5), POOLED_GRAPHS)
+        batch = collate_dense_packed(pooled_samples, edge_cap=256)
+        wide = collate_dense_packed(pooled_samples, edge_cap=512)
+        print(f"[data] pooled: {POOLED_GRAPHS} graphs, {int(batch.level0.edge_mask.sum())} real "
+              f"edges, {batch.x_t.shape[0]} blocks, rows by level (nodes, edges) "
+              f"{[(lvl.l0.shape[1], lvl.l1.shape[1]) for lvl in batch.levels]}; 512-row "
+              f"packing {wide.x_s.shape[0]} blocks ({time.perf_counter() - t0:.2f} s host)",
+              flush=True)
+        model, _ = presets.cifar10sp_attpool(seed=0)
+        return (pooled_samples, model, batch.to("cuda"),
+                torch.as_tensor(wide.levels[0].l1).cuda())
+
+    if args.kernels_only:
+        if args.kernels_only in ("all", "resident"):
             summary = check_kernels(torch, np, lg, l_blocks, conv_shapes, 1)
             print_laguerre_summary(summary, list(lg.LAUNCHES), card)
-        on_card, _ = flat_batches(torch, np, samples)
-        print_ell_summary(check_ell(torch, np, ell, ell_cases(model32, on_card["zinc"],
-                                                              on_card["node"]),
-                                    np.random.default_rng(4), card), card)
+        if args.kernels_only in ("all", "band"):
+            _, pmodel, pbatch, wide_l1 = pooled_setup()
+            band_phase(torch, np, lg, conv, pmodel, pbatch, wide_l1, card)
+        if args.kernels_only in ("all", "ell"):
+            on_card, _ = flat_batches(torch, np, samples)
+            print_ell_summary(check_ell(torch, np, ell, ell_cases(model32, on_card["zinc"],
+                                                                  on_card["node"]),
+                                        np.random.default_rng(4), card), card)
         print("[kernels-only] done, no result line", flush=True)
         return 0
     summary = check_kernels(torch, np, lg, l_blocks, conv_shapes, 1)
+    pooled_samples, pooled_model, pooled_batch, wide_l1 = pooled_setup()
+    band_summary = band_phase(torch, np, lg, conv, pooled_model, pooled_batch, wide_l1, card)
 
     # ---- 3. the serving path ----------------------------------------------
     launches = {name: 0 for name in lg.LAUNCHES}
     none = {name: 0 for name in lg.LAUNCHES}
+    served = {}  # the fused route's predictions per dtype
     expect = {"plain": none,
               "terms": {**none, "laguerre_terms_dense": 16},
               "fused": {**none, "laguerre_dense_fused": 18}}
@@ -990,6 +1366,7 @@ def main(argv=None) -> int:
                   f"Predictor call incl. host collate {e2e:.1f} ms [{card}]", flush=True)
         conv.use_fused_dense(True)
         conv.use_terms_kernel(False)
+        served[dtype] = outs["fused"]
         ref = outs["plain"]
         scale = float(np.abs(ref).max())
         for route in ("fused", "terms"):
@@ -1026,7 +1403,22 @@ def main(argv=None) -> int:
         if n == 0:
             fail(f"{name} was never launched on the flat path")
 
-    # ---- 8. result lines --------------------------------------------------
+    # ---- 3b. zinc_pyr on 256-row L1 blocks ----------------------------------
+    for name, n in zinc_wide_phase(torch, np, lg, model32, samples, served, card).items():
+        launches[name] += n
+
+    # ---- 8. the pooled path: cifar10sp_attpool served and trained ----------
+    pooled_launches, pooled_ell = pooled_phase(torch, np, lg, ell, pooled_model,
+                                               pooled_samples, card)
+    for name in ("laguerre_dense_fused", "laguerre_dense_fused_bwd"):
+        if pooled_launches[name] == 0:
+            fail(f"{name} was never launched on the pooled path")
+    for name, n in pooled_launches.items():
+        launches[name] += n
+    for name, n in pooled_ell.items():
+        ell_launches[name] += n
+
+    # ---- 9. result lines --------------------------------------------------
     replaces = {
         "laguerre_dense_fused": "hl_hgat_tpu/ops/pallas_hodge.py:93",
         "laguerre_terms_dense": "hl_hgat_tpu/ops/pallas_hodge.py:285",
@@ -1036,6 +1428,10 @@ def main(argv=None) -> int:
     sources = {name: "hl_hgat_tpu_torch/csrc/laguerre_dense"
                + ("_bwd.cu" if name.endswith("_bwd") else ".cu") for name in replaces}
     print_laguerre_summary(summary, replaces, card)
+    for name in replaces:
+        b32 = band_summary[(name, "float32")]
+        print(f"[kernel] {name} float32 per pooled pass over 128 rows: {b32['ms']:.4f} ms, "
+              f"bound {b32['bound']:.4f} ms [{card}]", flush=True)
     kernels = []
     for name, where in replaces.items():
         s32 = summary[(name, "float32")]

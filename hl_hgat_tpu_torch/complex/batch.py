@@ -91,8 +91,7 @@ class PoolMap:
     """Fine→coarse assignment of a coarsening step: ``pos_t[n]`` is the
     batched coarse node id of fine node ``n``, ``pos_s[e]`` the coarse edge
     id; dropped nodes, intra-cluster and padded edges point at the dump slot
-    one past the last coarse id.  (Fields only: the pooled models are not in
-    this package yet.)"""
+    one past the last coarse id."""
 
     pos_t: Any  # [N_fine] int32 in [0, N_coarse]
     pos_s: Any  # [E_fine] int32 in [0, E_coarse]

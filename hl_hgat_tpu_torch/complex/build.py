@@ -6,7 +6,9 @@ port keeps its own): undirected canonicalization, boundary operator, Hodge
 Laplacians and eigen positional encodings (reference
 lib/Hodge_Dataset.py:442-477), producing `GraphSample`s that
 ``complex/dense.py`` packs into dense blocks and that ``collate`` here
-concatenates into the flat (COO/ELL) layout of ``complex/batch.py``.
+concatenates into the flat (COO/ELL) layout of ``complex/batch.py``, every
+coarsened level of a pooled sample (``complex/coarsen.py``) with its pooling
+map.
 
 Graphs above ``SPARSE_BUILD_THRESHOLD`` edges need the sparse-direct
 Laplacian build, which this package does not have yet: they raise.
@@ -18,7 +20,7 @@ import dataclasses
 
 import numpy as np
 
-from hl_hgat_tpu_torch.complex.batch import ComplexBatch, ComplexLevel, CooMatrix
+from hl_hgat_tpu_torch.complex.batch import ComplexBatch, ComplexLevel, CooMatrix, PoolMap
 
 
 @dataclasses.dataclass
@@ -40,7 +42,9 @@ class GraphStructure:
 
 @dataclasses.dataclass
 class GraphSample:
-    """A single preprocessed simplex graph (``pools`` stays empty here)."""
+    """A single preprocessed simplex graph: ``levels[0]`` the graph, the
+    coarsened levels after it, ``pools[i]`` the (c_node, c_edge) assignment
+    from level i to level i + 1."""
 
     x_t: np.ndarray  # [n, Ft]
     x_s: np.ndarray  # [e, Fs]
@@ -336,19 +340,37 @@ def collate(
     with_ell: bool = False,
 ) -> ComplexBatch:
     """Pack samples into one padded `ComplexBatch` of NumPy arrays: edge
-    endpoints offset by node counts, L1 indices by edge counts.
-
-    Single level: a sample that carries coarsened levels raises (the pooled
-    family is not in this package yet).
+    endpoints offset by node counts, L1 indices by edge counts, every level
+    block-diagonal, and per coarsening step a `PoolMap` of the pooling
+    assignments globalized by the coarse offsets (dropped nodes, deleted
+    edges and padding point at the coarse level's dump slot, one past its
+    last padded row), as ``hl_hgat_tpu/complex/build.py::collate``.
     """
-    if any(len(s.levels) != 1 or s.pools for s in samples):
-        raise NotImplementedError(
-            "collate packs single-level samples; pooled levels are not ported")
     if pads is None:
         pads = pad_spec(samples, multiple=multiple)
     num_graphs = len(samples)
-    level, n_off, e_off = _collate_level(
-        [s.levels[0] for s in samples], pads[0], num_graphs, with_ell=with_ell)
+    levels, offs = [], []
+    for lv in range(len(samples[0].levels)):
+        level, n_off, e_off = _collate_level(
+            [s.levels[lv] for s in samples], pads[lv], num_graphs, with_ell=with_ell)
+        levels.append(level)
+        offs.append((n_off, e_off))
+
+    pools = []
+    for lv in range(len(levels) - 1):
+        fine, coarse = pads[lv], pads[lv + 1]
+        (fn_off, fe_off), (cn_off, ce_off) = offs[lv], offs[lv + 1]
+        pos_t = np.full(fine.nodes, coarse.nodes, np.int32)
+        pos_s = np.full(fine.edges, coarse.edges, np.int32)
+        for g, s in enumerate(samples):
+            c_node, c_edge = (np.asarray(a).reshape(-1).astype(np.int64) for a in s.pools[lv])
+            pos_t[fn_off[g] : fn_off[g + 1]] = np.where(c_node < 0, coarse.nodes,
+                                                        c_node + cn_off[g])
+            pos_s[fe_off[g] : fe_off[g + 1]] = np.where(c_edge < 0, coarse.edges,
+                                                        c_edge + ce_off[g])
+        pools.append(PoolMap(pos_t=pos_t, pos_s=pos_s))
+
+    n_off, e_off = offs[0]
 
     def rows_of(arrays, offs, total):
         out = np.zeros((total,) + arrays[0].shape[1:], np.float32)
@@ -365,7 +387,8 @@ def collate(
     else:
         y = np.stack([np.asarray(s.y, np.float32).reshape(-1) for s in samples])
     return ComplexBatch(
-        x_t=x_t, x_s=x_s, y=y, levels=(level,), pools=(), num_graphs=num_graphs)
+        x_t=x_t, x_s=x_s, y=y, levels=tuple(levels), pools=tuple(pools),
+        num_graphs=num_graphs)
 
 
 def attach_link_pairs(

@@ -437,6 +437,17 @@ __device__ inline typename Pair<T>::V laguerre_step_pair(float lt0, float lt1,
                 kf + 1.f);
 }
 
+// out[i] = partial[0][i] + partial[1][i] + ... in slice order.
+__global__ void reduce_partials_kernel(const float* __restrict__ partial,
+                                       float* __restrict__ out, size_t n,
+                                       int n_split) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < n_split; ++p) s += partial[(size_t)p * n + i];
+  out[i] = s;
+}
+
 // w [n] float32 -> wt [n] in T: the kernels take W in x's type.
 template <typename T>
 __global__ void cast_w_kernel(const float* __restrict__ w, T* __restrict__ wt,

@@ -43,7 +43,9 @@
 //   at a slice's first step, the next slice's x: one __syncthreads a step.
 // * Block sizes S <= 128 of any value are padded with zeros to a multiple
 //   of 32 rows in shared memory; any K (shared memory does not depend on
-//   it).  G=78 blocks fill 59 % of the 132 SMs.
+//   it).  G=78 blocks fill 59 % of the 132 SMs.  Larger blocks go to
+//   laguerre_band.cu (L streamed in row bands, one launch a step), behind
+//   the same wrappers.
 // * Rounding follows the JAX kernel: L and W are cast to x's dtype, each
 //   L·T product is accumulated in f32 and rounded to x's dtype, every
 //   elementwise step of the combine is rounded to x's dtype (Pair<T>, as in

@@ -66,7 +66,8 @@
 // The sum order depends on the shapes only, so the gradient is the same from
 // run to run.
 // * Block sizes S <= 128 of any value are padded with zeros to a multiple
-//   of 32 rows in shared memory; any C, F and K.
+//   of 32 rows in shared memory; any C, F and K.  Larger blocks go to
+//   laguerre_band.cu, behind the same wrappers.
 // * Rounding follows the JAX kernel: g and W are taken in x's dtype; bar_k
 //   and each L·bar product are accumulated in f32 and rounded to x's dtype;
 //   every elementwise step of the walk is rounded to x's dtype (the j/(j+1)
@@ -419,17 +420,6 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   }
   if (K <= KC) flush(0, true);
   if (sums_db) mine[n_w + f0 + threadIdx.x] = db;
-}
-
-// out[i] = partial[0][i] + partial[1][i] + ... in slice order.
-__global__ void reduce_partials_kernel(const float* __restrict__ partial,
-                                       float* __restrict__ out, size_t n,
-                                       int n_split) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < n_split; ++p) s += partial[(size_t)p * n + i];
-  out[i] = s;
 }
 
 // Warp w owns rows 32 (w / WN) .. + 31 and the channels (CT / WN)·(w % WN)

@@ -11,6 +11,7 @@ import numpy as np
 
 from hl_hgat_tpu_torch.complex.batch import ComplexBatch
 from hl_hgat_tpu_torch.complex.build import GraphSample, build_complex, collate
+from hl_hgat_tpu_torch.complex.coarsen import build_pyramid
 
 
 def _random_connected(rng: np.random.Generator, n: int, extra: int):
@@ -35,11 +36,14 @@ def random_simplex_sample(
     node_feat: int = 21,
     edge_feat: int = 3,
     keig: int = 8,
+    num_pool: int = 0,
     y_dim: int = 1,
 ) -> GraphSample:
+    """A random connected graph lifted to a simplex sample; ``num_pool``
+    coarsened levels (MLGC) below it."""
     src, dst = _random_connected(rng, n_nodes, extra_edges)
     e = src.shape[0]
-    return build_complex(
+    sample = build_complex(
         np.stack([src, dst]),
         n_nodes,
         x_t=rng.standard_normal((n_nodes, node_feat)).astype(np.float32),
@@ -47,6 +51,31 @@ def random_simplex_sample(
         y=rng.standard_normal(y_dim).astype(np.float32),
         keig=keig,
     )
+    if num_pool:
+        sample.levels, sample.pools = build_pyramid(sample.levels, num_pool)
+    return sample
+
+
+def pooled_like_samples(
+    rng: np.random.Generator, count: int, *, benchmark: str = "cifar10sp",
+    num_pool: int = 1,
+) -> list[GraphSample]:
+    """The JAX CLI's synthetic ``cifar10sp`` / ``pepfunc`` samples
+    (``hl_hgat_tpu/run.py:310-319``): 20–59 nodes, 4 extra edges, 9 node
+    and 3 edge features, ``keig`` 10, ``num_pool`` coarsened levels; a
+    class id in [0, 10) (cifar10sp) or 10 binary labels (pepfunc)."""
+    samples = []
+    for _ in range(count):
+        s = random_simplex_sample(
+            rng, n_nodes=int(rng.integers(20, 60)), node_feat=9, edge_feat=3, keig=10,
+            num_pool=num_pool, y_dim=10 if benchmark == "pepfunc" else 1,
+        )
+        if benchmark == "pepfunc":
+            s.y = (s.y > 0).astype(np.float32)
+        else:
+            s.y = np.asarray([int(abs(s.y[0]) * 7) % 10], np.float32)
+        samples.append(s)
+    return samples
 
 
 def zinc_like_samples(

@@ -1,14 +1,19 @@
 """The dense-int3 backbone and the graph-, node- and link-level models
-(``hl_hgat_tpu/models/backbone.py``, without pooling, gates or remat).
+(``hl_hgat_tpu/models/backbone.py``, without remat).
 
 Template: init conv pair → per block i of width ``filters[i]``:
 ``channels[i]`` × (MSI → node/edge Laguerre pair with BN/act/dropout →
-dense concat onto the running stacks) → readout → head.  The stacks are
-carried as tuples of column pieces and concatenated once per block (the JAX
-``stack_concat='block'``).  Every model takes either batch layout the
-package has — a packed `DenseBatch` ([G, S, C] features) or a flat
-`ComplexBatch` ([N, C] features) — except the node and link heads, which
-the JAX package runs on the flat layout only.  Module names follow the JAX
+dense concat onto the running stacks) → optional attention gates and
+structural pooling onto the next level → readout → head.  Per-model quirks
+are config (``BackboneConfig``; the JAX module's header lists them): the
+degree epsilon, what the gates read and multiply, which blocks gate and
+which pool, the poolint3 variant's one MSI per block after its convs.  The
+stacks are carried as tuples of column pieces and concatenated once per
+block (``stack_concat='block'``) or after every layer (``'layer'``).
+Every model takes either batch layout the package has — a packed
+`DenseBatch` ([G, S, C] features) or a flat `ComplexBatch` ([N, C]
+features) — except the node and link heads, which the JAX package runs on
+the flat layout only.  Module names follow the JAX
 parameter paths, so ``weights.from_flax_variables`` maps one tree onto the
 other.
 """
@@ -27,6 +32,7 @@ from hl_hgat_tpu_torch.nn.conv import LaguerreConv
 from hl_hgat_tpu_torch.nn.interaction import NodeEdgeInt
 from hl_hgat_tpu_torch.nn.linear import TorchLinear
 from hl_hgat_tpu_torch.nn.norm import MaskedBatchNorm
+from hl_hgat_tpu_torch.nn.pool import max_normalize, sapool_scatter
 from hl_hgat_tpu_torch.ops.dispatch import (
     abs_b1_s2t,
     apply_edge_mask,
@@ -43,45 +49,75 @@ class BackboneConfig:
     channels: tuple[int, ...] = (2, 2, 2, 2)
     filters: tuple[int, ...] = (64, 128, 256, 512)
     k: int = 2
-    init_k: int = 2  # K of the init conv (1 for the zinc script variant)
+    init_k: int = 2  # K of the init conv (1 for zinc-script/CIFAR/pepfunc-att)
     act: str = "relu"  # 'relu' | 'leaky_relu'
     leaky_slope: float = 0.1
     dropout: float = 0.0  # after every conv block's activation, train mode only
     # degree epsilon of the MSI division: 1e-6 in the reference models
-    # except the zinc pyr loops, which add none (lib/Hodge_ST_Model.py:624)
+    # except the zinc pyr/attpool loops, which add none
+    # (lib/Hodge_ST_Model.py:504,624)
     deg_eps: float = 1e-6
+    # False: the poolint3 variant, convs on the raw stacks and one MSI per
+    # block after them (reference lib/Hodge_ST_Model.py:649-749)
+    msi_per_layer: bool = True
+    # gates and pooling after block i: att_locs gate, pool_locs gate and pool
+    pool_locs: tuple[int, ...] = ()
+    att_locs: tuple[int, ...] = ()
+    att_sigma: str = "sigmoid"
+    att_lam: float = 0.9
+    att_dk: int = 32
+    gate_input: str = "last"  # 'last' (x_t, x_s) | 'stack' (the stacks)
+    gate_target: str = "stack"  # 'stack' | 'last'
+    max_normalize_gates: bool = False
     # activation dtype; parameters stay float32 and matmuls accumulate f32
     compute_dtype: str = "float32"
     # dtype of the readout and head; None follows compute_dtype.  "float32"
     # on a bf16 trunk casts the final features up before the readout.
     head_dtype: str | None = None
+    # when the dense-concat stacks are materialized: 'block' once per block,
+    # 'layer' after every layer (the reference's formulation); same values
+    stack_concat: str = "block"
 
     def conv_kw(self) -> dict:
         return dict(act=self.act, leaky_slope=self.leaky_slope, dropout=self.dropout)
 
 
 class DenseInt3Backbone(nn.Module):
-    """Shared trunk; returns the last layer's (x_t, x_s)."""
+    """Shared trunk: init conv pair, then per block of ``filters[i]``
+    channels its layers, the block's gates and its pooling.  Returns the
+    last layer's (x_t, x_s) on level ``level_idx`` (the number of pools
+    taken)."""
 
     def __init__(self, cfg: BackboneConfig, c_t: int, c_s: int, generator=None):
         super().__init__()
+        if cfg.stack_concat not in ("block", "layer"):
+            raise ValueError(f"unknown stack_concat {cfg.stack_concat!r}")
         self.cfg = cfg
         f0 = cfg.filters[0]
         kw = cfg.conv_kw()
         self.init_node = ConvBNAct(c_t, f0, cfg.init_k, generator, **kw)
         self.init_edge = ConvBNAct(c_s, f0, cfg.init_k, generator, **kw)
         # node and edge stacks grow alike: both start at f0, gain `width`
-        # per layer
+        # per layer (and per block MSI in poolint3); pooling keeps the width
         stack = f0
-        self.layer_names: list[tuple[str, str]] = []
         for i, width in enumerate(cfg.filters):
             for j in range(cfg.channels[i]):
-                nei, conv = f"NEInt{i}{j}", f"NEConv{i}{j}"
-                self.add_module(nei, NodeEdgeInt(stack, stack, width, generator))
-                self.add_module(conv, NEConvPair(width, width, cfg.k, generator, **kw))
-                self.layer_names.append((nei, conv))
+                if cfg.msi_per_layer:
+                    self.add_module(f"NEInt{i}{j}", NodeEdgeInt(stack, stack, width, generator))
+                conv_in = width if cfg.msi_per_layer else stack
+                self.add_module(f"NEConv{i}{j}",
+                                NEConvPair(conv_in, width, cfg.k, generator, **kw))
                 stack += width
+            if not cfg.msi_per_layer:
+                self.add_module(f"NEInt{i}", NodeEdgeInt(stack, stack, width, generator))
+                stack += width
+            if i in cfg.att_locs or i in cfg.pool_locs:
+                c_gate = width if cfg.gate_input == "last" else stack
+                self.add_module(f"NEAtt{i}", NodeEdgeInt(
+                    c_gate, c_gate, generator=generator, only_att=True, dk=cfg.att_dk,
+                    sigma=cfg.att_sigma, lam=cfg.att_lam))
         self.out_features = cfg.filters[-1]
+        self.level_idx = sum(1 for i in range(len(cfg.filters)) if i in cfg.pool_locs)
 
     def forward(self, x_t, x_s, batch: Batch):
         cfg = self.cfg
@@ -89,21 +125,56 @@ class DenseInt3Backbone(nn.Module):
         x_t = x_t.to(dtype)
         x_s = x_s.to(dtype)
         # operators follow the compute dtype (ops/dispatch.py cast_operators)
-        level = cast_operators(batch, dtype).levels[0]
+        batch = cast_operators(batch, dtype)
+        level = batch.levels[0]
         deg = level.deg + cfg.deg_eps
         x_t = self.init_node(x_t, level.l0, level.node_mask)
         x_s = self.init_edge(x_s, level.l1, level.edge_mask)
         pieces_t, pieces_s = (x_t,), (x_s,)
-        names = iter(self.layer_names)
+        k = 0  # pooling level index
         for i in range(len(cfg.filters)):
-            for _ in range(cfg.channels[i]):
-                nei, conv = next(names)
-                x_t, x_s = self.get_submodule(nei)(pieces_t, pieces_s, level, deg)
-                x_t, x_s = self.get_submodule(conv)(x_t, x_s, level)
+            for j in range(cfg.channels[i]):
+                conv = self.get_submodule(f"NEConv{i}{j}")
+                if cfg.msi_per_layer:
+                    x_t, x_s = self.get_submodule(f"NEInt{i}{j}")(pieces_t, pieces_s, level, deg)
+                    x_t, x_s = conv(x_t, x_s, level)
+                else:
+                    x_t, x_s = conv(torch.cat(pieces_t, dim=-1), torch.cat(pieces_s, dim=-1),
+                                    level)
+                pieces_t += (x_t,)
+                pieces_s += (x_s,)
+                if cfg.stack_concat == "layer":
+                    pieces_t = (torch.cat(pieces_t, dim=-1),)
+                    pieces_s = (torch.cat(pieces_s, dim=-1),)
+            if not cfg.msi_per_layer:
+                x_t, x_s = self.get_submodule(f"NEInt{i}")(pieces_t, pieces_s, level, deg)
                 pieces_t += (x_t,)
                 pieces_s += (x_s,)
             pieces_t = (torch.cat(pieces_t, dim=-1),)
             pieces_s = (torch.cat(pieces_s, dim=-1),)
+
+            if i in cfg.att_locs or i in cfg.pool_locs:
+                g_t, g_s = (x_t, x_s) if cfg.gate_input == "last" else (pieces_t, pieces_s)
+                a_t, a_s = self.get_submodule(f"NEAtt{i}")(g_t, g_s, level, deg)
+                if cfg.max_normalize_gates:
+                    a_t, a_s = max_normalize(a_t), max_normalize(a_s)
+                # the gates stay float32; the wide multiply runs in the
+                # activation dtype
+                if cfg.gate_target == "stack":
+                    pieces_t = tuple(p * a_t.to(p.dtype) for p in pieces_t)
+                    pieces_s = tuple(p * a_s.to(p.dtype) for p in pieces_s)
+                else:
+                    x_t = x_t * a_t.to(x_t.dtype)
+                    x_s = x_s * a_s.to(x_s.dtype)
+
+            if i in cfg.pool_locs:
+                coarse = batch.levels[k + 1]
+                pieces_t, pieces_s = (
+                    (p,) for p in sapool_scatter(pieces_t[0], pieces_s[0], batch.pools[k],
+                                                 level, coarse))
+                k += 1
+                level = coarse
+                deg = level.deg + cfg.deg_eps
         return x_t, x_s
 
 
@@ -189,10 +260,11 @@ class HLHGCNNGraph(nn.Module):
             x_t = apply_node_mask(level, x_t)
             x_s = apply_edge_mask(level, x_s)
         f_t, f_s = head_cast(self.cfg, *self.backbone(x_t, x_s, batch))
+        final = batch.levels[self.backbone.level_idx]
         pooled = torch.cat(
             [
-                masked_mean_edges(level, f_s, batch.num_graphs),
-                masked_mean_nodes(level, f_t, batch.num_graphs),
+                masked_mean_edges(final, f_s, batch.num_graphs),
+                masked_mean_nodes(final, f_t, batch.num_graphs),
             ],
             dim=-1,
         )

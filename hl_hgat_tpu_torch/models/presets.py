@@ -60,6 +60,124 @@ def zinc_pyr(
     return model.to(device), dict(task="regression", y_mean=0.0153, y_std=2.0109)
 
 
+def _graph_model(cfg, in_t, in_s, mlp_channels, num_classes, seed, device, meta,
+                 dropout_mlp=0.0):
+    model = HLHGCNNGraph(
+        cfg, in_t, in_s, mlp_channels=tuple(mlp_channels), num_classes=num_classes,
+        dropout_mlp=dropout_mlp, generator=torch.Generator().manual_seed(seed),
+    )
+    return model.to(resolve_device(device)), meta
+
+
+# The pooled and gated family.  Input widths default to feature columns plus
+# keig − 1 PE columns: ZINC's 21 atom and 3 bond columns, the superpixel
+# and peptide samples' 9 and 3 (``data/synthetic.pooled_like_samples``).
+# Pooled models read a batch whose samples carry one coarsened level per
+# entry of ``pool_locs`` (``num_pool=1``).
+
+_ZINC_META = dict(task="regression", y_mean=0.0153, y_std=2.0109)
+
+
+def zinc_attpool(
+    channels=(2, 2, 2, 2), filters=(64, 128, 256, 512), k=2, keig=7,
+    dropout=0.0, mlp_channels=(), compute_dtype="float32",
+    *, in_t: int | None = None, in_s: int | None = None, seed: int = 0, device=None,
+):
+    """reference lib/Hodge_ST_Model.py:412-541: ReLU gates computed from and
+    applied to the last layer outputs, while the pool moves the stacks (a
+    faithful quirk, reference :517-521)."""
+    cfg = BackboneConfig(
+        channels=tuple(channels), filters=tuple(filters), k=k, init_k=k,
+        dropout=dropout, deg_eps=0.0, pool_locs=(0,), att_sigma="relu",
+        gate_input="last", gate_target="last", stack_concat="layer",
+        compute_dtype=compute_dtype,
+    )
+    return _graph_model(cfg, in_t or 20 + keig, in_s or 2 + keig, mlp_channels, 1, seed,
+                        device, dict(_ZINC_META))
+
+
+def zinc_poolint3_pyr(
+    channels=(2, 2, 2, 2), filters=(64, 128, 256, 512), k=2, keig=7, dropout=0.0,
+    mlp_channels=(), compute_dtype="float32",
+    *, in_t: int | None = None, in_s: int | None = None, seed: int = 0, device=None,
+):
+    """reference lib/Hodge_ST_Model.py:649-749: one MSI per block after the
+    convs, which read the raw stacks."""
+    cfg = BackboneConfig(
+        channels=tuple(channels), filters=tuple(filters), k=k, init_k=k,
+        dropout=dropout, deg_eps=0.0, msi_per_layer=False, stack_concat="layer",
+        compute_dtype=compute_dtype,
+    )
+    return _graph_model(cfg, in_t or 20 + keig, in_s or 2 + keig, mlp_channels, 1, seed,
+                        device, dict(_ZINC_META))
+
+
+def pepfunc_attpool(
+    channels=(2, 2, 2), filters=(64, 128, 256), k=6, keig=10, dropout=0.25,
+    mlp_channels=(256,), pool_loc=1, script_variant=True, compute_dtype="float32",
+    *, in_t: int | None = None, in_s: int | None = None, seed: int = 0, device=None,
+):
+    """10-way multilabel.  The script variant gates the stacks after every
+    block with λ = 0.5 and pools at ``pool_loc`` (reference
+    main_pepfunc...py:90,133-149); the lib variant gates only at
+    ``pool_loc`` with λ = 0.9 (reference lib/Hodge_ST_Model.py:225-227)."""
+    cfg = BackboneConfig(
+        channels=tuple(channels), filters=tuple(filters), k=k, init_k=1,
+        dropout=dropout, deg_eps=1e-6, pool_locs=(pool_loc,),
+        att_locs=tuple(range(len(channels))) if script_variant else (),
+        att_sigma="sigmoid", att_lam=0.5 if script_variant else 0.9,
+        gate_input="stack", gate_target="stack", stack_concat="layer",
+        compute_dtype=compute_dtype,
+    )
+    return _graph_model(cfg, in_t or 8 + keig, in_s or 2 + keig, mlp_channels, 10, seed,
+                        device, dict(task="multilabel"))
+
+
+def pepfunc_pyr(
+    channels=(2, 2, 2, 2), filters=(64, 128, 256, 512), k=2, keig=10, dropout=0.0,
+    mlp_channels=(), compute_dtype="float32",
+    *, in_t: int | None = None, in_s: int | None = None, seed: int = 0, device=None,
+):
+    """reference lib/Hodge_ST_Model.py:307-407: no pooling, init conv K=K."""
+    cfg = BackboneConfig(
+        channels=tuple(channels), filters=tuple(filters), k=k, init_k=k,
+        dropout=dropout, deg_eps=1e-6, compute_dtype=compute_dtype,
+    )
+    return _graph_model(cfg, in_t or 8 + keig, in_s or 2 + keig, mlp_channels, 10, seed,
+                        device, dict(task="multilabel"))
+
+
+def cifar10sp_pyr(
+    channels=(2, 2, 2, 2), filters=(64, 128, 256, 512), k=2, keig=10,
+    dropout=0.0, mlp_channels=(), lam=0.9, compute_dtype="float32",
+    *, in_t: int | None = None, in_s: int | None = None, seed: int = 0, device=None,
+):
+    """reference lib/Hodge_ST_Model.py:858-1091 without pooling."""
+    cfg = BackboneConfig(
+        channels=tuple(channels), filters=tuple(filters), k=k, init_k=1,
+        dropout=dropout, deg_eps=1e-6, att_lam=lam, compute_dtype=compute_dtype,
+    )
+    return _graph_model(cfg, in_t or 8 + keig, in_s or 2 + keig, mlp_channels, 10, seed,
+                        device, dict(task="classification"))
+
+
+def cifar10sp_attpool(
+    channels=(2, 2, 2), filters=(64, 128, 256), k=4, keig=10, dropout=0.25,
+    mlp_channels=(256,), lam=0.5, compute_dtype="float32",
+    *, in_t: int | None = None, in_s: int | None = None, seed: int = 0, device=None,
+):
+    """ReLU gates, max-normalized, applied to the last outputs (reference
+    lib/Hodge_ST_Model.py:1058-1064); λ = 0.5."""
+    cfg = BackboneConfig(
+        channels=tuple(channels), filters=tuple(filters), k=k, init_k=1,
+        dropout=dropout, deg_eps=1e-6, pool_locs=(0,), att_sigma="relu", att_lam=lam,
+        gate_input="last", gate_target="last", max_normalize_gates=True,
+        stack_concat="layer", compute_dtype=compute_dtype,
+    )
+    return _graph_model(cfg, in_t or 8 + keig, in_s or 2 + keig, mlp_channels, 10, seed,
+                        device, dict(task="classification"))
+
+
 # LRGB extensions of the JAX package: PascalVOC-SP / COCO-SP node
 # classification and PCQM-Contact link prediction (flat layout).
 
@@ -112,6 +230,12 @@ def pcqm_link(
 
 PRESETS = {
     "zinc_pyr": zinc_pyr,
+    "zinc_attpool": zinc_attpool,
+    "zinc_poolint3_pyr": zinc_poolint3_pyr,
+    "pepfunc_attpool": pepfunc_attpool,
+    "pepfunc_pyr": pepfunc_pyr,
+    "cifar10sp_pyr": cifar10sp_pyr,
+    "cifar10sp_attpool": cifar10sp_attpool,
     "pascalvoc_node": pascalvoc_node,
     "coco_node": coco_node,
     "pcqm_link": pcqm_link,

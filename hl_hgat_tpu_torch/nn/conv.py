@@ -11,10 +11,10 @@ Routes for dense [G, S, S] operators, as in the JAX package:
   terms, the per-term GEMMs run in torch (`_combine_terms`);
 * else the plain recurrence and GEMMs in torch.
 
-The kernels hold L in shared memory and take blocks of at most
-``ops.laguerre_dense.MAX_BLOCK`` (128) rows: on the card, either kernel
-route raises on larger blocks (a batch packed with ``edge_cap=256``) until
-kernels that stream L in row bands exist.
+Both kernel routes take any block size on the card: blocks of up to 128
+rows go to kernels that hold L in shared memory, larger ones (a batch
+packed with ``edge_cap=256``) to kernels that stream L in row bands
+(``ops.laguerre_dense``).
 
 A `CooMatrix` operator (the flat layout) always takes the plain
 recurrence; each of its mat-vecs goes through ``ops.dispatch.lap_matvec``,

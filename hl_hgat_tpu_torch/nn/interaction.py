@@ -1,4 +1,4 @@
-"""Node–edge interaction (MSI / NodeEdgeInt), value mode
+"""Node–edge interaction (MSI / NodeEdgeInt) in value and gate mode
 (``hl_hgat_tpu/nn/interaction.py``).
 
     x_s2t = D⁻¹ · |B1| · x_s      x_t2s = |B1|ᵀ · x_t / 2
@@ -10,6 +10,14 @@ package the first Linear is applied before the boundary product
 width) and each wide operand is read by one merged GEMM shared by the two
 heads.  The wide operands may be tuples of column pieces (the backbone's
 dense-concat stacks); the GEMM then sums per-piece products in float32.
+
+Gate mode (``only_att=True``, reference lib/Hodge_Cheb_Conv.py:61-120)
+gives one scalar gate per node and per edge from queries and keys of
+width dk: ``a_t = σ(((1−λ)·⟨q_{e→t}, k_t⟩ + λ·⟨q_t, k_t⟩)/√dk)`` and the
+mirror for edges, σ a sigmoid or a ReLU.  The cross query is the coupled
+edge query, formed at width dk (couple the projection, then add the bias).
+The dot products are taken in the activation dtype and scaled in float32,
+so the gates are float32 whatever the activations are.
 """
 
 from __future__ import annotations
@@ -64,13 +72,30 @@ class _ValueHead(nn.Module):
         return torch.relu(self.MaskedBatchNorm_1(x, mask))
 
 
-class NodeEdgeInt(nn.Module):
-    """Value-mode cross-simplex interaction, on dense-block levels
-    ([G, S, C] features) or flat levels ([N, C] features)."""
+_SIGMA = {"sigmoid": torch.sigmoid, "relu": torch.relu}
 
-    def __init__(self, c_t: int, c_s: int, dv: int, generator=None):
+
+class NodeEdgeInt(nn.Module):
+    """Cross-simplex interaction on dense-block levels ([G, S, C] features)
+    or flat levels ([N, C] features): value mode gives new (x_t, x_s) of
+    width dv; ``only_att=True`` gives the float32 gates (a_t, a_s), one
+    column each."""
+
+    def __init__(
+        self, c_t: int, c_s: int, dv: int = 64, generator=None, *,
+        only_att: bool = False, dk: int = 32, sigma: str = "sigmoid", lam: float = 0.9,
+    ):
         super().__init__()
         self.c_t, self.c_s = c_t, c_s
+        self.only_att = only_att
+        if only_att:
+            if sigma not in _SIGMA:
+                raise ValueError(f"unknown attention activation {sigma!r}")
+            self.dk, self.sigma, self.lam = dk, sigma, lam
+            for name, c in (("WQ_Node", c_t), ("WK_Node", c_t),
+                            ("WQ_Edge", c_s), ("WK_Edge", c_s)):
+                self.add_module(name, TorchLinear(c, dk, generator=generator))
+            return
         self.WV_Node = _ValueHead(dv, c_cross=c_s, c_self=c_t, generator=generator)
         self.WV_Edge = _ValueHead(dv, c_cross=c_t, c_self=c_s, generator=generator)
 
@@ -78,6 +103,8 @@ class NodeEdgeInt(nn.Module):
         # deg carries the model's eps; zinc's is 0, so padded and isolated
         # nodes have deg 0 — guard the division (the numerator is 0 there)
         safe_deg = torch.where(deg > 0, deg, torch.ones_like(deg))
+        if self.only_att:
+            return self._gates(x_t, x_s, level, safe_deg)
         c_t, c_s = self.c_t, self.c_s
         wn, we = self.WV_Node.first_kernel(), self.WV_Edge.first_kernel()
         zt_self, zt_cross = _merged_gemm(x_t, wn[c_s:], we[:c_t])
@@ -93,3 +120,33 @@ class NodeEdgeInt(nn.Module):
             self.WV_Node.finish(z_node, level.node_mask),
             self.WV_Edge.finish(z_edge, level.edge_mask),
         )
+
+    def _gates(self, x_t, x_s, level, safe_deg):
+        def kernel(name):
+            return getattr(self, name).weight.t()
+
+        def bias(name, like):
+            return getattr(self, name).bias.to(like.dtype)
+
+        # one merged GEMM per wide operand; the pre-bias query of each side
+        # also feeds the other side's coupled query
+        qn_pre, kn_pre = _merged_gemm(x_t, kernel("WQ_Node"), kernel("WK_Node"))
+        qe_pre, ke_pre = _merged_gemm(x_s, kernel("WQ_Edge"), kernel("WK_Edge"))
+        q_n = qn_pre + bias("WQ_Node", qn_pre)
+        k_n = kn_pre + bias("WK_Node", kn_pre)
+        q_e = qe_pre + bias("WQ_Edge", qe_pre)
+        k_e = ke_pre + bias("WK_Edge", ke_pre)
+        q_e2t = abs_b1_s2t(level, qe_pre)
+        q_e2t = q_e2t / safe_deg[..., None].to(q_e2t.dtype)
+        q_e2t = q_e2t + bias("WQ_Edge", q_e2t)
+        q_n2s = abs_b1_t2s(level, qn_pre) / 2.0
+        q_n2s = q_n2s + bias("WQ_Node", q_n2s)
+        scale = 1.0 / torch.sqrt(torch.tensor(float(self.dk), dtype=torch.float32))
+        act, lam = _SIGMA[self.sigma], self.lam
+
+        def gate(q_cross, q_self, k):
+            logit = ((1.0 - lam) * (q_cross * k).sum(-1, keepdim=True)
+                     + lam * (q_self * k).sum(-1, keepdim=True))
+            return act(logit.float() * scale.to(logit.device))
+
+        return gate(q_e2t, q_n, k_n), gate(q_n2s, q_e, k_e)

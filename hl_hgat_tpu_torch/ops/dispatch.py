@@ -21,7 +21,7 @@ import dataclasses
 
 import torch
 
-from hl_hgat_tpu_torch.complex.batch import ComplexLevel, CooMatrix
+from hl_hgat_tpu_torch.complex.batch import ComplexLevel, CooMatrix, PoolMap
 from hl_hgat_tpu_torch.ops import boundary as B
 from hl_hgat_tpu_torch.ops.ell_spmm import spmm_ell_symmetric
 from hl_hgat_tpu_torch.ops.segment import segment_mean, segment_mean_onehot
@@ -103,6 +103,22 @@ def masked_mean_edges(level, x: torch.Tensor, num_graphs: int):
     return _packed_mean(x, level.s_gid, level.edge_mask, num_graphs)
 
 
+def pool_to_coarse(pool, fine, coarse, x_t: torch.Tensor, x_s: torch.Tensor):
+    """Mean of each coarse node's (edge's) fine members, either layout:
+    flat, a weighted segment mean over the `PoolMap` (padding and deleted
+    edges weigh 0 or land in the dump slot); dense, the `DensePool`
+    averaging operators as batched GEMMs.  Coarse padding rows are zeroed
+    (the dense branch multiplies by the float32 mask, as the JAX package
+    does)."""
+    if isinstance(pool, PoolMap):
+        x_t_c = segment_mean(x_t, pool.pos_t, coarse.num_nodes, weights=fine.node_mask)
+        x_s_c = segment_mean(x_s, pool.pos_s, coarse.num_edges, weights=fine.edge_mask)
+        return (x_t_c * coarse.node_mask[:, None].to(x_t_c.dtype),
+                x_s_c * coarse.edge_mask[:, None].to(x_s_c.dtype))
+    return (_bmm(pool.p_t, x_t) * coarse.node_mask[..., None],
+            _bmm(pool.p_s, x_s) * coarse.edge_mask[..., None])
+
+
 def _cast_coo(m: CooMatrix, dtype: torch.dtype) -> CooMatrix:
     return dataclasses.replace(
         m, vals=m.vals.to(dtype),
@@ -110,10 +126,10 @@ def _cast_coo(m: CooMatrix, dtype: torch.dtype) -> CooMatrix:
 
 
 def cast_operators(batch, dtype: torch.dtype):
-    """Cast the operators (dense L0, L1, B1; COO and ELL values) to the
-    compute dtype, so bf16 activations meet bf16 operators in every
-    product.  Masks, degrees and segment ids keep their dtypes (they feed
-    divisions and segment ops)."""
+    """Cast the operators (dense L0, L1, B1 and pool matrices; COO and ELL
+    values) to the compute dtype, so bf16 activations meet bf16 operators
+    in every product.  Masks, degrees and segment ids keep their dtypes
+    (they feed divisions and segment ops)."""
     if dtype == torch.float32:
         return batch
 
@@ -124,7 +140,13 @@ def cast_operators(batch, dtype: torch.dtype):
         return dataclasses.replace(
             lvl, l0=lvl.l0.to(dtype), l1=lvl.l1.to(dtype), b1=lvl.b1.to(dtype))
 
-    return batch.replace(levels=tuple(cast_level(lvl) for lvl in batch.levels))
+    def cast_pool(p):
+        if isinstance(p, PoolMap):
+            return p
+        return dataclasses.replace(p, p_t=p.p_t.to(dtype), p_s=p.p_s.to(dtype))
+
+    return batch.replace(levels=tuple(cast_level(lvl) for lvl in batch.levels),
+                         pools=tuple(cast_pool(p) for p in batch.pools))
 
 
 def apply_node_mask(level, x: torch.Tensor) -> torch.Tensor:

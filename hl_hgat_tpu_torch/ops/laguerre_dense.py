@@ -38,10 +38,18 @@ backward holds the products and dW of at most 8 terms at a time and
 carries its adjoint walk from one chunk of terms to the next, so it takes
 any K, as the forward does.  The terms kernels write (or read) the K terms
 through 16-byte stores (``cp.async`` loads); the terms backward streams
-the cotangents through its adjoint walk, so both take any K.  All take
-any block size S <= ``MAX_BLOCK``, any C and F; the fused kernels need at
-most 226 KB of shared memory, checked against ``_SMEM_LIMIT``, the terms
-kernels 106 KB (float32) or 54 KB (bfloat16) at S = 128, whatever K is.
+the cotangents through its adjoint walk, so both take any K.  These hold a
+graph block's L in shared memory, so they take blocks of S <=
+``RESIDENT_ROWS`` (128) rows; the fused kernels need at most 226 KB of
+shared memory, checked against ``_SMEM_LIMIT``, the terms kernels 106 KB
+(float32) or 54 KB (bfloat16) at S = 128, whatever K is.
+
+Blocks of more rows go, for the same four functions, to the kernels of
+``csrc/laguerre_band.cu``: L streamed in row bands, one launch a
+recurrence step, the terms (and in the fused backward the cotangents
+``g W_kᵀ``) in a scratch buffer the wrapper allocates, with the same
+rounding points.  Every S, K, C and F runs on the card; no block size
+reaches the plain versions there.
 
 The public functions are ``torch.autograd.Function``s: forward and
 backward each launch their kernel for CUDA tensors and raise on anything
@@ -67,7 +75,7 @@ LAUNCHES = {
     "laguerre_dense_fused_bwd": 0,
     "laguerre_terms_dense_bwd": 0,
 }
-MAX_BLOCK = 128  # L tile held in shared memory: S <= 128
+RESIDENT_ROWS = 128  # blocks the kernels that hold L in shared memory take
 _SMEM_LIMIT = 232448  # bytes a block may opt into on sm_90
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -91,12 +99,20 @@ def _library(name: str = "laguerre_dense") -> ctypes.CDLL:
                 "hlhgat_laguerre_terms_fwd": ([p, p, p, i, i, i, i, i, p], i),
                 "hlhgat_laguerre_fused_smem": ([i, i, i], z),
             }
-        else:
+        elif name == "laguerre_dense_bwd":
             sigs = {
                 "hlhgat_laguerre_fused_bwd": ([p] * 8 + [i] * 7 + [p], i),
                 "hlhgat_laguerre_terms_bwd": ([p, p, p, i, i, i, i, i, p], i),
                 "hlhgat_laguerre_fused_bwd_smem": ([i, i, i], z),
                 "hlhgat_laguerre_fused_bwd_splits": ([i, i, i], i),
+            }
+        else:
+            sigs = {
+                "hlhgat_band_fused_fwd": ([p] * 7 + [i] * 6 + [p], i),
+                "hlhgat_band_terms_fwd": ([p, p, p, i, i, i, i, i, p], i),
+                "hlhgat_band_fused_bwd": ([p] * 10 + [i] * 7 + [p], i),
+                "hlhgat_band_terms_bwd": ([p] * 4 + [i] * 5 + [p], i),
+                "hlhgat_band_fused_bwd_splits": ([i, i, i, i], i),
             }
         sigs["hlhgat_cuda_error_string"] = ([i], ctypes.c_char_p)
         for fn, (argtypes, restype) in sigs.items():
@@ -119,8 +135,6 @@ def _check_inputs(l: torch.Tensor, x: torch.Tensor) -> None:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 3 or l.dim() != 3 or l.shape != (x.shape[0], x.shape[1], x.shape[1]):
         raise ValueError(f"need l [G,S,S] and x [G,S,C], got {tuple(l.shape)}, {tuple(x.shape)}")
-    if x.shape[1] > MAX_BLOCK:
-        raise ValueError(f"block size {x.shape[1]} > {MAX_BLOCK}")
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +289,16 @@ def _w_scratch(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor | None:
     return torch.empty(w.shape, dtype=x.dtype, device=x.device)
 
 
+def _term_scratch(x: torch.Tensor, n: int) -> torch.Tensor | None:
+    """n [G,S,C] buffers in x's type for the band kernels' terms or
+    cotangents (none when n = 0)."""
+    return torch.empty((n, *x.shape), dtype=x.dtype, device=x.device) if n > 0 else None
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
     _check_inputs(l, x)
     g, s, c = x.shape
@@ -284,8 +308,9 @@ def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
     out = torch.empty((g, s, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = _library()
-    if lib.hlhgat_laguerre_fused_smem(s, f, _bf16(x)) > _SMEM_LIMIT:
+    band = s > RESIDENT_ROWS
+    lib = _library("laguerre_band" if band else "laguerre_dense")
+    if not band and lib.hlhgat_laguerre_fused_smem(s, f, _bf16(x)) > _SMEM_LIMIT:
         raise ValueError(f"S={s}, F={f} need more shared memory than a block has")
     l = l.to(x.dtype).contiguous()
     x = x.contiguous()
@@ -293,11 +318,17 @@ def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
     b = b.to(device=x.device, dtype=torch.float32).contiguous()
     wt = _w_scratch(w, x)
     with torch.cuda.device(x.device):
-        code = lib.hlhgat_laguerre_fused_fwd(
-            l.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), None if wt is None else wt.data_ptr(),
-            g, s, c, f, k, _bf16(x), _stream(),
-        )
+        if band:
+            ts = _term_scratch(x, k - 1)
+            code = lib.hlhgat_band_fused_fwd(
+                l.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                _ptr(wt), _ptr(ts), g, s, c, f, k, _bf16(x), _stream(),
+            )
+        else:
+            code = lib.hlhgat_laguerre_fused_fwd(
+                l.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                out.data_ptr(), _ptr(wt), g, s, c, f, k, _bf16(x), _stream(),
+            )
     _check_launch(lib, code, "laguerre_dense_fused")
     LAUNCHES["laguerre_dense_fused"] += 1
     return out
@@ -311,14 +342,13 @@ def _terms_fwd_cuda(l, x, k: int) -> torch.Tensor:
     out = torch.empty((k, g, s, c), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = _library()
+    band = s > RESIDENT_ROWS
+    lib = _library("laguerre_band" if band else "laguerre_dense")
+    fn = lib.hlhgat_band_terms_fwd if band else lib.hlhgat_laguerre_terms_fwd
     l = l.to(x.dtype).contiguous()
     x = x.contiguous()
     with torch.cuda.device(x.device):
-        code = lib.hlhgat_laguerre_terms_fwd(
-            l.data_ptr(), x.data_ptr(), out.data_ptr(), g, s, c, k,
-            _bf16(x), _stream(),
-        )
+        code = fn(l.data_ptr(), x.data_ptr(), out.data_ptr(), g, s, c, k, _bf16(x), _stream())
     _check_launch(lib, code, "laguerre_terms_dense")
     LAUNCHES["laguerre_terms_dense"] += 1
     return out
@@ -334,8 +364,10 @@ def laguerre_dense_fused_bwd(
     On the card: one kernel for dx, one that writes per-slice partial sums
     of dW and db over the graph blocks, one that adds the partials in a
     fixed order — the result does not depend on how the blocks were
-    scheduled (and a small one that casts W to bfloat16 where x is).  The
-    wrapper counts them as one launch.
+    scheduled (and a small one that casts W to bfloat16 where x is).  Over
+    ``RESIDENT_ROWS`` rows the band kernels recompute the terms, form
+    ``g W_kᵀ`` and walk the adjoint one launch a step.  The wrapper counts
+    one launch either way.
     """
     if x.device.type == "cpu":
         return laguerre_dense_fused_bwd_plain(l, x, w, g)
@@ -349,10 +381,14 @@ def laguerre_dense_fused_bwd(
     n_w = k * c * f
     dwdb = torch.zeros(n_w + f, dtype=torch.float32, device=x.device)
     if x.numel() and g.numel():
-        lib = _library("laguerre_dense_bwd")
-        if lib.hlhgat_laguerre_fused_bwd_smem(s, k, _bf16(x)) > _SMEM_LIMIT:
-            raise ValueError(f"S={s} needs more shared memory than a block has")
-        n_split = lib.hlhgat_laguerre_fused_bwd_splits(n_g, c, f)
+        band = s > RESIDENT_ROWS
+        lib = _library("laguerre_band" if band else "laguerre_dense_bwd")
+        if band:
+            n_split = lib.hlhgat_band_fused_bwd_splits(n_g, c, f, k)
+        else:
+            if lib.hlhgat_laguerre_fused_bwd_smem(s, k, _bf16(x)) > _SMEM_LIMIT:
+                raise ValueError(f"S={s} needs more shared memory than a block has")
+            n_split = lib.hlhgat_laguerre_fused_bwd_splits(n_g, c, f)
         partial = torch.empty((n_split, n_w + f), dtype=torch.float32, device=x.device)
         l = l.to(x.dtype).contiguous()
         x = x.contiguous()
@@ -360,12 +396,19 @@ def laguerre_dense_fused_bwd(
         w = w.to(device=x.device, dtype=torch.float32).contiguous()
         wt = _w_scratch(w, x)
         with torch.cuda.device(x.device):
-            code = lib.hlhgat_laguerre_fused_bwd(
-                l.data_ptr(), x.data_ptr(), w.data_ptr(), g.data_ptr(),
-                dx.data_ptr(), dwdb.data_ptr(), partial.data_ptr(),
-                None if wt is None else wt.data_ptr(),
-                n_g, s, c, f, k, n_split, _bf16(x), _stream(),
-            )
+            if band:
+                ts, bars = _term_scratch(x, k - 1), _term_scratch(x, k if k > 1 else 0)
+                code = lib.hlhgat_band_fused_bwd(
+                    l.data_ptr(), x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                    dwdb.data_ptr(), partial.data_ptr(), _ptr(wt), _ptr(ts), _ptr(bars),
+                    n_g, s, c, f, k, n_split, _bf16(x), _stream(),
+                )
+            else:
+                code = lib.hlhgat_laguerre_fused_bwd(
+                    l.data_ptr(), x.data_ptr(), w.data_ptr(), g.data_ptr(),
+                    dx.data_ptr(), dwdb.data_ptr(), partial.data_ptr(), _ptr(wt),
+                    n_g, s, c, f, k, n_split, _bf16(x), _stream(),
+                )
         _check_launch(lib, code, "laguerre_dense_fused_bwd")
         LAUNCHES["laguerre_dense_fused_bwd"] += 1
     elif x.numel():
@@ -385,14 +428,22 @@ def laguerre_terms_dense_bwd(l: torch.Tensor, dt: torch.Tensor, k: int) -> torch
     dx = torch.empty((n_g, s, c), dtype=dt.dtype, device=dt.device)
     if dx.numel() == 0:
         return dx
-    lib = _library("laguerre_dense_bwd")
+    band = s > RESIDENT_ROWS
+    lib = _library("laguerre_band" if band else "laguerre_dense_bwd")
     l = l.to(dt.dtype).contiguous()
     dt = dt.contiguous()
     with torch.cuda.device(dt.device):
-        code = lib.hlhgat_laguerre_terms_bwd(
-            l.data_ptr(), dt.data_ptr(), dx.data_ptr(), n_g, s, c, k,
-            _bf16(dt), _stream(),
-        )
+        if band:
+            bars = _term_scratch(dx, k - 1)
+            code = lib.hlhgat_band_terms_bwd(
+                l.data_ptr(), dt.data_ptr(), dx.data_ptr(), _ptr(bars), n_g, s, c, k,
+                _bf16(dt), _stream(),
+            )
+        else:
+            code = lib.hlhgat_laguerre_terms_bwd(
+                l.data_ptr(), dt.data_ptr(), dx.data_ptr(), n_g, s, c, k,
+                _bf16(dt), _stream(),
+            )
     _check_launch(lib, code, "laguerre_terms_dense_bwd")
     LAUNCHES["laguerre_terms_dense_bwd"] += 1
     return dx

@@ -112,8 +112,8 @@ def test_laguerre_conv_routes_match_jax(rng, route, k):
 @pytest.mark.parametrize("route", ["fused", "terms"])
 def test_kernel_routes_at_256_rows_match_jax_default_route(rng, route):
     """On the CPU both kernel routes take S = 256 blocks (the wrappers' plain
-    versions have no block limit; on the card the kernels raise on S > 128)
-    and equal the JAX package's default conv route (plain XLA, Pallas
+    versions have no block limit; on the card such blocks go to the band
+    kernels) and equal the JAX package's default conv route (plain XLA, Pallas
     kernels off) on the same inputs."""
     g, s, c, f, k = 2, 256, 6, 5, 4
     l = rng.standard_normal((g, s, s)).astype(np.float32)

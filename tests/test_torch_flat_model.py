@@ -232,7 +232,10 @@ def test_full_width_presets_match_the_jax_parameter_tree(name, kw):
     ks = sorted(int(t.shape[0]) for n, t in got.items()
                 if n.startswith("backbone") and n.endswith("conv.weight"))
     assert ks == [1, 1] + [4] * 12  # 36 mat-vecs a forward
-    assert set(presets.PRESETS) == {"zinc_pyr", "pascalvoc_node", "coco_node", "pcqm_link"}
+    assert set(presets.PRESETS) == {
+        "zinc_pyr", "pascalvoc_node", "coco_node", "pcqm_link", "zinc_attpool",
+        "zinc_poolint3_pyr", "pepfunc_pyr", "pepfunc_attpool", "cifar10sp_pyr",
+        "cifar10sp_attpool"}
     assert set(presets.PRESETS) <= set(jpresets.PRESETS)
 
 

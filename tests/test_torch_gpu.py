@@ -143,9 +143,11 @@ def test_terms_kernel_matches_plain(cuda, dtype, g, s, c, k):
 
 
 def test_wrappers_reject_what_the_kernel_cannot_take(cuda):
+    # a block over 128 rows runs on the band kernels; a half-precision x is
+    # refused
     l, x, w, b = _inputs(1, 136, 8, 8, 2, torch.float32, cuda)
-    with pytest.raises(ValueError, match="block size"):
-        lg.laguerre_dense_fused(l, x, w, b)
+    _check(lg.laguerre_dense_fused(l, x, w, b), lg.laguerre_dense_fused_plain(l, x, w, b),
+           torch.float32)
     l, x, w, b = _inputs(1, 16, 8, 8, 2, torch.float16, cuda)
     with pytest.raises(TypeError):
         lg.laguerre_terms_dense(l, x, 2)
@@ -239,16 +241,18 @@ def test_fused_bwd_kernel_takes_any_k(cuda, dtype, g, s, c, f, k):
 
 
 def test_backward_wrappers_reject_what_the_kernels_cannot_take(cuda):
-    # K = 9 runs (the fused backward takes any K); a block over 128 rows and
-    # a cotangent of another shape are refused
+    # K = 9 runs (the fused backward takes any K), a block over 128 rows
+    # runs on the band kernels; a cotangent of another shape is refused
     l, x, w, _ = _inputs(1, 16, 8, 8, 9, torch.float32, cuda)
     dx, dw, db = lg.laguerre_dense_fused_bwd(l, x, w, torch.zeros(1, 16, 8, device=cuda))
     assert not bool(dx.any()) and not bool(dw.any()) and not bool(db.any())
     with pytest.raises(ValueError, match="need w"):
         lg.laguerre_dense_fused_bwd(l, x, w, torch.zeros(1, 16, 9, device=cuda))
     lb, xb, wb, _ = _inputs(1, 136, 8, 8, 2, torch.float32, cuda)
-    with pytest.raises(ValueError, match="block size"):
-        lg.laguerre_dense_fused_bwd(lb, xb, wb, torch.zeros(1, 136, 8, device=cuda))
+    cot = _normal((1, 136, 8), 4, torch.float32, cuda)
+    for a, r in zip(lg.laguerre_dense_fused_bwd(lb, xb, wb, cot),
+                    lg.laguerre_dense_fused_bwd_plain(lb, xb, wb, cot)):
+        _check(a, r, torch.float32)
     # K = 8 at the largest block fits the fused backward; the terms backward
     # streams its walk and takes K = 10 there
     l, x, w, _ = _inputs(1, 128, 8, 8, 8, torch.float32, cuda)
@@ -261,21 +265,72 @@ def test_backward_wrappers_reject_what_the_kernels_cannot_take(cuda):
         lg.laguerre_terms_dense_bwd(l, torch.zeros(3, 1, 128, 8, device=cuda), 2)
 
 
+# blocks over 128 rows (the band kernels): S = 129 (one row past a band,
+# rows not 16-byte aligned), 200, 256 and 512, with ragged C and F, K = 1,
+# 2 and 10 among them
+_BAND_SHAPES = [
+    (3, 129, 45, 37, 4), (2, 200, 64, 72, 6), (2, 256, 64, 64, 6),
+    (3, 256, 100, 130, 2), (1, 256, 33, 8, 1), (2, 512, 40, 48, 10),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,s,c,f,k", _BAND_SHAPES)
+def test_band_kernels_match_plain(cuda, dtype, g, s, c, f, k):
+    """All four wrappers over 128 rows against their plain versions,
+    forward and backward, one launch counted a call; a second call gives
+    the same bits (no atomics, fixed slices)."""
+    l, x, w, b = _inputs(g, s, c, f, k, dtype, cuda)
+    cot = _normal((g, s, f), 5, dtype, cuda)
+    dt = _normal((k, g, s, c), 6, dtype, cuda)
+    calls = {
+        "laguerre_dense_fused": (lambda: lg.laguerre_dense_fused(l, x, w, b),
+                                 lambda: lg.laguerre_dense_fused_plain(l, x, w, b)),
+        "laguerre_dense_fused_bwd": (lambda: lg.laguerre_dense_fused_bwd(l, x, w, cot),
+                                     lambda: lg.laguerre_dense_fused_bwd_plain(l, x, w, cot)),
+        "laguerre_terms_dense": (lambda: lg.laguerre_terms_dense(l, x, k),
+                                 lambda: lg.laguerre_terms_dense_plain(l, x, k)),
+        "laguerre_terms_dense_bwd": (lambda: lg.laguerre_terms_dense_bwd(l, dt, k),
+                                     lambda: lg.laguerre_terms_dense_bwd_plain(l, dt, k)),
+    }
+    for name, (kernel, plain) in calls.items():
+        before = lg.LAUNCHES[name]
+        got = kernel()
+        torch.cuda.synchronize()
+        assert lg.LAUNCHES[name] == before + 1, name
+        got = got if isinstance(got, tuple) else (got,)
+        ref = plain()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for a, r in zip(got, ref):
+            assert a.shape == r.shape, name
+            _check(a, r, dtype)
+        again = kernel()
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(a, r) for a, r in zip(got, again)), name
+
+
 @pytest.mark.parametrize("route", ["fused", "terms"])
-def test_kernel_routes_refuse_blocks_over_128_rows(cuda, route):
-    """On the card either kernel route raises on S = 256 blocks before any
-    launch (the kernels hold L in shared memory); S = 128 blocks launch."""
+@pytest.mark.parametrize("s", [129, 200, 256, 512])
+def test_kernel_routes_take_blocks_over_128_rows(cuda, route, s):
+    """Either kernel route launches its kernels on blocks over 128 rows and
+    matches the plain route, forward and autograd backward (dx, dW, db)."""
     prev = conv.use_fused_dense(), conv.use_terms_kernel()
     try:
-        conv.use_fused_dense(route == "fused")
-        conv.use_terms_kernel(route == "terms")
-        l, x, w, b = _inputs(2, 256, 24, 16, 4, torch.float32, cuda)
-        lg.reset_launch_counts()
-        with pytest.raises(ValueError, match="block size"):
-            conv.laguerre_matvec(x, l, w, b)
-        assert all(n == 0 for n in lg.LAUNCHES.values()), lg.LAUNCHES
-        conv.laguerre_matvec(x[:, :128], l[:, :128, :128].contiguous(), w, b)
-        assert sum(lg.LAUNCHES.values()) == 1
+        outs = {}
+        for name in (route, "plain"):
+            conv.use_fused_dense(name == "fused")
+            conv.use_terms_kernel(name == "terms")
+            l, x, w, b = _inputs(2, s, 24, 16, 4, torch.float32, cuda)
+            x, w, b = (t.clone().requires_grad_() for t in (x, w, b))
+            lg.reset_launch_counts()
+            out = conv.laguerre_matvec(x, l, w, b)
+            out.backward(_normal(out.shape, 7, torch.float32, cuda))
+            torch.cuda.synchronize()
+            launched = sum(lg.LAUNCHES.values())
+            assert launched == (2 if name != "plain" else 0), lg.LAUNCHES
+            outs[name] = (out.detach(), x.grad, w.grad, b.grad)
+        for a, r in zip(outs[route], outs["plain"]):
+            _check(a, r, torch.float32)
     finally:
         conv.use_fused_dense(prev[0])
         conv.use_terms_kernel(prev[1])

@@ -23,7 +23,7 @@ _PROBE = textwrap.dedent("""
     print("MODULES", len(names), "BAD", bad)
     want = ("train.losses", "train.metrics", "train.optim", "train.trainer",
             "profile_training", "profile_serving", "complex.batch", "ops.boundary",
-            "ops.spmm", "ops.ell_spmm")
+            "ops.spmm", "ops.ell_spmm", "complex.coarsen", "nn.pool")
     print("WALKED", all(pkg.__name__ + "." + w in names for w in want))
 
     import torch
@@ -35,7 +35,10 @@ _PROBE = textwrap.dedent("""
                                 mlp_channels=(8,), device="cpu")
     for call in (lambda: Predictor(model), lambda: presets.zinc_pyr(),
                  lambda: Trainer(model, TrainerConfig()),
-                 lambda: presets.pascalvoc_node(), lambda: presets.pcqm_link()):
+                 lambda: presets.pascalvoc_node(), lambda: presets.pcqm_link(),
+                 lambda: presets.zinc_attpool(), lambda: presets.zinc_poolint3_pyr(),
+                 lambda: presets.pepfunc_pyr(), lambda: presets.pepfunc_attpool(),
+                 lambda: presets.cifar10sp_pyr(), lambda: presets.cifar10sp_attpool()):
         try:
             call()
         except RuntimeError as err:
@@ -52,10 +55,10 @@ def test_port_imports_no_jax_and_refuses_silent_cpu():
     assert res.returncode == 0, res.stderr
     lines = res.stdout.splitlines()
     modules = [ln for ln in lines if ln.startswith("MODULES")][0].split()
-    assert int(modules[1]) >= 31
+    assert int(modules[1]) >= 33
     assert modules[2:] == ["BAD", "[]"], res.stdout
     assert "WALKED True" in lines, res.stdout
-    assert lines.count("RAISED True") == 5, res.stdout
+    assert lines.count("RAISED True") == 11, res.stdout
 
 
 def test_sources_name_no_jax():
@@ -75,7 +78,8 @@ def test_every_cuda_source_is_built_and_ships_alone():
 
     csrc = ROOT / "hl_hgat_tpu_torch" / "csrc"
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(cuda_build.SOURCES)
-    assert {"laguerre_dense", "laguerre_dense_bwd", "ell_spmm"} <= set(cuda_build.SOURCES)
+    assert {"laguerre_dense", "laguerre_dense_bwd", "laguerre_band",
+            "ell_spmm"} <= set(cuda_build.SOURCES)
     own = {p.name for p in csrc.glob("*.cuh")}
     allowed = {"cuda_bf16.h", "cuda_runtime.h", "cstddef"} | own
     for path in list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")):
