@@ -88,7 +88,25 @@
    conv gradients); forward and step ms with the device's busy share from
    a ``torch.profiler`` window.  Then one eval forward of the flat layout
    on the ELL kernel (36 launches), held against the packed predictions.
-9. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
+9. The large-graph layout and the TSP edge-level model at the full width
+   of the TSP-500 configuration (``tsp_pyr``: channels (2,2,2), filters
+   (64,128,256), K=2, MLP (256,)): TSP_GRAPHS k-NN graphs of 50-500 nodes
+   (``data/synthetic.tsp_like_samples``, seed 0) packed at (128, 512) rows
+   into spanning blocks (a ``[tsp]`` line: blocks, spill nnz, bands, real
+   nodes and edges, host build and collate times).  In each dtype: one
+   warm-up and TSP_STEPS timed ``edge_binary`` steps, TSP_STEPS with
+   ``tsp_aug_prob=0.75``, one ``evaluate`` (finite losses, F1 in [0, 1],
+   non-zero conv gradients, no hand-kernel launch: the banded operators take
+   the plain recurrence, as in the JAX package); the banded eval forward
+   against the flat layout's (ELL kernel) edge by edge (float32 rtol 1e-3 /
+   atol 1e-4) and one train-mode step's gradients (``compare_train_grads``);
+   the augmentation mask (the same twice for one seed, tour edges kept,
+   logits 0 where dropped); then TSP_SERVE_GRAPHS graphs of 50-80 nodes
+   served through ``Predictor(edge_level=True)`` (fused kernel on 128-row L0
+   and 512-row L1 blocks, against the plain route; float32 against the CPU
+   on 8 graphs).  Step, forward and Predictor times with the busy share and
+   the top device operations from a ``torch.profiler`` window.
+10. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
    over every phase's main-path runs) and, last, the ``{"ok": true, ...}``
    line.
 
@@ -107,6 +125,7 @@ the phases it takes.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -165,6 +184,12 @@ NODE_GRAPHS, LINK_GRAPHS, LINK_STEPS = 32, 256, 5
 # the pooled path: cifar10sp_attpool on the JAX CLI's synthetic cifar10sp
 # graphs, packed at edge_cap 256; zinc_pyr's training steps at edge_cap 256
 POOLED_GRAPHS, POOLED_STEPS, ZINC_WIDE_STEPS = 128, 4, 3
+# the TSP-500 configuration (benchmarks/tsp_bench.py:79-80,131-134): k-NN
+# graphs of 50-500 nodes packed at (128, 512) rows, the "banded 32" batch
+TSP_GRAPHS, TSP_SERVE_GRAPHS, TSP_STEPS = 32, 64, 3
+TSP_CAPS = dict(node_cap=128, edge_cap=512)
+TSP_MODEL = dict(channels=(2, 2, 2), filters=(64, 128, 256), k=2, dropout=0.0,
+                 mlp_channels=(256,))
 
 
 def fail(msg: str) -> None:
@@ -1061,10 +1086,11 @@ def zinc_wide_phase(torch, np, lg, model32, samples, served, card):
     return total
 
 
-def busy_share(torch, fn, calls: int) -> tuple[float, float]:
-    """(device kernel ms, busy share) over ``calls`` calls of ``fn`` traced
-    by ``torch.profiler``: the kernels' summed device time over the
-    window's wall time."""
+def device_profile(torch, fn, calls: int, top: int = 0):
+    """(device kernel ms per call, busy share, the ``top`` device operations
+    as (name, ms per call, launches per call)) over ``calls`` calls of
+    ``fn`` traced by ``torch.profiler``: busy share is the kernels' summed
+    device time over the window's wall time."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -1074,10 +1100,13 @@ def busy_share(torch, fn, calls: int) -> tuple[float, float]:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-                 for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    return dev_us / 1e3 / calls, dev_us / 1e6 / wall
+    ops = [(e.key, getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0), e.count)
+           for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(us for _, us, _ in ops)
+    ops.sort(key=lambda o: -o[1])
+    return (dev_us / 1e3 / calls, dev_us / 1e6 / wall,
+            [(name, us / 1e3 / calls, n / calls) for name, us, n in ops[:top]])
 
 
 def pooled_phase(torch, np, lg, ell, model32, samples, card):
@@ -1122,7 +1151,7 @@ def pooled_phase(torch, np, lg, ell, model32, samples, card):
             fail(f"cifar10sp_attpool {dtype}: fused route vs plain route max|err| {err:.3e} "
                  f"> {TOL[dtype]}·{scale:.3e}")
         fwd_ms = median_ms(torch, lambda: pred.forward(batch), 10)
-        fwd_dev, fwd_busy = busy_share(torch, lambda: pred.forward(batch), 3)
+        fwd_dev, fwd_busy, _ = device_profile(torch, lambda: pred.forward(batch), 3)
         print(f"[pooled] cifar10sp_attpool {dtype}: {batch.x_t.shape[0]} blocks, L1 "
               f"{[lvl.l1.shape[1] for lvl in batch.levels]} rows by level; forward "
               f"{fwd_ms:.3f} ms (device {fwd_dev:.3f} ms, busy {100 * fwd_busy:.1f}%), "
@@ -1181,7 +1210,7 @@ def pooled_phase(torch, np, lg, ell, model32, samples, card):
         values = [float(v) for v in losses]
         if not all(np.isfinite(values)):
             fail(f"cifar10sp_attpool {dtype}: non-finite loss {values}")
-        step_dev, step_busy = busy_share(torch, lambda: trainer.train_step(batch), 2)
+        step_dev, step_busy, _ = device_profile(torch, lambda: trainer.train_step(batch), 2)
         print(f"[pooled] cifar10sp_attpool {dtype}: step {step_ms:.3f} ms (device {step_dev:.3f} "
               f"ms, busy {100 * step_busy:.1f}%), {POOLED_GRAPHS / step_ms * 1e3:.1f} graphs/s; "
               f"loss {values[0]:.5f} -> {values[-1]:.5f} over {POOLED_STEPS} steps; launches/step "
@@ -1206,6 +1235,217 @@ def pooled_phase(torch, np, lg, ell, model32, samples, card):
     if not err <= TOL["float32"] * scale:
         fail("cifar10sp_attpool: the flat and the packed layout disagree")
     return total, ell_counts
+
+
+def tsp_phase(torch, np, lg, ell, card):
+    """Phase 9: the large-graph layout and the TSP edge-level model at the
+    full width of the TSP-500 configuration, in both dtypes.  Trains
+    TSP_GRAPHS graphs packed into spanning blocks (banded: blocks, bands
+    and spills; the plain recurrence, no hand kernel, as in the JAX
+    package), with and without the augmentation, and evaluates them; holds
+    the banded forward and one step's gradients against the flat layout
+    (ELL kernel); checks the augmentation's mask; serves TSP_SERVE_GRAPHS
+    small graphs edge by edge through ``Predictor(edge_level=True)`` (fused
+    kernel on 128-row L0 and 512-row L1 blocks) against the plain route and
+    the CPU.  Returns (Laguerre launches, ELL launches) of the phase."""
+    from hl_hgat_tpu_torch.complex.augment import apply_tsp_keep, tsp_keep
+    from hl_hgat_tpu_torch.complex.build import collate
+    from hl_hgat_tpu_torch.complex.dense import BlockDiagMatrix, collate_dense_packed
+    from hl_hgat_tpu_torch.data.synthetic import tsp_like_samples
+    from hl_hgat_tpu_torch.models import presets
+    from hl_hgat_tpu_torch.nn import conv
+    from hl_hgat_tpu_torch.serving import Predictor
+    from hl_hgat_tpu_torch.train import Trainer, TrainerConfig, focal_loss
+
+    t0 = time.perf_counter()
+    samples = tsp_like_samples(TSP_GRAPHS, seed=0)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = collate_dense_packed(samples, y_per_edge=True, **TSP_CAPS)
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    flat_host = collate(samples, y_per_edge=True, with_ell=True)
+    flat_ms = (time.perf_counter() - t0) * 1e3
+    lvl = host.level0
+    if not (isinstance(lvl.l0, BlockDiagMatrix) and isinstance(lvl.l1, BlockDiagMatrix)):
+        fail("the TSP-500 batch packed without spanning blocks")
+
+    def nnz(coo):
+        return 0 if coo is None else int((coo.vals != 0).sum())
+
+    bands = [name for name, b in (("L0 up", lvl.l0.band_up), ("L0 down", lvl.l0.band_dn),
+                                  ("L1 up", lvl.l1.band_up), ("L1 down", lvl.l1.band_dn),
+                                  ("B1 up", lvl.b1_bu), ("B1 down", lvl.b1_bd)) if b is not None]
+    real_nodes, real_edges = int(lvl.node_mask.sum()), int(lvl.edge_mask.sum())
+    print(f"[tsp] {TSP_GRAPHS} graphs ({min(s.num_nodes for s in samples)}-"
+          f"{max(s.num_nodes for s in samples)} nodes, up to "
+          f"{max(s.num_edges for s in samples)} edges), {real_nodes} real nodes, {real_edges} "
+          f"real edges; {host.x_t.shape[0]} blocks of ({host.x_t.shape[1]}, "
+          f"{host.x_s.shape[1]}) rows; spill nnz L0 {nnz(lvl.l0.spill)}, L1 {nnz(lvl.l1.spill)}, "
+          f"B1 {nnz(lvl.b1_sp)}; bands: {', '.join(bands)}; host: build {build_s:.2f} s, "
+          f"packed collate {collate_ms:.1f} ms, flat collate (ELL) {flat_ms:.1f} ms", flush=True)
+
+    cfg = TrainerConfig(task="edge_binary", lr=1e-3, weight_decay=1e-3, metric_mode="max")
+    total = {name: 0 for name in lg.LAUNCHES}
+    ell_total = {name: 0 for name in ell.LAUNCHES}
+    none = {name: 0 for name in lg.LAUNCHES}
+    batch, flat = host.to("cuda"), flat_host.to("cuda")
+    gid = lvl.s_gid.reshape(-1)
+    real = lvl.edge_mask.reshape(-1) > 0
+    order = np.concatenate([np.nonzero((gid == g) & real)[0] for g in range(TSP_GRAPHS)])
+    flat_real = flat_host.level0.edge_mask > 0  # graphs in order, then padding
+    serve = tsp_like_samples(TSP_SERVE_GRAPHS, seed=1, min_nodes=50, max_nodes=80)
+
+    def grads_of(model):
+        return {n: (torch.zeros_like(p) if p.grad is None else p.grad.detach().clone())
+                for n, p in model.named_parameters()}
+
+    for dtype in ("float32", "bfloat16"):
+        model, _ = presets.tsp_pyr(**TSP_MODEL, compute_dtype=dtype, seed=0)
+        convs = [n for n, m in model.named_modules() if isinstance(m, conv.LaguerreConv)]
+        per_flat = sum(int(m.weight.shape[0]) - 1 for m in model.modules()
+                       if isinstance(m, conv.LaguerreConv))
+        zero_grad = {n for n, _ in model.named_parameters()
+                     if n.endswith(".bias") and not n.endswith("bn.bias") and n != "out.bias"}
+
+        # banded training: a warm-up step, TSP_STEPS timed, TSP_STEPS augmented
+        trainer = Trainer(copy.deepcopy(model), cfg)
+        lg.reset_launch_counts()
+        ell.reset_launch_counts()
+        losses = [trainer.train_step(batch)]
+        torch.cuda.synchronize()
+        for name, m in trainer.model.named_modules():
+            if isinstance(m, conv.LaguerreConv) and not bool((m.weight.grad != 0).any()):
+                fail(f"tsp {dtype}: {name}.weight has no gradient")
+        t0 = time.perf_counter()
+        for _ in range(TSP_STEPS):
+            losses.append(trainer.train_step(batch))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / TSP_STEPS
+        aug = Trainer(copy.deepcopy(model), dataclasses.replace(cfg, tsp_aug_prob=0.75))
+        aug_losses = [aug.train_step(batch) for _ in range(TSP_STEPS)]
+        val_loss, f1 = trainer.evaluate([batch])
+        if dict(lg.LAUNCHES) != none or sum(ell.LAUNCHES.values()):
+            fail(f"tsp {dtype}: the banded layout launched {dict(lg.LAUNCHES)} "
+                 f"{dict(ell.LAUNCHES)}; it takes the plain recurrence")
+        values = [float(v) for v in losses + aug_losses] + [val_loss]
+        if not all(np.isfinite(values)) or not 0.0 <= f1 <= 1.0:
+            fail(f"tsp {dtype}: losses {values}, F1 {f1}")
+        fwd_ms = median_ms(torch, lambda: trainer.eval_step(batch), 10)
+        step_dev, step_busy, step_top = device_profile(
+            torch, lambda: trainer.train_step(batch), 2, top=6)
+        fwd_dev, fwd_busy, fwd_top = device_profile(
+            torch, lambda: trainer.eval_step(batch), 3, top=6)
+        print(f"[tsp] {dtype} banded: step {step_ms:.3f} ms (mean of {TSP_STEPS} after one "
+              f"warm-up; device {step_dev:.3f} ms, busy {100 * step_busy:.1f}%), "
+              f"{real_edges / step_ms * 1e3:.4e} real edges/s; eval forward {fwd_ms:.3f} ms "
+              f"(median of 10; device {fwd_dev:.3f} ms, busy {100 * fwd_busy:.1f}%); loss "
+              f"{values[0]:.3f} -> {values[TSP_STEPS]:.3f}, augmented {values[TSP_STEPS + 1]:.3f}"
+              f" -> {values[2 * TSP_STEPS]:.3f}, eval loss {val_loss:.3f}, F1 {f1:.4f}; "
+              f"hand launches 0 [{card}]", flush=True)
+        for what, top in (("step", step_top), ("forward", fwd_top)):
+            print(f"[tsp] {dtype} banded {what}, top device operations: " + "; ".join(
+                f"{name[:60]} {ms:.3f} ms x{n:g}" for name, ms, n in top), flush=True)
+
+        # banded against flat (ELL kernel): eval forward per edge, one step's gradients
+        model.eval()
+        with torch.inference_mode():
+            out_b = model(batch).float().reshape(-1).cpu().numpy()[order]
+            ell.reset_launch_counts()
+            out_f = model(flat).float().reshape(-1).cpu().numpy()[flat_real]
+        if dict(ell.LAUNCHES) != {"spmm_ell": per_flat, "spmm_ell_bwd": 0}:
+            fail(f"tsp {dtype}: the flat forward launched {dict(ell.LAUNCHES)}, want {per_flat}")
+        for name in ell_total:
+            ell_total[name] += ell.LAUNCHES[name]
+        err, scale = float(np.abs(out_b - out_f).max()), float(np.abs(out_f).max())
+        print(f"[tsp] {dtype} banded vs flat (ELL) eval forward, {real_edges} edges: max|err| "
+              f"{err:.3e} (max|ref| {scale:.3e}); ELL launches {per_flat}", flush=True)
+        if out_b.shape != out_f.shape or (
+                not np.allclose(out_b, out_f, rtol=1e-3, atol=1e-4) if dtype == "float32"
+                else not err <= FLAT_TOL[dtype] * scale):
+            fail(f"tsp {dtype}: the banded and the flat layout disagree")
+        grads = {}
+        for name, data in (("banded", batch), ("flat", flat)):
+            m = copy.deepcopy(model).train()
+            out = m(data)
+            loss = focal_loss(out.reshape(-1), data.y.reshape(-1),
+                              data.level0.edge_mask.reshape(-1))
+            loss.backward()
+            grads[name] = (float(loss.detach()), grads_of(m))
+        for name in convs:
+            if not bool((grads["banded"][1][f"{name}.weight"] != 0).any()):
+                fail(f"tsp {dtype}: {name}.weight has no gradient on the banded layout")
+        loss_b, loss_f = grads["banded"][0], grads["flat"][0]
+        print(f"[tsp] {dtype} train-mode loss banded {loss_b:.5f}, flat {loss_f:.5f}", flush=True)
+        if not abs(loss_b - loss_f) <= FLAT_TOL[dtype] * abs(loss_f):
+            fail(f"tsp {dtype}: train-mode loss differs between the layouts")
+        compare_train_grads(f"tsp {dtype} banded vs flat layout, one step", dtype,
+                            grads["banded"][1], grads["flat"][1], zero_grad)
+
+        # the augmentation: one generator seed, one mask; tour edges kept; logits 0 where dropped
+        keeps = [tsp_keep(batch, apply_prob=0.75,
+                          generator=torch.Generator(device="cuda").manual_seed(7))
+                 for _ in range(2)]
+        keep = keeps[0]
+        y = batch.y.reshape(-1)
+        if not torch.equal(keeps[0], keeps[1]) or not bool((keep[y > 0] == 1).all()):
+            fail(f"tsp {dtype}: the augmentation mask is not reproducible or drops a tour edge")
+        with torch.inference_mode():
+            out = model(apply_tsp_keep(batch, keep)).reshape(-1)
+        dropped = int(((keep == 0) & batch.level0.edge_mask.reshape(-1).bool()).sum())
+        if not dropped or not bool((out[keep == 0] == 0).all()):
+            fail(f"tsp {dtype}: {dropped} dropped edges, logits not 0 where dropped")
+        print(f"[tsp] {dtype} augmentation: {dropped} of {real_edges} edges dropped, the same "
+              f"mask twice, tour edges kept, their logits 0", flush=True)
+
+        # edge-level serving on blocks that fit: fused kernel vs plain route vs CPU
+        pred = Predictor(model, batch_size=TSP_SERVE_GRAPHS, edge_level=True, **TSP_CAPS)
+        sbatch = pred.collate(serve)
+        lg.reset_launch_counts()
+        outs = pred(serve)
+        counts = dict(lg.LAUNCHES)
+        n_convs = len(convs)
+        n_l0 = sum(1 for n in convs if n.startswith("backbone.init_node") or ".node." in n)
+        if counts != {**none, "laguerre_dense_fused": n_convs}:
+            fail(f"tsp {dtype} serving launched {counts}, expected {n_convs} fused")
+        for name in total:
+            total[name] += counts[name]
+        if len(outs) != TSP_SERVE_GRAPHS or any(
+                o.shape != (s.num_edges, 1) or not np.isfinite(o).all()
+                for o, s in zip(outs, serve)):
+            fail(f"tsp {dtype} serving: {len(outs)} arrays or wrong shapes")
+        conv.use_fused_dense(False)
+        plain = pred(serve)
+        conv.use_fused_dense(True)
+        got, ref = np.concatenate(outs), np.concatenate(plain)
+        err, scale = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+        if not err <= TOL[dtype] * scale:
+            fail(f"tsp {dtype} serving: fused vs plain route max|err| {err:.3e} > "
+                 f"{TOL[dtype]}·{scale:.3e}")
+        s_fwd = median_ms(torch, lambda: pred.forward(sbatch), 10)
+        t0 = time.perf_counter()
+        pred(serve)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        s_dev, s_busy, s_top = device_profile(torch, lambda: pred.forward(sbatch), 3, top=6)
+        print(f"[tsp] {dtype} edge-level serving, {TSP_SERVE_GRAPHS} graphs "
+              f"({sum(s.num_edges for s in serve)} edges) in {sbatch.x_t.shape[0]} blocks of "
+              f"({sbatch.x_t.shape[1]}, {sbatch.x_s.shape[1]}) rows: forward {s_fwd:.3f} ms "
+              f"(device {s_dev:.3f} ms, busy {100 * s_busy:.1f}%), Predictor call {call_ms:.1f} "
+              f"ms; {n_convs} fused launches a forward ({n_l0} on L0 at 128 rows, "
+              f"{n_convs - n_l0} on L1 at 512); fused vs plain route max|err| {err:.3e} (max|ref| "
+              f"{scale:.3e}) [{card}]", flush=True)
+        print(f"[tsp] {dtype} serving forward, top device operations: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms x{n:g}" for name, ms, n in s_top), flush=True)
+        if dtype == "float32":
+            cpu = Predictor(copy.deepcopy(model).to("cpu"), batch_size=8, edge_level=True,
+                            device="cpu", **TSP_CAPS)(serve[:8])
+            cerr = max(float(np.abs(a - b).max()) for a, b in zip(outs[:8], cpu))
+            cscale = max(float(np.abs(b).max()) for b in cpu)
+            print(f"[tsp] float32 serving, card vs CPU (8 graphs): max|err| {cerr:.3e} "
+                  f"(max|ref| {cscale:.3e})", flush=True)
+            if not cerr <= TOL[dtype] * cscale:
+                fail("tsp: the card's edge-level predictions disagree with the CPU's")
+    return total, ell_total
 
 
 def print_laguerre_summary(summary, names, card):
@@ -1418,7 +1658,16 @@ def main(argv=None) -> int:
     for name, n in pooled_ell.items():
         ell_launches[name] += n
 
-    # ---- 9. result lines --------------------------------------------------
+    # ---- 9. the large-graph layout: TSP-500 trained, served edge by edge ---
+    tsp_launches, tsp_ell = tsp_phase(torch, np, lg, ell, card)
+    if tsp_launches["laguerre_dense_fused"] == 0 or tsp_ell["spmm_ell"] == 0:
+        fail(f"the TSP phase launched {tsp_launches} {tsp_ell}")
+    for name, n in tsp_launches.items():
+        launches[name] += n
+    for name, n in tsp_ell.items():
+        ell_launches[name] += n
+
+    # ---- 10. result lines -------------------------------------------------
     replaces = {
         "laguerre_dense_fused": "hl_hgat_tpu/ops/pallas_hodge.py:93",
         "laguerre_terms_dense": "hl_hgat_tpu/ops/pallas_hodge.py:285",

@@ -10,8 +10,9 @@ concatenates into the flat (COO/ELL) layout of ``complex/batch.py``, every
 coarsened level of a pooled sample (``complex/coarsen.py``) with its pooling
 map.
 
-Graphs above ``SPARSE_BUILD_THRESHOLD`` edges need the sparse-direct
-Laplacian build, which this package does not have yet: they raise.
+Graphs above ``SPARSE_BUILD_THRESHOLD`` edges take the sparse-direct
+Laplacian build (``hodge_laplacians_coo``, the JAX module's NumPy branch),
+which never forms an [E, E] matrix.
 """
 
 from __future__ import annotations
@@ -159,21 +160,86 @@ def eig_pe(lap: np.ndarray, k: int = 9) -> np.ndarray:
     return pe.astype(np.float32)
 
 
-# Above this edge count the JAX package switches to a sparse-direct
-# Laplacian build that this package has not ported.
+def hodge_laplacians_coo(
+    src: np.ndarray, dst: np.ndarray, num_nodes: int
+) -> tuple[tuple, tuple, float]:
+    """Sparse-direct L0/L1 construction that never densifies: the NumPy
+    branch of ``hl_hgat_tpu/complex/build.py::hodge_laplacians_coo``.
+
+    nnz(L1) is about Σ deg² (edge pairs sharing a vertex) instead of E²;
+    λmax comes from sparse Lanczos.  Same math as `hodge_laplacians`:
+
+      L0[i, i] = deg(i);  L0[i, j] = −1 per edge {i, j}
+      L1[e, e] = 2;       L1[e, f] = B1[v, e]·B1[v, f] for the shared v,
+                          with B1[v, e] = −1 if v == src(e) else +1.
+
+    Returns ((rows, cols, vals) of L0 and of L1, each sorted by row then
+    column, exact zeros dropped, values rescaled by 2/λmax; λmax).
+    """
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    e = src.shape[0]
+    deg = np.bincount(src, minlength=num_nodes) + np.bincount(dst, minlength=num_nodes)
+    l0_rows = np.concatenate([np.arange(num_nodes), src, dst])
+    l0_cols = np.concatenate([np.arange(num_nodes), dst, src])
+    l0_vals = np.concatenate([deg.astype(np.float64), -np.ones(2 * e)])
+    l0_mat = sp.coo_matrix((l0_vals, (l0_rows, l0_cols)), shape=(num_nodes, num_nodes)).tocsr()
+    if num_nodes <= 2:
+        max_eig = float(np.linalg.eigvalsh(l0_mat.toarray()).max())
+    else:
+        max_eig = float(spla.eigsh(l0_mat, k=1, which="LA", return_eigenvectors=False,
+                                   tol=1e-9)[0])
+    if max_eig <= 0:
+        max_eig = 1.0
+    scale = 2.0 / max_eig
+    # L1: every ordered pair of edges within each node's incidence group
+    inc_node = np.concatenate([src, dst])
+    inc_edge = np.concatenate([np.arange(e), np.arange(e)])
+    inc_sign = np.concatenate([-np.ones(e), np.ones(e)])
+    order = np.argsort(inc_node, kind="stable")
+    inc_node, inc_edge, inc_sign = inc_node[order], inc_edge[order], inc_sign[order]
+    starts = np.searchsorted(inc_node, np.arange(num_nodes + 1))
+    counts = (starts[1:] - starts[:-1]).astype(np.int64)
+    sq = counts * counts
+    grp = np.repeat(np.arange(num_nodes), sq)
+    pos = np.arange(int(sq.sum())) - (np.cumsum(sq) - sq)[grp]
+    c_g = np.maximum(counts[grp], 1)
+    g_start = starts[:-1][grp]
+    idx_row = g_start + pos // c_g
+    idx_col = g_start + pos % c_g
+    # coalesce: each edge's diagonal appears once per endpoint
+    key = inc_edge[idx_row].astype(np.int64) * e + inc_edge[idx_col]
+    uniq, inv = np.unique(key, return_inverse=True)
+    summed = np.bincount(inv, weights=inc_sign[idx_row] * inc_sign[idx_col],
+                         minlength=uniq.size)
+    keep = summed != 0
+    uniq, summed = uniq[keep], summed[keep]
+    l0_mat.eliminate_zeros()
+    l0_coo = l0_mat.tocoo()
+    return (
+        (l0_coo.row.astype(np.int32), l0_coo.col.astype(np.int32),
+         (l0_coo.data * scale).astype(np.float32)),
+        ((uniq // e).astype(np.int32), (uniq % e).astype(np.int32),
+         (summed * scale).astype(np.float32)),
+        max_eig,
+    )
+
+
+# Above this edge count the O(E²) dense L1 is replaced by the sparse-direct
+# construction (the same values up to float rounding and COO order).
 SPARSE_BUILD_THRESHOLD = 1024
 
 
 def build_structure(src: np.ndarray, dst: np.ndarray, num_nodes: int) -> GraphStructure:
-    """Boundary + Laplacians for one complex level (dense build only)."""
+    """Boundary + Laplacians for one complex level: dense for small graphs,
+    sparse-direct beyond ``SPARSE_BUILD_THRESHOLD`` edges."""
     if src.shape[0] > SPARSE_BUILD_THRESHOLD:
-        raise ValueError(
-            f"{src.shape[0]} edges exceed the dense build's limit of "
-            f"{SPARSE_BUILD_THRESHOLD}; the sparse-direct build is not ported"
-        )
-    l0, l1, max_eig = hodge_laplacians(src, dst, num_nodes)
-    l0r, l0c, l0v = dense_to_coo(l0)
-    l1r, l1c, l1v = dense_to_coo(l1)
+        (l0r, l0c, l0v), (l1r, l1c, l1v), max_eig = hodge_laplacians_coo(src, dst, num_nodes)
+    else:
+        l0, l1, max_eig = hodge_laplacians(src, dst, num_nodes)
+        l0r, l0c, l0v = dense_to_coo(l0)
+        l1r, l1c, l1v = dense_to_coo(l1)
     return GraphStructure(
         src=src.astype(np.int32),
         dst=dst.astype(np.int32),
@@ -209,7 +275,6 @@ def build_complex(
     ei, ea = canonical_undirected(edge_index, edge_attr, reduce=reduce)
     src, dst = ei[0], ei[1]
     structure = build_structure(src, dst, num_nodes)
-    l0, l1, _ = hodge_laplacians(src, dst, num_nodes)
     xt = (
         x_t.astype(np.float32)
         if x_t is not None
@@ -222,6 +287,7 @@ def build_complex(
     else:
         xs = np.zeros((src.shape[0], 0), dtype=np.float32)
     if keig > 0:
+        l0, l1, _ = hodge_laplacians(src, dst, num_nodes)
         xt = np.concatenate([xt, eig_pe(l0, k=keig)], axis=1)
         xs = np.concatenate([xs, eig_pe(l1, k=keig)], axis=1)
     yy = np.zeros((1,), dtype=np.float32) if y is None else np.asarray(y)

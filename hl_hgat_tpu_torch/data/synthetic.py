@@ -12,6 +12,7 @@ import numpy as np
 from hl_hgat_tpu_torch.complex.batch import ComplexBatch
 from hl_hgat_tpu_torch.complex.build import GraphSample, build_complex, collate
 from hl_hgat_tpu_torch.complex.coarsen import build_pyramid
+from hl_hgat_tpu_torch.complex.dense import reorder_sample
 
 
 def _random_connected(rng: np.random.Generator, n: int, extra: int):
@@ -162,3 +163,39 @@ def contact_like_samples(
         )
         for _ in range(count)
     ]
+
+
+def knn_graph(rng: np.random.Generator, n: int, k: int = 10):
+    """Canonical undirected k-NN edge list of n uniform points in the unit
+    square, and the points (``benchmarks/tsp_bench.py::knn_graph``)."""
+    pos = rng.random((n, 2)).astype(np.float32)
+    d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    nbr = np.argpartition(d2, k, axis=1)[:, :k]
+    lo = np.minimum(np.repeat(np.arange(n), k), nbr.reshape(-1))
+    hi = np.maximum(np.repeat(np.arange(n), k), nbr.reshape(-1))
+    uniq = np.unique(lo.astype(np.int64) * n + hi)
+    return np.stack([uniq // n, uniq % n]).astype(np.int64), pos
+
+
+def tsp_like_samples(
+    num: int, *, seed: int = 0, min_nodes: int = 50, max_nodes: int = 500
+) -> list[GraphSample]:
+    """TSP-shaped k-NN graphs (k = 10) as ``benchmarks/tsp_bench.py``
+    draws them, in the same order, so one seed gives both the same graphs:
+    n uniform in [min_nodes, max_nodes], x_t = the coordinates, x_s =
+    [a standard-normal weight, aug-mask column of ones], y = 1 on about 15 %
+    of the edges; each sample BFS-reordered (``reorder_sample``) with its
+    per-edge labels."""
+    rng = np.random.default_rng(seed)
+    samples = []
+    for _ in range(num):
+        n = int(rng.integers(min_nodes, max_nodes + 1))
+        ei, pos = knn_graph(rng, n)
+        e = ei.shape[1]
+        x_s = np.concatenate([rng.standard_normal((e, 1), np.float32),
+                              np.ones((e, 1), np.float32)], axis=1)
+        y = (rng.random(e) > 0.85).astype(np.float32)
+        s = build_complex(ei, n, x_t=pos, x_s=x_s, y=y)
+        samples.append(reorder_sample(s, y_per_edge=True))
+    return samples

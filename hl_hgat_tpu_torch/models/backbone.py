@@ -1,5 +1,5 @@
-"""The dense-int3 backbone and the graph-, node- and link-level models
-(``hl_hgat_tpu/models/backbone.py``, without remat).
+"""The dense-int3 backbone and the graph-, node-, link- and edge-level
+models (``hl_hgat_tpu/models/backbone.py``, without remat).
 
 Template: init conv pair → per block i of width ``filters[i]``:
 ``channels[i]`` × (MSI → node/edge Laguerre pair with BN/act/dropout →
@@ -13,7 +13,8 @@ block (``stack_concat='block'``) or after every layer (``'layer'``).
 Every model takes either batch layout the package has — a packed
 `DenseBatch` ([G, S, C] features) or a flat `ComplexBatch` ([N, C]
 features) — except the node and link heads, which the JAX package runs on
-the flat layout only.  Module names follow the JAX
+the flat layout only.  The edge-level (TSP) model also takes a packed
+batch whose graphs span blocks (``complex.dense.BlockDiagMatrix``).  Module names follow the JAX
 parameter paths, so ``weights.from_flax_variables`` maps one tree onto the
 other.
 """
@@ -36,6 +37,7 @@ from hl_hgat_tpu_torch.nn.pool import max_normalize, sapool_scatter
 from hl_hgat_tpu_torch.ops.dispatch import (
     abs_b1_s2t,
     apply_edge_mask,
+    b1_t2s,
     apply_node_mask,
     cast_operators,
     masked_mean_edges,
@@ -343,3 +345,37 @@ class HLHGCNNLinkPred(nn.Module):
             z = self.get_submodule(f"mlp{i}_lin")(z)
             z = self.act(self.get_submodule(f"mlp{i}_bn")(z, pair_mask))
         return self.out(z).float()[:, 0] * pair_mask.float()
+
+
+class HLHGCNNTsp(nn.Module):
+    """Edge-level model (reference HL_HGCNN_TSP_dense_int3_pyr,
+    lib/Hodge_ST_Model.py:756-852): the backbone reads x_s without its last
+    column (the augmentation mask); the readout concatenates the final x_s
+    with |B1ᵀ x_t| / 2 (abs after the product, reference :848), then runs
+    the one-term conv block "mlp" (only when ``mlp_channels`` has exactly
+    one entry, as in the JAX module) and the K = 1 conv "out" on L1.  The
+    float32 logits [..., num_classes] are multiplied by the mask column.
+    ``in_t``/``in_s`` are the input widths, the mask column included."""
+
+    def __init__(
+        self, cfg: BackboneConfig, in_t: int, in_s: int, *,
+        mlp_channels: tuple[int, ...] = (), num_classes: int = 1, generator=None,
+    ):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone = DenseInt3Backbone(cfg, in_t, in_s - 1, generator)
+        width = 2 * self.backbone.out_features
+        self.has_mlp = len(mlp_channels) == 1
+        if self.has_mlp:
+            self.mlp = ConvBNAct(width, mlp_channels[0], 1, generator, **cfg.conv_kw())
+            width = mlp_channels[0]
+        self.out = LaguerreConv(width, num_classes, 1, generator=generator)
+
+    def forward(self, batch: Batch) -> torch.Tensor:
+        level = batch.level0
+        x_s, aug_mask = batch.x_s[..., :-1], batch.x_s[..., -1:]
+        x_t, x_s = head_cast(self.cfg, *self.backbone(batch.x_t, x_s, batch))
+        x_s = torch.cat([x_s, b1_t2s(level, x_t).abs() / 2.0], dim=-1)
+        if self.has_mlp:
+            x_s = self.mlp(x_s, level.l1, level.edge_mask)
+        return self.out(x_s, level.l1).float() * aug_mask

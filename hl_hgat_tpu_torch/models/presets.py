@@ -10,6 +10,7 @@ from hl_hgat_tpu_torch.models.backbone import (
     HLHGCNNGraph,
     HLHGCNNLinkPred,
     HLHGCNNNode,
+    HLHGCNNTsp,
 )
 
 
@@ -228,6 +229,24 @@ def pcqm_link(
     return model.to(device), dict(task="link_prediction")
 
 
+def tsp_pyr(
+    channels=(4, 4, 4), filters=(32, 64, 128), k=4, dropout=0.25,
+    mlp_channels=(256,), compute_dtype="float32",
+    *, in_t: int = 2, in_s: int = 2, seed: int = 0, device=None,
+):
+    """Edge-level TSP model (reference lib/Hodge_ST_Model.py:756-852,
+    main_TSP...py): x_t the 2-D coordinates, x_s an edge weight plus the
+    augmentation-mask column (``data/synthetic.tsp_like_samples``)."""
+    cfg = BackboneConfig(
+        channels=tuple(channels), filters=tuple(filters), k=k, init_k=k,
+        act="relu", dropout=dropout, deg_eps=1e-6, compute_dtype=compute_dtype,
+    )
+    device = resolve_device(device)
+    model = HLHGCNNTsp(cfg, in_t, in_s, mlp_channels=tuple(mlp_channels),
+                       generator=torch.Generator().manual_seed(seed))
+    return model.to(device), dict(task="edge_binary")
+
+
 PRESETS = {
     "zinc_pyr": zinc_pyr,
     "zinc_attpool": zinc_attpool,
@@ -239,4 +258,5 @@ PRESETS = {
     "pascalvoc_node": pascalvoc_node,
     "coco_node": coco_node,
     "pcqm_link": pcqm_link,
+    "tsp_pyr": tsp_pyr,
 }

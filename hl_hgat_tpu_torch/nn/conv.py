@@ -19,7 +19,10 @@ packed with ``edge_cap=256``) to kernels that stream L in row bands
 A `CooMatrix` operator (the flat layout) always takes the plain
 recurrence; each of its mat-vecs goes through ``ops.dispatch.lap_matvec``,
 which launches the ELL row-gather kernel when the matrix carries ELL
-arrays.
+arrays.  A `BlockDiagMatrix` (a batch with a graph spanning blocks) takes
+the plain recurrence too, as in the JAX package (``_apply_poly`` sends only
+3-D arrays to its kernels): its mat-vecs are the batched block matmuls,
+the two band matmuls and the spill's gather and ``index_add``.
 
 A kernel wrapper runs its plain version when the tensors lie on the CPU,
 so every route computes the same function on either device.

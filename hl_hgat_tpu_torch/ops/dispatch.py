@@ -11,6 +11,11 @@ Every model op exists in two layouts sharing one call site:
   [G, S, *] tiles; outside the Laguerre kernels these are plain GEMMs, left
   to ``torch.matmul`` as the JAX package left them to XLA.  A matmul
   accumulates in float32 and rounds its result to the activation dtype.
+  Where a graph spans blocks (a `BlockDiagMatrix`, ``b1_bu``/``b1_bd``/
+  ``b1_sp``, the pool spills), the band operators add two batched matmuls
+  over block-shifted operands and the far entries a gather and one
+  ``index_add`` over the flattened rows: the JAX package's XLA route, with
+  no Pallas kernel there either.
 
 Modules call these functions and never branch themselves.
 """
@@ -22,6 +27,7 @@ import dataclasses
 import torch
 
 from hl_hgat_tpu_torch.complex.batch import ComplexLevel, CooMatrix, PoolMap
+from hl_hgat_tpu_torch.complex.dense import BlockDiagMatrix, shift_blocks
 from hl_hgat_tpu_torch.ops import boundary as B
 from hl_hgat_tpu_torch.ops.ell_spmm import spmm_ell_symmetric
 from hl_hgat_tpu_torch.ops.segment import segment_mean, segment_mean_onehot
@@ -33,9 +39,59 @@ def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(b.dtype), b)
 
 
+def _t2s_mm(b1: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
+    # einsum('gse,gsf->gef'): B1ᵀ-style contraction over the row axis
+    return _bmm(b1.transpose(1, 2), x_t)
+
+
+def _band_add(y, bu, bd, x, *, transpose: bool = False, absolute: bool = False):
+    """y plus the nearest-neighbour block coupling of a band pair
+    (`BlockDiagMatrix.band_up`/``band_dn``, ``b1_bu``/``b1_bd``; None
+    where absent), the operators taken in x's dtype (their absolute values
+    with ``absolute``).
+
+    Forward: y[g] += U[g] @ x[g+1] + D[g] @ x[g-1].
+    Transpose: y[g] += U[g-1]ᵀ @ x[g-1] + D[g+1]ᵀ @ x[g+1].
+    """
+    def prep(m):
+        return (m.abs() if absolute else m).to(x.dtype)
+
+    if not transpose:
+        if bu is not None:
+            y = y + _bmm(prep(bu), shift_blocks(x, 1))
+        if bd is not None:
+            y = y + _bmm(prep(bd), shift_blocks(x, -1))
+        return y
+    if bu is not None:
+        y = y + shift_blocks(_t2s_mm(prep(bu), x), -1)
+    if bd is not None:
+        y = y + shift_blocks(_t2s_mm(prep(bd), x), 1)
+    return y
+
+
+def _spill_add(y, spill: CooMatrix | None, x, *, transpose: bool = False,
+               absolute: bool = False):
+    """y + (S, Sᵀ with ``transpose``, |S| with ``absolute``) @ x over the
+    flattened block rows: x and y are [G, S, C] tensors, the spill indexes
+    their G·S rows.  Each entry's product is formed in x's dtype and added
+    into a copy of y's buffer in y's dtype by one ``index_add`` (padding
+    entries are (0, 0, 0.0)); autograd transposes it into the mirror
+    gather and ``index_add``.  On the card the additions land in no fixed
+    order, so bfloat16 sums may round differently from call to call."""
+    if spill is None:
+        return y
+    flat = x.reshape(-1, x.shape[-1])
+    rows, cols = (spill.cols, spill.rows) if transpose else (spill.rows, spill.cols)
+    vals = spill.vals.abs() if absolute else spill.vals
+    contrib = vals.to(flat.dtype)[:, None] * flat.index_select(0, cols)
+    out = y.reshape(-1, y.shape[-1]).index_add(0, rows, contrib.to(y.dtype))
+    return out.reshape(y.shape)
+
+
 def lap_matvec(lap, x: torch.Tensor) -> torch.Tensor:
     """L @ x for a `CooMatrix` (flat x [N, ...], trailing axes flattened
-    for the product) or dense blocks (lap [G, S, S], x [G, S, C])."""
+    for the product), dense blocks (lap [G, S, S], x [G, S, C]) or a
+    `BlockDiagMatrix` (blocks, bands, spill)."""
     if isinstance(lap, CooMatrix):
         flat = x.reshape(x.shape[0], -1)
         if lap.ell_cols is not None and lap.symmetric:
@@ -43,6 +99,9 @@ def lap_matvec(lap, x: torch.Tensor) -> torch.Tensor:
         else:
             out = spmm_coo(lap.rows, lap.cols, lap.vals, flat, lap.shape[0])
         return out.reshape(x.shape)
+    if isinstance(lap, BlockDiagMatrix):
+        out = _band_add(_bmm(lap.blocks, x), lap.band_up, lap.band_dn, x)
+        return _spill_add(out, lap.spill, x)
     return _bmm(lap, x)
 
 
@@ -51,26 +110,25 @@ def abs_b1_s2t(level, x_s: torch.Tensor) -> torch.Tensor:
     if isinstance(level, ComplexLevel):
         return B.boundary_abs_s2t(
             x_s, level.src, level.dst, level.num_nodes, edge_mask=level.edge_mask)
-    return _bmm(level.b1.abs(), x_s)
-
-
-def _t2s_mm(b1: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
-    # einsum('gse,gsf->gef'): B1ᵀ-style contraction over the node axis
-    return _bmm(b1.transpose(1, 2), x_t)
+    out = _band_add(_bmm(level.b1.abs(), x_s), level.b1_bu, level.b1_bd, x_s, absolute=True)
+    return _spill_add(out, level.b1_sp, x_s, absolute=True)
 
 
 def abs_b1_t2s(level, x_t: torch.Tensor) -> torch.Tensor:
     """|B1|ᵀ @ x_t (each edge sums its endpoints)."""
     if isinstance(level, ComplexLevel):
         return B.boundary_abs_t2s(x_t, level.src, level.dst, edge_mask=level.edge_mask)
-    return _t2s_mm(level.b1.abs(), x_t)
+    out = _band_add(_t2s_mm(level.b1.abs(), x_t), level.b1_bu, level.b1_bd, x_t,
+                    transpose=True, absolute=True)
+    return _spill_add(out, level.b1_sp, x_t, transpose=True, absolute=True)
 
 
 def b1_t2s(level, x_t: torch.Tensor) -> torch.Tensor:
     """B1ᵀ @ x_t (signed endpoint difference)."""
     if isinstance(level, ComplexLevel):
         return B.boundary_t2s(x_t, level.src, level.dst, edge_mask=level.edge_mask)
-    return _t2s_mm(level.b1, x_t)
+    out = _band_add(_t2s_mm(level.b1, x_t), level.b1_bu, level.b1_bd, x_t, transpose=True)
+    return _spill_add(out, level.b1_sp, x_t, transpose=True)
 
 
 # The one-hot readout matrix costs 6 B per (row, graph) pair in the JAX
@@ -107,43 +165,54 @@ def pool_to_coarse(pool, fine, coarse, x_t: torch.Tensor, x_s: torch.Tensor):
     """Mean of each coarse node's (edge's) fine members, either layout:
     flat, a weighted segment mean over the `PoolMap` (padding and deleted
     edges weigh 0 or land in the dump slot); dense, the `DensePool`
-    averaging operators as batched GEMMs.  Coarse padding rows are zeroed
-    (the dense branch multiplies by the float32 mask, as the JAX package
-    does)."""
+    averaging operators as batched GEMMs plus their spills.  Coarse padding
+    rows are zeroed (the dense branch multiplies by the float32 mask, as the
+    JAX package does)."""
     if isinstance(pool, PoolMap):
         x_t_c = segment_mean(x_t, pool.pos_t, coarse.num_nodes, weights=fine.node_mask)
         x_s_c = segment_mean(x_s, pool.pos_s, coarse.num_edges, weights=fine.edge_mask)
         return (x_t_c * coarse.node_mask[:, None].to(x_t_c.dtype),
                 x_s_c * coarse.edge_mask[:, None].to(x_s_c.dtype))
-    return (_bmm(pool.p_t, x_t) * coarse.node_mask[..., None],
-            _bmm(pool.p_s, x_s) * coarse.edge_mask[..., None])
+    return (_spill_add(_bmm(pool.p_t, x_t), pool.p_t_sp, x_t) * coarse.node_mask[..., None],
+            _spill_add(_bmm(pool.p_s, x_s), pool.p_s_sp, x_s) * coarse.edge_mask[..., None])
 
 
-def _cast_coo(m: CooMatrix, dtype: torch.dtype) -> CooMatrix:
-    return dataclasses.replace(
-        m, vals=m.vals.to(dtype),
-        ell_vals=None if m.ell_vals is None else m.ell_vals.to(dtype))
+def _cast(m, dtype: torch.dtype):
+    """An operator part in ``dtype``: a tensor, a `CooMatrix`'s COO and ELL
+    values, every part of a `BlockDiagMatrix`; None stays None."""
+    if m is None:
+        return None
+    if isinstance(m, CooMatrix):
+        return dataclasses.replace(
+            m, vals=m.vals.to(dtype),
+            ell_vals=None if m.ell_vals is None else m.ell_vals.to(dtype))
+    if isinstance(m, BlockDiagMatrix):
+        return BlockDiagMatrix(*(_cast(getattr(m, f.name), dtype)
+                                 for f in dataclasses.fields(m)))
+    return m.to(dtype)
 
 
 def cast_operators(batch, dtype: torch.dtype):
-    """Cast the operators (dense L0, L1, B1 and pool matrices; COO and ELL
-    values) to the compute dtype, so bf16 activations meet bf16 operators
-    in every product.  Masks, degrees and segment ids keep their dtypes
-    (they feed divisions and segment ops)."""
+    """Cast the operators (dense L0, L1, B1 and pool matrices with their
+    bands and spills; COO and ELL values) to the compute dtype, so bf16
+    activations meet bf16 operators in every product.  Masks, degrees and
+    segment ids keep their dtypes (they feed divisions and segment ops)."""
     if dtype == torch.float32:
         return batch
 
     def cast_level(lvl):
         if isinstance(lvl, ComplexLevel):
-            return dataclasses.replace(
-                lvl, l0=_cast_coo(lvl.l0, dtype), l1=_cast_coo(lvl.l1, dtype))
+            return dataclasses.replace(lvl, l0=_cast(lvl.l0, dtype), l1=_cast(lvl.l1, dtype))
         return dataclasses.replace(
-            lvl, l0=lvl.l0.to(dtype), l1=lvl.l1.to(dtype), b1=lvl.b1.to(dtype))
+            lvl, **{name: _cast(getattr(lvl, name), dtype)
+                    for name in ("l0", "l1", "b1", "b1_sp", "b1_bu", "b1_bd")})
 
     def cast_pool(p):
         if isinstance(p, PoolMap):
             return p
-        return dataclasses.replace(p, p_t=p.p_t.to(dtype), p_s=p.p_s.to(dtype))
+        return dataclasses.replace(
+            p, **{name: _cast(getattr(p, name), dtype)
+                  for name in ("p_t", "p_s", "p_t_sp", "p_s_sp")})
 
     return batch.replace(levels=tuple(cast_level(lvl) for lvl in batch.levels),
                          pools=tuple(cast_pool(p) for p in batch.pools))

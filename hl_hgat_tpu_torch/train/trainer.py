@@ -12,18 +12,18 @@ decays below a floor (reference main_TSP...py:421-422).  The model and the
 optimizer hold the training state, so the steps take a batch and nothing
 else.
 
-A batch is a packed `DenseBatch` or a flat `ComplexBatch`; the
-``node_classification`` and ``link_prediction`` tasks read the flat batch's
-node mask, pairs and pair mask.
+A batch is a packed `DenseBatch` (graphs over one block span blocks) or a
+flat `ComplexBatch`; the ``node_classification`` and ``link_prediction``
+tasks read the flat batch's node mask, pairs and pair mask, and the
+``edge_binary`` task (the TSP model) per-edge labels on either layout.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the ``edge_binary`` task (its model is not in this package),
-checkpoints (``ckpt_dir``, ``ckpt_every``, ``resume``), the on-device
-augmentations (``pe_flip_*``, ``tsp_aug_prob``) and ``prefetch > 0`` — see
+ignored: checkpoints (``ckpt_dir``, ``ckpt_every``, ``resume``), the
+positional-encoding sign flips (``pe_flip_*``) and ``prefetch > 0`` — see
 ROADMAP.md, Queue 1.  The JAX ``prng_impl`` field selects a JAX random
-generator and has no counterpart; the step draws no random numbers today,
-and ``Trainer.generator`` (seeded with ``config.seed``) is the one source
-for code that will.
+generator and has no counterpart: ``Trainer.generator``, on the trainer's
+device and seeded with ``config.seed``, is the one source of the step's
+random draws (``tsp_aug_prob``); dropout draws from torch's global stream.
 """
 
 from __future__ import annotations
@@ -36,6 +36,8 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from hl_hgat_tpu_torch.complex.augment import tsp_dropout
+from hl_hgat_tpu_torch.complex.batch import ComplexLevel
 from hl_hgat_tpu_torch.complex.dense import Batch
 from hl_hgat_tpu_torch.device import resolve_device
 from hl_hgat_tpu_torch.train import losses as L
@@ -45,8 +47,8 @@ from hl_hgat_tpu_torch.train.optim import ReduceLROnPlateau, adam_l2, set_learni
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    # regression|classification|multilabel|brain|node_classification|
-    # link_prediction here; edge_binary waits for its model
+    # regression|classification|multilabel|edge_binary|brain|
+    # node_classification|link_prediction
     task: str = "regression"
     lr: float = 1e-3
     weight_decay: float = 1e-3
@@ -59,25 +61,23 @@ class TrainerConfig:
     denorm: float = 1.0  # MAE denormalization (ZINC: 2.0109)
     log_path: str | None = None
     seed: int = 0
+    # TSP structure augmentation inside train_step (complex/augment.py),
+    # applied to each graph with this probability; None: off
+    tsp_aug_prob: float | None = None
     # fields of the JAX config whose feature is not ported: any value but
     # the "off" default below raises NotImplementedError
     ckpt_dir: str | None = None
     ckpt_every: int = 0
     pe_flip_node_static: int | None = None
     pe_flip_edge_static: int | None = None
-    tsp_aug_prob: float | None = None
     prefetch: int = 0  # the JAX default is 2; this package has no prefetcher
 
 
-_QUEUED_TASKS = {
-    "edge_binary": "Queue 1 item 9 (large-graph layout, the TSP edge-level model)",
-}
 _QUEUED_OPTIONS = {
     "ckpt_dir": "Queue 1 item 12 (checkpoint and CLI)",
     "ckpt_every": "Queue 1 item 12 (checkpoint and CLI)",
     "pe_flip_node_static": "Queue 1 item 11 (data pipeline and augmentation)",
     "pe_flip_edge_static": "Queue 1 item 11 (data pipeline and augmentation)",
-    "tsp_aug_prob": "Queue 1 item 11 (data pipeline and augmentation)",
     "prefetch": "Queue 1 item 11 (data pipeline and augmentation)",
 }
 
@@ -93,6 +93,10 @@ def _loss_for(task: str):
         return lambda out, batch: L.softmax_ce_loss(out, batch.y.reshape(-1).long())
     if task == "multilabel":
         return lambda out, batch: L.focal_loss(out, batch.y)
+    if task == "edge_binary":
+        # per-edge labels; the flattened mask drops padded edge rows
+        return lambda out, batch: L.focal_loss(
+            out.reshape(-1), batch.y.reshape(-1), batch.level0.edge_mask.reshape(-1))
     if task == "node_classification":
         # per-node CE masked by node validity
         return lambda out, batch: L.softmax_ce_loss(
@@ -102,9 +106,6 @@ def _loss_for(task: str):
         # per-pair BCE over the batch-carried queries
         return lambda out, batch: L.bce_logits_loss(
             out.reshape(-1), batch.y.reshape(-1), batch.pair_mask)
-    if task in _QUEUED_TASKS:
-        raise NotImplementedError(
-            f"task {task!r} waits for ROADMAP.md {_QUEUED_TASKS[task]}")
     raise ValueError(f"unknown task {task!r}")
 
 
@@ -135,7 +136,7 @@ class Trainer:
             factor=config.plateau_factor,
             min_lr=config.min_lr,
         )
-        self.generator = torch.Generator().manual_seed(config.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.best_metric = np.inf if config.metric_mode == "min" else -np.inf
         self.history: list[dict] = []
 
@@ -152,6 +153,9 @@ class Trainer:
         update.  Returns the loss as a 0-d tensor on the device — no
         readback, so the host can run ahead of the card."""
         batch = batch.to(self.device)
+        if self.cfg.tsp_aug_prob is not None:
+            batch = tsp_dropout(batch, apply_prob=self.cfg.tsp_aug_prob,
+                                generator=self.generator)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         _, loss = self._forward_loss(batch)
@@ -188,7 +192,7 @@ class Trainer:
         the device until the loop ends."""
         cfg = self.cfg
         total, n = None, 0
-        preds, ys, accs, masks = [], [], [], []
+        preds, ys, accs, masks, f1s = [], [], [], [], []
         for batch in batches:
             batch = batch.to(self.device)
             out, loss = self.eval_step(batch)
@@ -196,7 +200,12 @@ class Trainer:
             contrib = loss * g
             total = contrib if total is None else total + contrib
             n += g
-            if cfg.task == "classification":
+            if cfg.task == "edge_binary":
+                # per-graph F1 by each edge row's graph id (dump id on padding)
+                lvl = batch.level0
+                seg = lvl.s_id if isinstance(lvl, ComplexLevel) else lvl.s_gid
+                f1s.append(M.per_graph_binary_f1(out, batch.y, seg, g, lvl.edge_mask) * g)
+            elif cfg.task == "classification":
                 accs.append(M.accuracy(out, batch.y.reshape(-1)) * g)
             elif cfg.task == "node_classification":
                 preds.append(out.reshape(-1, out.shape[-1]))
@@ -212,6 +221,8 @@ class Trainer:
         loss_avg = _mean_of(total, n)
         if cfg.task == "classification":
             return loss_avg, _mean_of(sum(accs) if accs else None, n)
+        if cfg.task == "edge_binary":
+            return loss_avg, _mean_of(sum(f1s) if f1s else None, n)
         p, y = torch.cat(preds), torch.cat(ys)
         if cfg.task == "node_classification":
             # macro F1 over valid nodes

@@ -58,12 +58,29 @@ def test_laplacian_helpers_match_jax(rng):
     np.testing.assert_array_equal(build.eig_pe(l0, k=20), jbuild.eig_pe(j0, k=20))
 
 
-def test_dense_build_refuses_large_graphs():
+def test_dense_build_refuses_large_graphs(monkeypatch):
+    """``build_structure`` leaves the dense build to graphs of at most
+    ``SPARSE_BUILD_THRESHOLD`` edges: a 1099-edge graph builds with the dense
+    build made to raise, through the sparse-direct build, and gives the JAX
+    package's entries and λmax."""
     n = 1100
-    src = np.arange(n - 1)
+    src = np.arange(n - 1, dtype=np.int32)
     dst = src + 1
-    with pytest.raises(ValueError, match="sparse-direct"):
-        build.build_structure(src, dst, n)
+    ref = jbuild.build_structure(src, dst, n)
+
+    def refuse(*args):
+        raise AssertionError("dense build taken above the threshold")
+
+    monkeypatch.setattr(build, "hodge_laplacians", refuse)
+    ours = build.build_structure(src, dst, n)
+    for which in ("l0", "l1"):
+        key = lambda st: np.lexsort((getattr(st, f"{which}_cols"),  # noqa: E731
+                                     getattr(st, f"{which}_rows")))
+        for f in ("rows", "cols", "vals"):
+            a = getattr(ours, f"{which}_{f}")[key(ours)]
+            b = getattr(ref, f"{which}_{f}")[key(ref)]
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=f"{which}_{f}")
+    assert ours.max_eig == pytest.approx(ref.max_eig, rel=1e-6)
 
 
 def test_generators_match_jax():
@@ -90,9 +107,9 @@ def test_generators_match_jax():
 @pytest.mark.parametrize("count,cap", [(40, 128), (13, 64)])
 def test_collate_dense_packed_matches_jax(count, cap):
     samples = synthetic.zinc_like_samples(np.random.default_rng(count), count)
-    bins = dense.pack_plan(samples, cap, cap)
-    jbins, spans = jdense.pack_plan(samples, cap, cap, allow_span=False)
-    assert bins == jbins and spans == {}
+    bins, spans = dense.pack_plan(samples, cap, cap)
+    jbins, jspans = jdense.pack_plan(samples, cap, cap, allow_span=False)
+    assert bins == jbins and spans == jspans == {}
     ours = dense.collate_dense_packed(samples, node_cap=cap, edge_cap=cap)
     ref = jdense.collate_dense_packed(samples, node_cap=cap, edge_cap=cap)
     for f in ("x_t", "x_s", "y"):
@@ -105,11 +122,22 @@ def test_collate_dense_packed_matches_jax(count, cap):
 
 
 def test_collate_refuses_graphs_over_the_caps():
+    """A plan without spans refuses a graph over the caps, and so does the
+    serving collate; the default plan spans blocks instead (spill mode,
+    ``tests/test_torch_spill.py``)."""
+    from hl_hgat_tpu_torch.models import presets
+    from hl_hgat_tpu_torch.serving import Predictor
+
     samples = synthetic.zinc_like_samples(np.random.default_rng(5), 8)
     with pytest.raises(ValueError, match="exceeds pack caps"):
-        dense.collate_dense_packed(samples, node_cap=16, edge_cap=16)
+        dense.pack_plan(samples, 16, 16, allow_span=False)
     with pytest.raises(ValueError, match="exceeds pack caps"):
-        dense.pack_plan(samples, 128, 8)
+        dense.pack_plan(samples, 128, 8, allow_span=False)
+    model, _ = presets.zinc_pyr(channels=(1,), filters=(16,), k=2, keig=15, mlp_channels=(8,),
+                                device="cpu")
+    with pytest.raises(ValueError, match="exceeds pack caps"):
+        Predictor(model, node_cap=16, edge_cap=16, device="cpu").collate(samples)
+    assert dense.pack_plan(samples, 16, 16)[1]
 
 
 def test_batch_to_device_gives_tensors():

@@ -118,11 +118,6 @@ def test_flat_tasks_are_accepted(task):
     assert trainer.cfg.task == task
 
 
-def test_edge_binary_still_waits_for_its_model():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        Trainer(torch.nn.Linear(2, 1), TrainerConfig(task="edge_binary"), device="cpu")
-
-
 def test_train_step_gives_unreached_parameters_a_zero_gradient():
     """The link head never reads the last edge conv: its parameters still
     decay under the L2 term, as every leaf does in the JAX trainer."""

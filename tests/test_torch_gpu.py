@@ -523,3 +523,68 @@ def test_ell_inf_in_the_padding_row_gives_nan_as_the_plain_version(cuda, dtype, 
     fin = torch.isfinite(ref)
     _ell_check(out[fin], ref[fin], dtype)
     assert torch.equal(out.view(torch.uint8), ell_spmm.spmm_ell(cols, vals, x).view(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# the large-graph layout: band and spill operators, the TSP augmentation
+# ---------------------------------------------------------------------------
+
+# The spill's index_add sums with atomics on the card: float32 differs from
+# the CPU in summation order only; bfloat16 rounds each spill product and
+# its sum into y in another order, and the band GEMMs accumulate in other
+# tiles (2e-2 of max|ref|, the kernels' bf16 bound).
+_SPILL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture(scope="module")
+def spill_batch():
+    """Three k-NN graphs of 150-300 nodes packed at (32, 128) rows: every
+    operator has both bands and a spill (NumPy arrays)."""
+    from hl_hgat_tpu_torch.complex.dense import collate_dense_packed
+    from hl_hgat_tpu_torch.data.synthetic import tsp_like_samples
+
+    samples = tsp_like_samples(3, seed=1, min_nodes=150, max_nodes=300)
+    return collate_dense_packed(samples, node_cap=32, edge_cap=128, y_per_edge=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["l0", "l1", "abs_b1_s2t", "abs_b1_t2s", "b1_t2s"])
+def test_band_and_spill_ops_match_the_cpu(cuda, spill_batch, dtype, op):
+    """``_band_add`` and ``_spill_add`` inside each operator, forward and
+    autograd, on the card against the same functions on the CPU."""
+    from hl_hgat_tpu_torch.ops import dispatch
+
+    lvl = spill_batch.level0
+    assert lvl.l1.spill is not None and lvl.b1_bu is not None and lvl.b1_bd is not None
+    g, s, e = lvl.b1.shape
+    rows = s if op in ("l0", "abs_b1_t2s", "b1_t2s") else e
+    x = _normal((g, rows, 24), 5, torch.float32, "cpu")
+    cot_rows = e if op in ("abs_b1_t2s", "b1_t2s") else (s if op == "abs_b1_s2t" else rows)
+    cot = _normal((g, cot_rows, 24), 6, torch.float32, "cpu")
+    results = []
+    for device in ("cpu", cuda):
+        batch = dispatch.cast_operators(spill_batch.to(device), dtype)
+        level = batch.level0
+        xd = x.to(device=device, dtype=dtype).detach().clone().requires_grad_()
+        if op in ("l0", "l1"):
+            out = dispatch.lap_matvec(getattr(level, op), xd)
+        else:
+            out = getattr(dispatch, op)(level, xd)
+        out.backward(cot.to(device).to(dtype))
+        results.append((out.detach().float().cpu(), xd.grad.float().cpu()))
+    for got, ref in zip(results[1], results[0]):
+        err = (got - ref).abs().max().item()
+        assert err <= _SPILL_TOL[dtype] * ref.abs().max().item(), err
+
+
+def test_tsp_keep_on_the_card_repeats_for_one_seed(cuda, spill_batch):
+    from hl_hgat_tpu_torch.complex.augment import apply_tsp_keep, tsp_keep
+
+    batch = spill_batch.to(cuda)
+    keeps = [tsp_keep(batch, apply_prob=0.75, generator=torch.Generator(device=cuda).manual_seed(3))
+             for _ in range(2)]
+    assert keeps[0].device.type == "cuda" and torch.equal(keeps[0], keeps[1])
+    keep = keeps[0]
+    assert bool((keep[batch.y.reshape(-1) > 0] == 1).all()) and bool((keep == 0).any())
+    out = apply_tsp_keep(batch, keep)
+    assert torch.equal(out.x_s[..., -1].reshape(-1), keep * batch.level0.edge_mask.reshape(-1))

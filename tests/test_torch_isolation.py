@@ -23,7 +23,8 @@ _PROBE = textwrap.dedent("""
     print("MODULES", len(names), "BAD", bad)
     want = ("train.losses", "train.metrics", "train.optim", "train.trainer",
             "profile_training", "profile_serving", "complex.batch", "ops.boundary",
-            "ops.spmm", "ops.ell_spmm", "complex.coarsen", "nn.pool")
+            "ops.spmm", "ops.ell_spmm", "complex.coarsen", "nn.pool", "complex.augment",
+            "complex.dense", "data.synthetic", "serving")
     print("WALKED", all(pkg.__name__ + "." + w in names for w in want))
 
     import torch
@@ -38,7 +39,9 @@ _PROBE = textwrap.dedent("""
                  lambda: presets.pascalvoc_node(), lambda: presets.pcqm_link(),
                  lambda: presets.zinc_attpool(), lambda: presets.zinc_poolint3_pyr(),
                  lambda: presets.pepfunc_pyr(), lambda: presets.pepfunc_attpool(),
-                 lambda: presets.cifar10sp_pyr(), lambda: presets.cifar10sp_attpool()):
+                 lambda: presets.cifar10sp_pyr(), lambda: presets.cifar10sp_attpool(),
+                 lambda: presets.tsp_pyr(),
+                 lambda: Predictor(model, edge_level=True)):
         try:
             call()
         except RuntimeError as err:
@@ -55,10 +58,10 @@ def test_port_imports_no_jax_and_refuses_silent_cpu():
     assert res.returncode == 0, res.stderr
     lines = res.stdout.splitlines()
     modules = [ln for ln in lines if ln.startswith("MODULES")][0].split()
-    assert int(modules[1]) >= 33
+    assert int(modules[1]) >= 34
     assert modules[2:] == ["BAD", "[]"], res.stdout
     assert "WALKED True" in lines, res.stdout
-    assert lines.count("RAISED True") == 11, res.stdout
+    assert lines.count("RAISED True") == 13, res.stdout
 
 
 def test_sources_name_no_jax():
