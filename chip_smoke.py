@@ -106,7 +106,28 @@
    and 512-row L1 blocks, against the plain route; float32 against the CPU
    on 8 graphs).  Step, forward and Predictor times with the busy share and
    the top device operations from a ``torch.profiler`` window.
-10. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
+10. The brain family on the shared-skeleton layout (one operator a level,
+   [1, S, S], broadcast over the subjects), at the JAX CLI's brain recipe:
+   the Shen-268 pyramid rebuilt from the skeleton of
+   ``tests/golden/reference/model_hgat_attpool.npz`` by the port's MLGC
+   (268/8997 → 139/2676 → 75/800, equal to the fixture's assignments and
+   coarse edges; a ``[brain]`` line with the host build and collate
+   times), BRAIN_BATCH subjects of ``synthetic_fmri_series`` (seed 0, T =
+   128).  Kernels 2 and 4 on the folded level-0 and level-1 L1 shapes
+   ([1, S, 16·C]) against their plain versions, both dtypes, bits equal on
+   relaunch; ``hgat_attpool`` ((2,2,2), (32,64,128), K = 4, two pools, MLP
+   (64,)) served for BRAIN_SUBJECTS subjects through ``BrainPredictor``
+   per dtype (14 terms launches a forward, none fused), against the plain
+   route (float32 TOL, bfloat16 BRAIN_BF16_TOL of max|ref| per output) and,
+   in float32, against the flat layout on the ELL kernel (rtol 2e-4, atol
+   2e-5: the JAX package's shared-vs-flat test); trained one warm-up step
+   (cuDNN's autotuner picks Inception1D's algorithms) and BRAIN_STEPS
+   ``Trainer(task="brain")`` steps per dtype (14 terms + 13 terms-backward
+   launches a step); forward and step ms with the busy share, peak device
+   memory and the top device operations, beside the same forward and steps
+   on the plain route; ``abcd_attpool`` at its preset widths served once
+   per dtype.
+11. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
    over every phase's main-path runs) and, last, the ``{"ok": true, ...}``
    line.
 
@@ -190,6 +211,17 @@ TSP_GRAPHS, TSP_SERVE_GRAPHS, TSP_STEPS = 32, 64, 3
 TSP_CAPS = dict(node_cap=128, edge_cap=512)
 TSP_MODEL = dict(channels=(2, 2, 2), filters=(64, 128, 256), k=2, dropout=0.0,
                  mlp_channels=(256,))
+# the brain workflow at the JAX CLI's recipe (hl_hgat_tpu/run.py:167-170, 411-431):
+# hgat_attpool on the Shen-268 pyramid of the reference fixture, batch 16,
+# T = 128, lr = l2 = 1e-4; abcd_attpool at its preset widths
+BRAIN_FIXTURE = "tests/golden/reference/model_hgat_attpool.npz"
+BRAIN_SUBJECTS, BRAIN_BATCH, BRAIN_T, BRAIN_STEPS = 32, 16, 128, 3
+BRAIN_MODEL = dict(channels=(2, 2, 2), filters=(32, 64, 128), k=4, mlp_channels=(64,),
+                   pool_num=2)
+ABCD_MODEL = dict(channels=(2, 2, 2), filters=(64, 128, 256), k=2, pool_num=1)
+# bfloat16 shared forward, terms kernel against the plain route (share of
+# max|ref| per output; 4.7e-4 measured at most on an H100); float32 keeps TOL
+BRAIN_BF16_TOL = 5e-3
 
 
 def fail(msg: str) -> None:
@@ -1448,6 +1480,317 @@ def tsp_phase(torch, np, lg, ell, card):
     return total, ell_total
 
 
+def brain_conv_cases(torch, conv, model, batch):
+    """``(level, operator name, S, K, folded C, launches per forward)`` of
+    every Laguerre conv with K > 1 of one eval forward on the shared
+    layout, read by hooks on the plain route (which launches no kernel);
+    the folded C is the graph count times the conv's input width."""
+    ids = {}
+    for i, lvl in enumerate(batch.levels):
+        ids[lvl.l0.data_ptr()] = (i, "L0")
+        ids[lvl.l1.data_ptr()] = (i, "L1")
+    counted = {}
+
+    def hook(mod, args, out):
+        x, lap = args[:2]
+        key = (*ids[lap.data_ptr()], lap.shape[1], int(mod.weight.shape[0]),
+               x.shape[0] * x.shape[2])
+        counted[key] = counted.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, conv.LaguerreConv)]
+    prev = conv.use_fused_dense(), conv.use_terms_kernel()
+    conv.use_fused_dense(False)
+    conv.use_terms_kernel(False)
+    try:
+        model.eval()
+        with torch.inference_mode():
+            model(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+        conv.use_fused_dense(prev[0])
+        conv.use_terms_kernel(prev[1])
+    return [(*key, n) for key, n in sorted(counted.items()) if key[3] > 1]
+
+
+def brain_data(np, with_flat: bool = True):
+    """The Shen-268 pyramid rebuilt from the reference fixture's skeleton
+    (checked against the fixture's assignments and coarse edges), the
+    BRAIN_SUBJECTS synthetic series and the first BRAIN_BATCH subjects
+    collated on the host: (levels, pools, series, shared batch, flat batch
+    with ELL arrays or None)."""
+    import pathlib
+
+    from hl_hgat_tpu_torch.complex.build import collate
+    from hl_hgat_tpu_torch.complex.dense import collate_dense_shared
+    from hl_hgat_tpu_torch.data.brain import brain_pyramid
+    from hl_hgat_tpu_torch.data.datasets import brain_sample
+    from hl_hgat_tpu_torch.data.synthetic import synthetic_fmri_series
+
+    with np.load(pathlib.Path(__file__).resolve().parent / BRAIN_FIXTURE) as z:
+        fx = {k: z[k] for k in z.files}
+    t0 = time.perf_counter()
+    levels, pools = brain_pyramid(fx["skeleton_src"], fx["skeleton_dst"], fx["skeleton_val"],
+                                  pool_num=2, seed=10086)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    for k, (pt, ps) in enumerate([("pos_t0", "pos_s0"), ("pos_t1", "pos_s1")]):
+        for ours, key in zip(pools[k], (pt, ps)):
+            if not np.array_equal(np.where(ours < 0, np.inf, ours.astype(np.float64)),
+                                  fx[key].reshape(-1).astype(np.float64)):
+                fail(f"brain pyramid: pool {k} differs from the fixture's {key}")
+    for lvl, key in ((levels[1], "l1_edge_index"), (levels[2], "l2_edge_index")):
+        if not np.array_equal(np.stack([lvl.src, lvl.dst]), fx[key]):
+            fail(f"brain pyramid: {key} differs from the fixture's")
+    sizes = [(lvl.num_nodes, lvl.num_edges) for lvl in levels]
+    if sizes != list(zip(fx["num_node"].tolist(), fx["num_edge"].tolist())):
+        fail(f"brain pyramid sizes {sizes}")
+
+    series, scores = synthetic_fmri_series(np.random.default_rng(0), BRAIN_SUBJECTS,
+                                           sizes[0][0], BRAIN_T)
+    src, dst = levels[0].src, levels[0].dst
+    t0 = time.perf_counter()
+    samples = [brain_sample(series[i], src, dst, levels, pools, y=float(scores[i]))
+               for i in range(BRAIN_BATCH)]
+    host = collate_dense_shared(samples)
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    flat_host = collate(samples, multiple=1, with_ell=True) if with_flat else None
+    flat_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[brain] Shen-268 pyramid (nodes, edges) by level {sizes}, equal to the fixture's; "
+          f"{BRAIN_BATCH} subjects of T = {BRAIN_T}; shared operators L1 "
+          f"{[tuple(lvl.l1.shape) for lvl in host.levels]}; host: pyramid {build_ms:.1f} ms, "
+          f"samples + shared collate {collate_ms:.1f} ms, flat collate (ELL) {flat_ms:.1f} ms",
+          flush=True)
+    return levels, pools, series, host, flat_host
+
+
+def brain_phase(torch, np, lg, ell, card):
+    """Phase 10: the brain family on the shared-skeleton layout at full
+    width.  Rebuilds the Shen-268 pyramid from the reference fixture's
+    skeleton (checked against the fixture's assignments and coarse edges);
+    holds kernels 2 and 4 on the folded level-0 and level-1 L1 shapes
+    against their plain versions in both dtypes; serves BRAIN_SUBJECTS
+    subjects through ``BrainPredictor`` with ``hgat_attpool`` and trains it
+    BRAIN_STEPS steps per dtype (terms launches only, none fused); holds the
+    shared forward against the plain route and the float32 one against the
+    flat layout (ELL kernel); serves ``abcd_attpool`` once per dtype.
+    Returns (Laguerre launches, ELL launches, kernel summary) of the phase."""
+    from hl_hgat_tpu_torch.models import presets
+    from hl_hgat_tpu_torch.nn import conv
+    from hl_hgat_tpu_torch.serving import BrainPredictor
+    from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
+
+    levels, pools, series, host, flat_host = brain_data(np)
+    batch, flat = host.to("cuda"), flat_host.to("cuda")
+    final, fine = levels[2], levels[0]
+    widths = dict(nodes_per_graph=final.num_nodes, edges_per_graph=final.num_edges,
+                  fine_nodes_per_graph=fine.num_nodes, fine_edges_per_graph=fine.num_edges)
+
+    # kernels 2 and 4 on the folded L1 shapes of levels 0 and 1
+    model32, _ = presets.hgat_attpool(**BRAIN_MODEL, **widths, seed=0)
+    cases = brain_conv_cases(torch, conv, model32, batch)
+    per_fwd = sum(n for *_, n in cases)
+    summary = empty_summary(lg)
+    torch.cuda.reset_peak_memory_stats()
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        for lv, op, s, k, c, count in cases:
+            if op != "L1" or lv > 1:
+                continue
+            lb = getattr(batch.levels[lv], "l1").to(td)
+            rng = np.random.default_rng([3, s, k, c])
+            x = torch.from_numpy(rng.standard_normal((1, s, c)).astype(np.float32)).cuda().to(td)
+            dt = torch.from_numpy(rng.standard_normal((k, 1, s, c)).astype(np.float32)
+                                  ).cuda().to(td)
+            check_terms_pair(torch, lg, dtype, f"brain level {lv} L1 folded ", lb, x, dt,
+                             count, summary)
+    print(f"[brain] kernel checks: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    torch.cuda.empty_cache()
+
+    none = {name: 0 for name in lg.LAUNCHES}
+    total = dict(none)
+    fields = ("pred", "latent", "node_att", "edge_att")
+    shapes = {"pred": (1,), "latent": (BRAIN_MODEL["mlp_channels"][-1],),
+              "node_att": (fine.num_nodes,), "edge_att": (fine.num_edges,)}
+    cfg = TrainerConfig(task="brain", lr=1e-4, weight_decay=1e-4, metric_mode="max")
+    for dtype in ("float32", "bfloat16"):
+        model = model32 if dtype == "float32" else presets.hgat_attpool(
+            **BRAIN_MODEL, **widths, compute_dtype=dtype, seed=0)[0]
+        pred = BrainPredictor(model, levels, pools, batch_size=BRAIN_BATCH)
+        lg.reset_launch_counts()
+        out = pred(list(series))
+        counts = dict(lg.LAUNCHES)
+        n_batches = -(-BRAIN_SUBJECTS // BRAIN_BATCH)
+        if counts != {**none, "laguerre_terms_dense": per_fwd * n_batches}:
+            fail(f"hgat_attpool {dtype} serving launched {counts}, expected {per_fwd} terms "
+                 f"launches a forward and nothing else")
+        for name in total:
+            total[name] += counts[name]
+        for f in fields:
+            if out[f].shape != (BRAIN_SUBJECTS, *shapes[f]) or not np.isfinite(out[f]).all():
+                fail(f"hgat_attpool {dtype} {f}: shape {out[f].shape} or not finite")
+        conv.use_fused_dense(False)
+        ref = pred(list(series))
+        conv.use_fused_dense(True)
+        errs = []
+        tol = TOL["float32"] if dtype == "float32" else BRAIN_BF16_TOL
+        for f in fields:
+            err, scale = float(np.abs(out[f] - ref[f]).max()), float(np.abs(ref[f]).max())
+            errs.append(f"{f} {err:.3e} (max|ref| {scale:.3e})")
+            if not err <= tol * scale:
+                fail(f"hgat_attpool {dtype} {f}: terms route vs plain route max|err| {err:.3e}"
+                     f" > {tol}·{scale:.3e}")
+        sbatch = pred.collate(list(series[:BRAIN_BATCH]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pred.forward(sbatch)
+        torch.cuda.synchronize()
+        fwd_gb = torch.cuda.max_memory_allocated() / 1e9
+        fwd_ms = median_ms(torch, lambda: pred.forward(sbatch), 5)
+        fwd_dev, fwd_busy, fwd_top = device_profile(torch, lambda: pred.forward(sbatch), 2,
+                                                    top=6)
+        print(f"[brain] hgat_attpool {dtype} served {BRAIN_SUBJECTS} subjects in batches of "
+              f"{BRAIN_BATCH}: forward {fwd_ms:.3f} ms (median of 5; device {fwd_dev:.3f} ms, "
+              f"busy {100 * fwd_busy:.1f}%; peak device memory {fwd_gb:.2f} GB), "
+              f"{BRAIN_BATCH / fwd_ms * 1e3:.1f} subjects/s; "
+              f"{per_fwd} terms launches a forward, 0 fused; terms vs plain route max|err| "
+              f"{'; '.join(errs)} (bound {tol} of max|ref|) [{card}]", flush=True)
+        print(f"[brain] hgat_attpool {dtype} forward, top device operations: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms x{n:g}" for name, ms, n in fwd_top), flush=True)
+        conv.use_fused_dense(False)
+        try:
+            plain_fwd_ms = median_ms(torch, lambda: pred.forward(sbatch), 5)
+            plain_fwd_dev, plain_fwd_busy, _ = device_profile(
+                torch, lambda: pred.forward(sbatch), 2)
+        finally:
+            conv.use_fused_dense(True)
+
+        if dtype == "float32":
+            # the shared layout against the flat one (ELL kernel), eval forward
+            model.eval()
+            ell.reset_launch_counts()
+            with torch.inference_mode():
+                out_s = model(batch)
+                out_f = model(flat)
+            per_flat = sum(int(m.weight.shape[0]) - 1 for m in model.modules()
+                           if isinstance(m, conv.LaguerreConv))
+            if dict(ell.LAUNCHES) != {"spmm_ell": per_flat, "spmm_ell_bwd": 0}:
+                fail(f"hgat_attpool flat forward launched {dict(ell.LAUNCHES)}, want {per_flat}")
+            errs = []
+            for f, a, b in zip(fields, out_s, out_f):
+                a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
+                errs.append(f"{f} {float(np.abs(a - b).max()):.3e}")
+                if a.shape != b.shape or not np.allclose(a, b, rtol=2e-4, atol=2e-5):
+                    fail(f"hgat_attpool {f}: the shared and the flat layout disagree "
+                         f"(max|err| {float(np.abs(a - b).max()):.3e})")
+            print(f"[brain] hgat_attpool float32 shared vs flat (ELL) eval forward, "
+                  f"{BRAIN_BATCH} subjects: max|err| {'; '.join(errs)} (rtol 2e-4, atol "
+                  f"2e-5); ELL launches {per_flat}", flush=True)
+            ell_total = dict(ell.LAUNCHES)
+
+        # one warm-up step, in which cuDNN's autotuner times Inception1D's
+        # convolutions (its trials hold the largest workspace of the phase)
+        trainer = Trainer(copy.deepcopy(model), cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [trainer.train_step(batch)]
+        torch.cuda.synchronize()
+        warm_gb = torch.cuda.max_memory_allocated() / 1e9
+        lg.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses += [trainer.train_step(batch) for _ in range(BRAIN_STEPS)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / BRAIN_STEPS
+        step_gb = torch.cuda.max_memory_allocated() / 1e9
+        counts = dict(lg.LAUNCHES)
+        # the edge init conv reads the raw FC input, which needs no gradient
+        want = {**none, "laguerre_terms_dense": per_fwd * BRAIN_STEPS,
+                "laguerre_terms_dense_bwd": (per_fwd - 1) * BRAIN_STEPS}
+        if counts != want:
+            fail(f"hgat_attpool {dtype} training launched {counts}, expected {want}")
+        for name in total:
+            total[name] += counts[name]
+        values = [float(v) for v in losses]
+        if not all(np.isfinite(values)):
+            fail(f"hgat_attpool {dtype}: non-finite loss {values}")
+        for name, m in trainer.model.named_modules():
+            if isinstance(m, conv.LaguerreConv) and not bool((m.weight.grad != 0).any()):
+                fail(f"hgat_attpool {dtype}: {name}.weight has no gradient")
+        val_loss, r = trainer.evaluate([batch])
+        step_dev, step_busy, step_top = device_profile(
+            torch, lambda: trainer.train_step(batch), 1, top=6)
+        print(f"[brain] hgat_attpool {dtype} trained 1 + {BRAIN_STEPS} steps at batch "
+              f"{BRAIN_BATCH}: step {step_ms:.3f} ms (mean of {BRAIN_STEPS} after the warm-up; "
+              f"device {step_dev:.3f} ms, busy {100 * step_busy:.1f}%; peak device memory "
+              f"{step_gb:.2f} GB, {warm_gb:.2f} GB in the warm-up); loss {values[0]:.5f} -> "
+              f"{values[-1]:.5f}, eval loss {val_loss:.5f}, Pearson r {r:.4f}; launches a "
+              f"step {per_fwd} terms + {per_fwd - 1} terms backward, 0 fused [{card}]",
+              flush=True)
+        print(f"[brain] hgat_attpool {dtype} step, top device operations: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms x{n:g}" for name, ms, n in step_top), flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+        # the same forward and steps on the plain route (no hand kernel), the
+        # end-to-end comparison for the folded terms kernel
+        trainer = Trainer(copy.deepcopy(model), cfg)
+        conv.use_fused_dense(False)
+        try:
+            trainer.train_step(batch)
+            lg.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(BRAIN_STEPS):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            plain_step_ms = (time.perf_counter() - t0) * 1e3 / BRAIN_STEPS
+            plain_step_gb = torch.cuda.max_memory_allocated() / 1e9
+            plain_dev, plain_busy, _ = device_profile(
+                torch, lambda: trainer.train_step(batch), 1)
+        finally:
+            conv.use_fused_dense(True)
+        if dict(lg.LAUNCHES) != none:
+            fail(f"hgat_attpool {dtype} plain route launched {dict(lg.LAUNCHES)}")
+        print(f"[brain] hgat_attpool {dtype} plain route against the terms kernel: forward "
+              f"{plain_fwd_ms:.3f} ms (device {plain_fwd_dev:.3f} ms, busy "
+              f"{100 * plain_fwd_busy:.1f}%) against {fwd_ms:.3f} (device {fwd_dev:.3f}); "
+              f"step {plain_step_ms:.3f} ms (device {plain_dev:.3f} ms, busy "
+              f"{100 * plain_busy:.1f}%; peak device memory {plain_step_gb:.2f} GB) against "
+              f"{step_ms:.3f} (device {step_dev:.3f}) [{card}]", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+    # abcd_attpool at its preset widths, one batch per dtype
+    mid = levels[1]
+    for dtype in ("float32", "bfloat16"):
+        model, _ = presets.abcd_attpool(**ABCD_MODEL, nodes_per_graph=mid.num_nodes,
+                                        edges_per_graph=mid.num_edges, compute_dtype=dtype,
+                                        seed=0)
+        n_abcd = sum(1 for m in model.modules()
+                     if isinstance(m, conv.LaguerreConv) and m.weight.shape[0] > 1)
+        pred = BrainPredictor(model, levels[:2], pools[:1], batch_size=BRAIN_BATCH)
+        lg.reset_launch_counts()
+        out = pred(list(series[:BRAIN_BATCH]))
+        counts = dict(lg.LAUNCHES)
+        if counts != {**none, "laguerre_terms_dense": n_abcd}:
+            fail(f"abcd_attpool {dtype} launched {counts}, expected {n_abcd} terms launches")
+        for name in total:
+            total[name] += counts[name]
+        if set(out) != {"pred"} or out["pred"].shape != (BRAIN_BATCH, 1) or not np.isfinite(
+                out["pred"]).all():
+            fail(f"abcd_attpool {dtype}: outputs {[(k, v.shape) for k, v in out.items()]}")
+        sbatch = pred.collate(list(series[:BRAIN_BATCH]))
+        fwd_ms = median_ms(torch, lambda: pred.forward(sbatch), 5)
+        print(f"[brain] abcd_attpool {dtype} ((2,2,2), (64,128,256), K = 2, one pool) served "
+              f"{BRAIN_BATCH} subjects: forward {fwd_ms:.3f} ms, {n_abcd} terms launches, 0 "
+              f"fused [{card}]", flush=True)
+    return total, ell_total, summary
+
+
 def print_laguerre_summary(summary, names, card):
     for name in names:
         for dtype in ("float32", "bfloat16"):
@@ -1667,6 +2010,16 @@ def main(argv=None) -> int:
     for name, n in tsp_ell.items():
         ell_launches[name] += n
 
+    # ---- 10. the brain family on the shared-skeleton layout ------------------
+    brain_launches, brain_ell, brain_summary = brain_phase(torch, np, lg, ell, card)
+    for name in ("laguerre_terms_dense", "laguerre_terms_dense_bwd"):
+        if brain_launches[name] == 0:
+            fail(f"{name} was never launched on the brain path")
+    for name, n in brain_launches.items():
+        launches[name] += n
+    for name, n in brain_ell.items():
+        ell_launches[name] += n
+
     # ---- 10. result lines -------------------------------------------------
     replaces = {
         "laguerre_dense_fused": "hl_hgat_tpu/ops/pallas_hodge.py:93",
@@ -1681,6 +2034,12 @@ def main(argv=None) -> int:
         b32 = band_summary[(name, "float32")]
         print(f"[kernel] {name} float32 per pooled pass over 128 rows: {b32['ms']:.4f} ms, "
               f"bound {b32['bound']:.4f} ms [{card}]", flush=True)
+    for name in ("laguerre_terms_dense", "laguerre_terms_dense_bwd"):
+        for dtype in ("float32", "bfloat16"):
+            agg = brain_summary[(name, dtype)]
+            print(f"[kernel] {name} {dtype} per brain forward on the folded level-0 and "
+                  f"level-1 L1: {agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, bound "
+                  f"{agg['bound']:.4f} ms, max|err| {agg['err']:.3e} [{card}]", flush=True)
     kernels = []
     for name, where in replaces.items():
         s32 = summary[(name, "float32")]

@@ -14,6 +14,10 @@ entries that couple a block to its neighbour (column block = row block ± 1)
 go to the two band operators of a `BlockDiagMatrix` and the rest to a COO
 spill over the flattened block rows.  ``reorder_sample`` (BFS locality
 order) keeps most cross-block entries in the bands.
+
+Datasets whose samples all share one structure (the brain family) take
+``collate_dense_shared``: one graph a block, the operators built once with
+a leading axis of 1 ([1, S, S]) and broadcast over the [G, S, C] features.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from hl_hgat_tpu_torch.complex.batch import ComplexBatch, CooMatrix
-from hl_hgat_tpu_torch.complex.build import GraphSample
+from hl_hgat_tpu_torch.complex.build import GraphSample, boundary_dense
 
 
 def _to(v, device):
@@ -82,8 +86,10 @@ class DenseLevel:
     edge_mask: Any  # [G, E]
     deg: Any  # [G, S]
     num_graphs: int
-    n_gid: Any  # [G, S] int32, padding rows = num_graphs
-    s_gid: Any  # [G, E] int32
+    # [G, S] / [G, E] int32 graph id of each row, padding rows = num_graphs;
+    # None in the shared layout (``collate_dense_shared``: one graph a block)
+    n_gid: Any = None
+    s_gid: Any = None
     b1_sp: Any = None  # CooMatrix (G*S, G*E): B1 entries two or more blocks off
     b1_bu: Any = None  # [G, S, E]: node rows of block g, edge columns of g+1
     b1_bd: Any = None  # [G, S, E]: the same against edge columns of g-1
@@ -525,3 +531,70 @@ def collate_dense_packed(
         num_graphs=ng,
         pools=tuple(pools),
     )
+
+
+def collate_dense_shared(samples: list[GraphSample]) -> DenseBatch:
+    """Dense layout for shared-skeleton datasets
+    (``hl_hgat_tpu/complex/dense.py::collate_dense_shared``): every sample
+    must carry the same structure, operator values and pooling assignments
+    at every level (else ValueError), so ``l0``/``l1``/``b1`` and the pools
+    are built once from ``samples[0]`` with a leading axis of 1 ([1, S, S],
+    [1, S_c, S_f]) and every mat-vec is one [S, S] @ [S, G·C] product over
+    all subjects.  Features, masks and degrees are per graph, [G, S, *],
+    one graph a block with its rows in the samples' own simplex order (no
+    BFS reorder) and no padding rows, so flatten readouts see the reference
+    ordering.  The levels carry no graph ids (``n_gid``/``s_gid`` are
+    None)."""
+    g = len(samples)
+    ref = samples[0]
+    depth = len(ref.levels)
+    for smp in samples[1:]:
+        for lv in range(depth):
+            a, b = ref.levels[lv], smp.levels[lv]
+            if not (np.array_equal(a.src, b.src) and np.array_equal(a.dst, b.dst)):
+                raise ValueError("collate_dense_shared requires identical structure "
+                                 f"across samples (level {lv} differs)")
+            if not (np.array_equal(a.l0_vals, b.l0_vals) and np.array_equal(a.l1_vals, b.l1_vals)):
+                raise ValueError("collate_dense_shared requires identical operator values "
+                                 f"across samples (level {lv} L0/L1 differ)")
+        for lv, (pa, pb) in enumerate(zip(ref.pools, smp.pools)):
+            if not (np.array_equal(pa[0], pb[0]) and np.array_equal(pa[1], pb[1])):
+                raise ValueError("collate_dense_shared requires identical pooling "
+                                 f"assignments across samples (pool {lv} differs)")
+
+    levels = []
+    for st in ref.levels:
+        n, e = st.num_nodes, st.num_edges
+        l0 = np.zeros((1, n, n), np.float32)
+        l1 = np.zeros((1, e, e), np.float32)
+        l0[0, st.l0_rows, st.l0_cols] = st.l0_vals
+        l1[0, st.l1_rows, st.l1_cols] = st.l1_vals
+        b1 = boundary_dense(st.src, st.dst, n)[None].astype(np.float32)
+        nm = np.ones((g, n), np.float32)
+        em = np.ones((g, e), np.float32)
+        deg = np.zeros((g, n), np.float32)
+        np.add.at(deg[0], st.src, 1.0)
+        np.add.at(deg[0], st.dst, 1.0)
+        deg[1:] = deg[0]
+        levels.append(DenseLevel(l0=l0, l1=l1, b1=b1, node_mask=nm, edge_mask=em, deg=deg,
+                                 num_graphs=g))
+
+    pools = []
+    for lv in range(depth - 1):
+        fine, coarse = ref.levels[lv], ref.levels[lv + 1]
+        mats = []
+        for assign, rows, cols in ((ref.pools[lv][0], coarse.num_nodes, fine.num_nodes),
+                                   (ref.pools[lv][1], coarse.num_edges, fine.num_edges)):
+            p = np.zeros((1, rows, cols), np.float32)
+            a = np.asarray(assign).reshape(-1)
+            idx = np.nonzero(a >= 0)[0]
+            p[0, a[idx], idx] = 1.0
+            p[0] /= np.maximum(p[0].sum(axis=1, keepdims=True), 1.0)
+            mats.append(p)
+        pools.append(DensePool(p_t=mats[0], p_s=mats[1]))
+
+    x_t = np.stack([smp.x_t for smp in samples]).astype(np.float32)
+    x_s = np.stack([smp.x_s for smp in samples]).astype(np.float32)
+    y = np.stack([np.asarray(smp.y, np.float32).reshape(-1) for smp in samples])
+    return DenseBatch(x_t=x_t, x_s=x_s, y=y, levels=tuple(levels), num_graphs=g,
+                      pools=tuple(pools))

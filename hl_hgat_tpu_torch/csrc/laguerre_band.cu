@@ -35,7 +35,11 @@
 //   f32; reduce_partials_kernel adds the slices in slice order.  No atomics:
 //   a second launch gives the same bits.
 // The terms of a fused call go to a scratch buffer [K−1, G, S, C] in x's
-// type that the caller allocates (b̄ likewise, [K, G, S, C]).
+// type that the caller allocates (b̄ likewise, [K, G, S, C]).  L's rows lie
+// ldl >= S elements apart (graph blocks S·ldl apart): L tiles load in
+// 16-byte cp.async chunks only where rows start on 16-byte boundaries and
+// element by element elsewhere, so the caller pads an odd row (S = 8997, the
+// brain's level-0 L1) to a multiple of 16 bytes.
 //
 // Bound on an H100 (3.35 TB/s; bf16 tensor cores 989 TFLOP/s; float32 as
 // 3xTF32, 165 TFLOP/s): the operations are those of the S <= 128 kernels,
@@ -159,14 +163,14 @@ enum StepMode { kForward = 0, kWalk = 1, kLast = 2 };
 template <typename T, int kMode>
 __global__ void __launch_bounds__(kBandThreads)
     band_step_kernel(const T* __restrict__ l, const T* __restrict__ v, T* x1, T* x2,
-                     T* out, int S, int C, int k) {
+                     T* out, int S, int ldl, int C, int k) {
   using P = Pair<T>;
   using V = typename P::V;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
   const size_t blk = (size_t)blockIdx.z * S * C;
   float acc[2][4][4] = {};
-  block_gemm<T, true, false>(acc, l + (size_t)blockIdx.z * S * S + (size_t)m0 * S, S,
+  block_gemm<T, true, false>(acc, l + (size_t)blockIdx.z * S * ldl + (size_t)m0 * ldl, ldl,
                              S - m0, v + blk + n0, C, C - n0, S,
                              reinterpret_cast<T*>(smem_raw));
   const float jf = (float)(k - 1), a = 2.f * jf + 1.f, d = jf + 1.f;
@@ -301,24 +305,25 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   } while (0)
 
 template <typename T, int kMode>
-cudaError_t launch_step(const T* l, const T* v, T* x1, T* x2, T* out, int G, int S, int C,
-                        int k, cudaStream_t stream) {
+cudaError_t launch_step(const T* l, const T* v, T* x1, T* x2, T* out, int G, int S, int ldl,
+                        int C, int k, cudaStream_t stream) {
   constexpr size_t smem = BandTiles<T, true, false>::kBytes;
   const cudaError_t err = allow_smem(band_step_kernel<T, kMode>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBM - 1) / kBM, (C + kBN - 1) / kBN, G);
-  band_step_kernel<T, kMode><<<grid, kBandThreads, smem, stream>>>(l, v, x1, x2, out, S, C, k);
+  band_step_kernel<T, kMode><<<grid, kBandThreads, smem, stream>>>(l, v, x1, x2, out, S, ldl, C,
+                                                                    k);
   return cudaGetLastError();
 }
 
 // T_1 .. T_{K-1} from T_0 = x: term k + 1 into term_out(k + 1).
 template <typename T, typename TermFn>
-cudaError_t run_recurrence(const T* l, TermFn term, int G, int S, int C, int K,
+cudaError_t run_recurrence(const T* l, TermFn term, int G, int S, int ldl, int C, int K,
                            cudaStream_t stream) {
   for (int k = 0; k + 1 < K; ++k) {
     const cudaError_t err = launch_step<T, kForward>(
         l, term(k), const_cast<T*>(k > 0 ? term(k - 1) : nullptr), nullptr,
-        const_cast<T*>(term(k + 1)), G, S, C, k, stream);
+        const_cast<T*>(term(k + 1)), G, S, ldl, C, k, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -326,14 +331,15 @@ cudaError_t run_recurrence(const T* l, TermFn term, int G, int S, int C, int K,
 
 // The adjoint walk over bar(0) .. bar(K-1), in place, then dx.
 template <typename T, typename BarFn>
-cudaError_t run_walk(const T* l, BarFn bar, T* dx, int G, int S, int C, int K,
+cudaError_t run_walk(const T* l, BarFn bar, T* dx, int G, int S, int ldl, int C, int K,
                      cudaStream_t stream) {
   for (int kk = K - 1; kk > 1; --kk) {
     const cudaError_t err = launch_step<T, kWalk>(l, bar(kk), bar(kk - 1), bar(kk - 2),
-                                                  nullptr, G, S, C, kk, stream);
+                                                  nullptr, G, S, ldl, C, kk, stream);
     if (err != cudaSuccess) return err;
   }
-  if (K > 1) return launch_step<T, kLast>(l, bar(1), bar(0), nullptr, dx, G, S, C, 1, stream);
+  if (K > 1)
+    return launch_step<T, kLast>(l, bar(1), bar(0), nullptr, dx, G, S, ldl, C, 1, stream);
   return cudaMemcpyAsync(dx, bar(0), (size_t)G * S * C * sizeof(T), cudaMemcpyDeviceToDevice,
                          stream);
 }
@@ -350,8 +356,8 @@ const T* weights_in(const void* w_, void* wt_, size_t n, cudaStream_t stream, cu
 
 template <typename T>
 int band_fused_fwd(const void* l_, const void* x_, const void* w_, const void* b_,
-                   void* out_, void* wt_, void* ts_, int G, int S, int C, int F, int K,
-                   cudaStream_t stream) {
+                   void* out_, void* wt_, void* ts_, int G, int S, int ldl, int C, int F,
+                   int K, cudaStream_t stream) {
   const T* l = static_cast<const T*>(l_);
   const T* x = static_cast<const T*>(x_);
   T* ts = static_cast<T*>(ts_);
@@ -359,7 +365,7 @@ int band_fused_fwd(const void* l_, const void* x_, const void* w_, const void* b
   cudaError_t err;
   const T* w = weights_in<T>(w_, wt_, (size_t)K * C * F, stream, err);
   BAND_TRY(err);
-  BAND_TRY(run_recurrence<T>(l, [&](int k) { return term_of<T>(x, ts, gsc, k); }, G, S, C, K,
+  BAND_TRY(run_recurrence<T>(l, [&](int k) { return term_of<T>(x, ts, gsc, k); }, G, S, ldl, C, K,
                              stream));
   constexpr size_t smem = BandTiles<T, true, false>::kBytes;
   BAND_TRY(allow_smem(band_out_kernel<T>, smem));
@@ -371,13 +377,13 @@ int band_fused_fwd(const void* l_, const void* x_, const void* w_, const void* b
 }
 
 template <typename T>
-int band_terms_fwd(const void* l_, const void* x_, void* t_, int G, int S, int C, int K,
-                   cudaStream_t stream) {
+int band_terms_fwd(const void* l_, const void* x_, void* t_, int G, int S, int ldl, int C,
+                   int K, cudaStream_t stream) {
   const T* l = static_cast<const T*>(l_);
   T* t = static_cast<T*>(t_);
   const size_t gsc = (size_t)G * S * C;
   BAND_TRY(cudaMemcpyAsync(t, x_, gsc * sizeof(T), cudaMemcpyDeviceToDevice, stream));
-  return (int)run_recurrence<T>(l, [&](int k) { return t + (size_t)k * gsc; }, G, S, C, K,
+  return (int)run_recurrence<T>(l, [&](int k) { return t + (size_t)k * gsc; }, G, S, ldl, C, K,
                                 stream);
 }
 
@@ -391,7 +397,7 @@ int band_splits(int G, int C, int F, int K) {
 template <typename T>
 int band_fused_bwd(const void* l_, const void* x_, const void* w_, const void* g_, void* dx_,
                    void* dwdb_, void* partial_, void* wt_, void* ts_, void* bars_, int G, int S,
-                   int C, int F, int K, int n_split, cudaStream_t stream) {
+                   int ldl, int C, int F, int K, int n_split, cudaStream_t stream) {
   const T* l = static_cast<const T*>(l_);
   const T* x = static_cast<const T*>(x_);
   const T* g = static_cast<const T*>(g_);
@@ -405,7 +411,7 @@ int band_fused_bwd(const void* l_, const void* x_, const void* w_, const void* g
   const T* w = weights_in<T>(w_, wt_, n_w, stream, err);
   BAND_TRY(err);
   // the terms, recomputed from x
-  BAND_TRY(run_recurrence<T>(l, [&](int k) { return term_of<T>(x, ts, gsc, k); }, G, S, C, K,
+  BAND_TRY(run_recurrence<T>(l, [&](int k) { return term_of<T>(x, ts, gsc, k); }, G, S, ldl, C, K,
                              stream));
   // b̄_k = g W_kᵀ (with one term, b̄_0 is dx)
   T* bars = K > 1 ? static_cast<T*>(bars_) : dx;
@@ -415,7 +421,7 @@ int band_fused_bwd(const void* l_, const void* x_, const void* w_, const void* g
                        smem_bar, stream>>>(g, w, bars, R, C, F);
   BAND_TRY(cudaGetLastError());
   if (K > 1)
-    BAND_TRY(run_walk<T>(l, [&](int k) { return bars + (size_t)k * gsc; }, dx, G, S, C, K,
+    BAND_TRY(run_walk<T>(l, [&](int k) { return bars + (size_t)k * gsc; }, dx, G, S, ldl, C, K,
                          stream));
   // dW and db: per-slice partials, then the fixed-order sum
   constexpr size_t smem_dw = BandTiles<T, false, false>::kBytes;
@@ -435,7 +441,7 @@ int band_fused_bwd(const void* l_, const void* x_, const void* w_, const void* g
 
 template <typename T>
 int band_terms_bwd(const void* l_, const void* dt_, void* dx_, void* bars_, int G, int S,
-                   int C, int K, cudaStream_t stream) {
+                   int ldl, int C, int K, cudaStream_t stream) {
   const T* l = static_cast<const T*>(l_);
   const T* dt = static_cast<const T*>(dt_);
   T* bars = static_cast<T*>(bars_);
@@ -449,59 +455,59 @@ int band_terms_bwd(const void* l_, const void* dt_, void* dx_, void* bars_, int 
   auto bar = [&](int k) {
     return k == K - 1 ? const_cast<T*>(dt) + (size_t)k * gsc : bars + (size_t)k * gsc;
   };
-  return (int)run_walk<T>(l, bar, static_cast<T*>(dx_), G, S, C, K, stream);
+  return (int)run_walk<T>(l, bar, static_cast<T*>(dx_), G, S, ldl, C, K, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// l [G,S,S], x [G,S,C], out [G,S,F] in x's dtype (bf16 != 0: bfloat16, else
-// float32); w [K,C,F] and b [F] float32; wt: scratch of K·C·F elements of
+// l [G,S,S] (row stride ldl), x [G,S,C], out [G,S,F] in x's dtype (bf16 !=
+// 0: bfloat16, else float32); w [K,C,F] and b [F] float32; wt: scratch of K·C·F elements of
 // x's type when bf16 != 0, else unused; ts: scratch [K-1,G,S,C] in x's type
 // (unused when K = 1).  Returns a cudaError_t.
 int hlhgat_band_fused_fwd(const void* l, const void* x, const void* w, const void* b,
-                          void* out, void* wt, void* ts, int G, int S, int C, int F, int K,
-                          int bf16, void* stream) {
+                          void* out, void* wt, void* ts, int G, int S, int ldl, int C, int F,
+                          int K, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? band_fused_fwd<__nv_bfloat16>(l, x, w, b, out, wt, ts, G, S, C, F, K, s)
-              : band_fused_fwd<float>(l, x, w, b, out, wt, ts, G, S, C, F, K, s);
+  return bf16 ? band_fused_fwd<__nv_bfloat16>(l, x, w, b, out, wt, ts, G, S, ldl, C, F, K, s)
+              : band_fused_fwd<float>(l, x, w, b, out, wt, ts, G, S, ldl, C, F, K, s);
 }
 
-// l [G,S,S], x [G,S,C] -> t [K,G,S,C], all in x's dtype.
-int hlhgat_band_terms_fwd(const void* l, const void* x, void* t, int G, int S, int C, int K,
-                          int bf16, void* stream) {
+// l [G,S,S] (row stride ldl), x [G,S,C] -> t [K,G,S,C], all in x's dtype.
+int hlhgat_band_terms_fwd(const void* l, const void* x, void* t, int G, int S, int ldl, int C,
+                          int K, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? band_terms_fwd<__nv_bfloat16>(l, x, t, G, S, C, K, s)
-              : band_terms_fwd<float>(l, x, t, G, S, C, K, s);
+  return bf16 ? band_terms_fwd<__nv_bfloat16>(l, x, t, G, S, ldl, C, K, s)
+              : band_terms_fwd<float>(l, x, t, G, S, ldl, C, K, s);
 }
 
 // Number of graph-block slices of the dW/db partial sums: the caller
 // allocates partial [n_split, K*C*F + F] float32.
 int hlhgat_band_fused_bwd_splits(int G, int C, int F, int K) { return band_splits(G, C, F, K); }
 
-// l [G,S,S], x [G,S,C], g [G,S,F], dx [G,S,C] in x's dtype; w [K,C,F]
-// float32; dwdb [K*C*F + F] float32 receives dW then db; wt as in the
-// forward; ts: scratch [K-1,G,S,C] and bars: scratch [K,G,S,C] in x's type
-// (both unused when K = 1).
+// l [G,S,S] (row stride ldl), x [G,S,C], g [G,S,F], dx [G,S,C] in x's
+// dtype; w [K,C,F] float32; dwdb [K*C*F + F] float32 receives dW then db;
+// wt as in the forward; ts: scratch [K-1,G,S,C] and bars: scratch [K,G,S,C]
+// in x's type (both unused when K = 1).
 int hlhgat_band_fused_bwd(const void* l, const void* x, const void* w, const void* g,
                           void* dx, void* dwdb, void* partial, void* wt, void* ts, void* bars,
-                          int G, int S, int C, int F, int K, int n_split, int bf16,
+                          int G, int S, int ldl, int C, int F, int K, int n_split, int bf16,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? band_fused_bwd<__nv_bfloat16>(l, x, w, g, dx, dwdb, partial, wt, ts, bars, G,
-                                              S, C, F, K, n_split, s)
-              : band_fused_bwd<float>(l, x, w, g, dx, dwdb, partial, wt, ts, bars, G, S, C, F,
-                                      K, n_split, s);
+                                              S, ldl, C, F, K, n_split, s)
+              : band_fused_bwd<float>(l, x, w, g, dx, dwdb, partial, wt, ts, bars, G, S, ldl,
+                                      C, F, K, n_split, s);
 }
 
-// l [G,S,S], dt [K,G,S,C] -> dx [G,S,C], all in dt's dtype; bars: scratch
-// [K-1,G,S,C] (unused when K = 1).
+// l [G,S,S] (row stride ldl), dt [K,G,S,C] -> dx [G,S,C], all in dt's
+// dtype; bars: scratch [K-1,G,S,C] (unused when K = 1).
 int hlhgat_band_terms_bwd(const void* l, const void* dt, void* dx, void* bars, int G, int S,
-                          int C, int K, int bf16, void* stream) {
+                          int ldl, int C, int K, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? band_terms_bwd<__nv_bfloat16>(l, dt, dx, bars, G, S, C, K, s)
-              : band_terms_bwd<float>(l, dt, dx, bars, G, S, C, K, s);
+  return bf16 ? band_terms_bwd<__nv_bfloat16>(l, dt, dx, bars, G, S, ldl, C, K, s)
+              : band_terms_bwd<float>(l, dt, dx, bars, G, S, ldl, C, K, s);
 }
 
 const char* hlhgat_cuda_error_string(int code) {

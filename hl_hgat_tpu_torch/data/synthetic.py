@@ -199,3 +199,51 @@ def tsp_like_samples(
         s = build_complex(ei, n, x_t=pos, x_s=x_s, y=y)
         samples.append(reorder_sample(s, y_per_edge=True))
     return samples
+
+
+def synthetic_brain_samples(
+    batch_size: int = 4, *, seed: int = 0, n_rois: int = 32, t_len: int = 64,
+    density: float = 0.2, num_pool: int = 2,
+) -> list[GraphSample]:
+    """Brain-like subjects on one shared skeleton: random time courses on
+    the nodes, random FC values on the edges, one MLGC pyramid shared by
+    all (the samples of ``hl_hgat_tpu/data/synthetic.py::
+    synthetic_brain_batch``, the same draws).  Collate them flat or with
+    ``complex.dense.collate_dense_shared``."""
+    rng = np.random.default_rng(seed)
+    src, dst = _random_connected(rng, n_rois, int(density * n_rois * (n_rois - 1) / 2))
+    levels = pools = None
+    samples = []
+    for _ in range(batch_size):
+        ts = rng.standard_normal((n_rois, t_len)).astype(np.float32)
+        fc = rng.standard_normal((src.shape[0], 1)).astype(np.float32)
+        s = build_complex(np.stack([src, dst]), n_rois, x_t=ts, x_s=fc,
+                          y=rng.standard_normal(1).astype(np.float32))
+        if levels is None:
+            levels, pools = build_pyramid(s.levels, num_pool)
+        s.levels, s.pools = levels, pools
+        samples.append(s)
+    return samples
+
+
+def synthetic_fmri_series(
+    rng: np.random.Generator, n_subjects: int, n_rois: int, t_len: int, *,
+    k_latent: int = 4, y_mean: float = 95.1377, y_std: float = 7.3,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Learnable synthetic fMRI: a latent network signal plus noise, the
+    score correlated with the strength of one latent component (the
+    stand-in for the reference's subject series, whose file is not
+    shipped; HL-HGAT-DEMO/OHBM_DEMO.ipynb cell 16 describes the real
+    format).  The same draws as the JAX package's generator.
+
+    Returns (timeseries [N, R, T], scores [N])."""
+    mixing = rng.standard_normal((n_rois, k_latent))
+    ts_all = np.empty((n_subjects, n_rois, t_len))
+    scores = np.empty(n_subjects)
+    for s in range(n_subjects):
+        strength = rng.uniform(0.5, 2.0)
+        lat = rng.standard_normal((k_latent, t_len))
+        lat[0] *= strength
+        ts_all[s] = mixing @ lat + 0.5 * rng.standard_normal((n_rois, t_len))
+        scores[s] = y_mean + y_std * (strength - 1.25)
+    return ts_all, scores

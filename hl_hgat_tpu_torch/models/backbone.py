@@ -79,6 +79,9 @@ class BackboneConfig:
     # when the dense-concat stacks are materialized: 'block' once per block,
     # 'layer' after every layer (the reference's formulation); same values
     stack_concat: str = "block"
+    # the DEMO fast-conv recurrence in the trunk's convs (nn/conv.py), needed
+    # to run the shipped brain checkpoint; the plain route on any device
+    demo_conv_compat: bool = False
 
     def conv_kw(self) -> dict:
         return dict(act=self.act, leaky_slope=self.leaky_slope, dropout=self.dropout)
@@ -88,7 +91,8 @@ class DenseInt3Backbone(nn.Module):
     """Shared trunk: init conv pair, then per block of ``filters[i]``
     channels its layers, the block's gates and its pooling.  Returns the
     last layer's (x_t, x_s) on level ``level_idx`` (the number of pools
-    taken)."""
+    taken); with ``return_atts`` also the float32 gates (a_t, a_s) of each
+    gated block, in block order."""
 
     def __init__(self, cfg: BackboneConfig, c_t: int, c_s: int, generator=None):
         super().__init__()
@@ -96,7 +100,7 @@ class DenseInt3Backbone(nn.Module):
             raise ValueError(f"unknown stack_concat {cfg.stack_concat!r}")
         self.cfg = cfg
         f0 = cfg.filters[0]
-        kw = cfg.conv_kw()
+        kw = dict(cfg.conv_kw(), demo_compat=cfg.demo_conv_compat)
         self.init_node = ConvBNAct(c_t, f0, cfg.init_k, generator, **kw)
         self.init_edge = ConvBNAct(c_s, f0, cfg.init_k, generator, **kw)
         # node and edge stacks grow alike: both start at f0, gain `width`
@@ -121,7 +125,7 @@ class DenseInt3Backbone(nn.Module):
         self.out_features = cfg.filters[-1]
         self.level_idx = sum(1 for i in range(len(cfg.filters)) if i in cfg.pool_locs)
 
-    def forward(self, x_t, x_s, batch: Batch):
+    def forward(self, x_t, x_s, batch: Batch, *, return_atts: bool = False):
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
         x_t = x_t.to(dtype)
@@ -134,6 +138,7 @@ class DenseInt3Backbone(nn.Module):
         x_s = self.init_edge(x_s, level.l1, level.edge_mask)
         pieces_t, pieces_s = (x_t,), (x_s,)
         k = 0  # pooling level index
+        atts = []
         for i in range(len(cfg.filters)):
             for j in range(cfg.channels[i]):
                 conv = self.get_submodule(f"NEConv{i}{j}")
@@ -160,6 +165,7 @@ class DenseInt3Backbone(nn.Module):
                 a_t, a_s = self.get_submodule(f"NEAtt{i}")(g_t, g_s, level, deg)
                 if cfg.max_normalize_gates:
                     a_t, a_s = max_normalize(a_t), max_normalize(a_s)
+                atts.append((a_t, a_s))
                 # the gates stay float32; the wide multiply runs in the
                 # activation dtype
                 if cfg.gate_target == "stack":
@@ -177,7 +183,7 @@ class DenseInt3Backbone(nn.Module):
                 k += 1
                 level = coarse
                 deg = level.deg + cfg.deg_eps
-        return x_t, x_s
+        return (x_t, x_s, atts) if return_atts else (x_t, x_s)
 
 
 def head_cast(cfg: BackboneConfig, *tensors: torch.Tensor):
@@ -209,13 +215,16 @@ class MLPHead(nn.Module):
             width = out
         self.out = TorchLinear(width, num_classes, generator=generator)
 
-    def forward(self, x):
+    def forward(self, x, *, return_latent: bool = False):
+        """[B, in] → float32 [B, num_classes]; with ``return_latent`` also
+        the input of the output layer."""
         for i in range(self.depth):
             x = self.get_submodule(f"mlp{i}_lin")(x)
             x = self.act(self.get_submodule(f"mlp{i}_bn")(x))
             if self.dropout > 0.0:
                 x = nn.functional.dropout(x, self.dropout, self.training)
-        return self.out(x).float()
+        out = self.out(x).float()
+        return (out, x) if return_latent else out
 
 
 class HLHGCNNGraph(nn.Module):

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from hl_hgat_tpu_torch.device import resolve_device
+from hl_hgat_tpu_torch.models.abcd import HLHGCNNAbcd
 from hl_hgat_tpu_torch.models.backbone import (
     BackboneConfig,
     HLHGCNNGraph,
@@ -12,6 +13,7 @@ from hl_hgat_tpu_torch.models.backbone import (
     HLHGCNNNode,
     HLHGCNNTsp,
 )
+from hl_hgat_tpu_torch.models.hgat import HLHGATAttpool
 
 
 def zinc_pyr(
@@ -247,6 +249,63 @@ def tsp_pyr(
     return model.to(device), dict(task="edge_binary")
 
 
+# The brain family (reference lib/Hodge_ST_Model.py:26-168; HL-HGAT-DEMO/
+# lib/Hodge_Cheb_Conv.py:250-399).  The node input is each ROI's time
+# course (Inception1D embeds it), the edge input one FC value; the
+# ``*_per_graph`` counts are the final level's (the fine level's for the
+# attention maps) of the shared pyramid, as ``data/brain.py`` builds it.
+_BRAIN_META = dict(task="regression", y_mean=95.1377, y_std=7.3)
+
+
+def abcd_attpool(
+    channels=(2, 2, 2), filters=(64, 128, 256), k=2, dropout=0.0, mlp_channels=(),
+    nodes_per_graph=0, edges_per_graph=0, pool_num=1, compute_dtype="float32",
+    *, in_s: int = 1, seed: int = 0, device=None,
+):
+    """``pool_num`` mirrors the reference ctor's ``pool_loc`` list
+    (lib/Hodge_ST_Model.py:28): pools after blocks 0 .. pool_num − 1, which
+    must not include the last block (its pool would only move the dead
+    stack)."""
+    if pool_num >= len(channels):
+        raise ValueError(
+            f"pool_num {pool_num} needs non-final pools; model has {len(channels)} blocks")
+    cfg = BackboneConfig(
+        channels=tuple(channels), filters=tuple(filters), k=k, init_k=k, act="leaky_relu",
+        dropout=dropout, deg_eps=1e-6, pool_locs=tuple(range(pool_num)),
+        att_sigma="sigmoid", gate_input="last", gate_target="stack", stack_concat="layer",
+        compute_dtype=compute_dtype,
+    )
+    device = resolve_device(device)
+    model = HLHGCNNAbcd(cfg, in_s, mlp_channels=tuple(mlp_channels),
+                        nodes_per_graph=nodes_per_graph, edges_per_graph=edges_per_graph,
+                        generator=torch.Generator().manual_seed(seed))
+    return model.to(device), dict(_BRAIN_META)
+
+
+def hgat_attpool(
+    channels=(2, 2, 2), filters=(32, 64, 128), k=4, dropout=0.0, mlp_channels=(),
+    pool_num=2, nodes_per_graph=0, edges_per_graph=0, fine_nodes_per_graph=0,
+    fine_edges_per_graph=0, demo_conv_compat=False,
+    compute_dtype="float32", *, in_s: int = 1, seed: int = 0, device=None,
+):
+    """``demo_conv_compat=True`` gives the DEMO fast-conv recurrence the
+    shipped ``HL_HGAT_Brain.pt`` was trained with
+    (HL-HGAT-DEMO/lib/Hodge_Cheb_Conv.py:561); the default keeps the
+    canonical recurrence."""
+    cfg = BackboneConfig(
+        channels=tuple(channels), filters=tuple(filters), k=k, init_k=k, act="leaky_relu",
+        dropout=dropout, deg_eps=1e-6, pool_locs=tuple(range(pool_num)),
+        att_sigma="sigmoid", gate_input="stack", gate_target="stack", stack_concat="layer",
+        demo_conv_compat=demo_conv_compat, compute_dtype=compute_dtype,
+    )
+    device = resolve_device(device)
+    model = HLHGATAttpool(
+        cfg, in_s, mlp_channels=tuple(mlp_channels), nodes_per_graph=nodes_per_graph,
+        edges_per_graph=edges_per_graph, fine_nodes_per_graph=fine_nodes_per_graph,
+        fine_edges_per_graph=fine_edges_per_graph, generator=torch.Generator().manual_seed(seed))
+    return model.to(device), dict(_BRAIN_META)
+
+
 PRESETS = {
     "zinc_pyr": zinc_pyr,
     "zinc_attpool": zinc_attpool,
@@ -259,4 +318,6 @@ PRESETS = {
     "coco_node": coco_node,
     "pcqm_link": pcqm_link,
     "tsp_pyr": tsp_pyr,
+    "abcd_attpool": abcd_attpool,
+    "hgat_attpool": hgat_attpool,
 }

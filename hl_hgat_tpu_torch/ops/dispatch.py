@@ -7,7 +7,8 @@ Every model op exists in two layouts sharing one call site:
   through the hand-written row-gather kernel (``ops/ell_spmm.py``), forward
   and backward; without ELL arrays it takes the COO scatter
   (``ops/spmm.py``).
-* **dense-block** (`DenseLevel`, [G, S, S] tensors): batched matmuls on
+* **dense-block** (`DenseLevel`, [G, S, S] tensors, or [1, S, S] shared
+  by every graph of a ``collate_dense_shared`` batch): batched matmuls on
   [G, S, *] tiles; outside the Laguerre kernels these are plain GEMMs, left
   to ``torch.matmul`` as the JAX package left them to XLA.  A matmul
   accumulates in float32 and rounds its result to the activation dtype.
@@ -35,8 +36,16 @@ from hl_hgat_tpu_torch.ops.spmm import spmm_coo
 
 
 def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a[g] @ b[g] in b's dtype (float32 accumulation inside the GEMM)."""
-    return torch.matmul(a.to(b.dtype), b)
+    """a[g] @ b[g] in b's dtype (float32 accumulation inside the GEMM).  A
+    shared operator a [1, M, S] against b [G, S, C] (``collate_dense_shared``)
+    is one [M, S] @ [S, G·C] GEMM over all graphs, as the JAX package's
+    broadcast einsum: the graph axis is folded into the columns and back."""
+    a = a.to(b.dtype)
+    if a.shape[0] == 1 and b.shape[0] != 1:
+        g, s = b.shape[:2]
+        cols = b.movedim(0, 1).reshape(s, -1)
+        return torch.matmul(a[0], cols).reshape(a.shape[1], g, *b.shape[2:]).movedim(1, 0)
+    return torch.matmul(a, b)
 
 
 def _t2s_mm(b1: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:

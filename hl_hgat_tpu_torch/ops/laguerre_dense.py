@@ -108,10 +108,10 @@ def _library(name: str = "laguerre_dense") -> ctypes.CDLL:
             }
         else:
             sigs = {
-                "hlhgat_band_fused_fwd": ([p] * 7 + [i] * 6 + [p], i),
-                "hlhgat_band_terms_fwd": ([p, p, p, i, i, i, i, i, p], i),
-                "hlhgat_band_fused_bwd": ([p] * 10 + [i] * 7 + [p], i),
-                "hlhgat_band_terms_bwd": ([p] * 4 + [i] * 5 + [p], i),
+                "hlhgat_band_fused_fwd": ([p] * 7 + [i] * 7 + [p], i),
+                "hlhgat_band_terms_fwd": ([p, p, p] + [i] * 6 + [p], i),
+                "hlhgat_band_fused_bwd": ([p] * 10 + [i] * 8 + [p], i),
+                "hlhgat_band_terms_bwd": ([p] * 4 + [i] * 6 + [p], i),
                 "hlhgat_band_fused_bwd_splits": ([i, i, i, i], i),
             }
         sigs["hlhgat_cuda_error_string"] = ([i], ctypes.c_char_p)
@@ -299,6 +299,23 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _band_operator(l: torch.Tensor, dtype: torch.dtype) -> tuple[torch.Tensor, int]:
+    """L in ``dtype`` for the band kernels and its row stride.  The kernels
+    load L in 16-byte chunks only from rows that start on 16-byte
+    boundaries and element by element elsewhere, so rows of another length
+    (S = 8997, the brain's level-0 L1) are copied into rows padded to 16
+    bytes; the kernels never read the padding."""
+    l = l.to(dtype)
+    s = l.shape[-1]
+    per = 16 // l.element_size()
+    if s % per == 0:
+        return l.contiguous(), s
+    ld = -(-s // per) * per
+    padded = torch.empty((*l.shape[:-1], ld), dtype=dtype, device=l.device)
+    padded[..., :s].copy_(l)
+    return padded, ld
+
+
 def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
     _check_inputs(l, x)
     g, s, c = x.shape
@@ -312,7 +329,7 @@ def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
     lib = _library("laguerre_band" if band else "laguerre_dense")
     if not band and lib.hlhgat_laguerre_fused_smem(s, f, _bf16(x)) > _SMEM_LIMIT:
         raise ValueError(f"S={s}, F={f} need more shared memory than a block has")
-    l = l.to(x.dtype).contiguous()
+    l, ld = _band_operator(l, x.dtype) if band else (l.to(x.dtype).contiguous(), s)
     x = x.contiguous()
     w = w.to(device=x.device, dtype=torch.float32).contiguous()
     b = b.to(device=x.device, dtype=torch.float32).contiguous()
@@ -322,7 +339,7 @@ def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
             ts = _term_scratch(x, k - 1)
             code = lib.hlhgat_band_fused_fwd(
                 l.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                _ptr(wt), _ptr(ts), g, s, c, f, k, _bf16(x), _stream(),
+                _ptr(wt), _ptr(ts), g, s, ld, c, f, k, _bf16(x), _stream(),
             )
         else:
             code = lib.hlhgat_laguerre_fused_fwd(
@@ -344,11 +361,16 @@ def _terms_fwd_cuda(l, x, k: int) -> torch.Tensor:
         return out
     band = s > RESIDENT_ROWS
     lib = _library("laguerre_band" if band else "laguerre_dense")
-    fn = lib.hlhgat_band_terms_fwd if band else lib.hlhgat_laguerre_terms_fwd
-    l = l.to(x.dtype).contiguous()
     x = x.contiguous()
     with torch.cuda.device(x.device):
-        code = fn(l.data_ptr(), x.data_ptr(), out.data_ptr(), g, s, c, k, _bf16(x), _stream())
+        if band:
+            l, ld = _band_operator(l, x.dtype)
+            code = lib.hlhgat_band_terms_fwd(l.data_ptr(), x.data_ptr(), out.data_ptr(), g, s,
+                                             ld, c, k, _bf16(x), _stream())
+        else:
+            l = l.to(x.dtype).contiguous()
+            code = lib.hlhgat_laguerre_terms_fwd(l.data_ptr(), x.data_ptr(), out.data_ptr(), g,
+                                                 s, c, k, _bf16(x), _stream())
     _check_launch(lib, code, "laguerre_terms_dense")
     LAUNCHES["laguerre_terms_dense"] += 1
     return out
@@ -390,7 +412,7 @@ def laguerre_dense_fused_bwd(
                 raise ValueError(f"S={s} needs more shared memory than a block has")
             n_split = lib.hlhgat_laguerre_fused_bwd_splits(n_g, c, f)
         partial = torch.empty((n_split, n_w + f), dtype=torch.float32, device=x.device)
-        l = l.to(x.dtype).contiguous()
+        l, ld = _band_operator(l, x.dtype) if band else (l.to(x.dtype).contiguous(), s)
         x = x.contiguous()
         g = g.to(x.dtype).contiguous()
         w = w.to(device=x.device, dtype=torch.float32).contiguous()
@@ -401,7 +423,7 @@ def laguerre_dense_fused_bwd(
                 code = lib.hlhgat_band_fused_bwd(
                     l.data_ptr(), x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
                     dwdb.data_ptr(), partial.data_ptr(), _ptr(wt), _ptr(ts), _ptr(bars),
-                    n_g, s, c, f, k, n_split, _bf16(x), _stream(),
+                    n_g, s, ld, c, f, k, n_split, _bf16(x), _stream(),
                 )
             else:
                 code = lib.hlhgat_laguerre_fused_bwd(
@@ -430,16 +452,17 @@ def laguerre_terms_dense_bwd(l: torch.Tensor, dt: torch.Tensor, k: int) -> torch
         return dx
     band = s > RESIDENT_ROWS
     lib = _library("laguerre_band" if band else "laguerre_dense_bwd")
-    l = l.to(dt.dtype).contiguous()
     dt = dt.contiguous()
     with torch.cuda.device(dt.device):
         if band:
+            l, ld = _band_operator(l, dt.dtype)
             bars = _term_scratch(dx, k - 1)
             code = lib.hlhgat_band_terms_bwd(
-                l.data_ptr(), dt.data_ptr(), dx.data_ptr(), _ptr(bars), n_g, s, c, k,
+                l.data_ptr(), dt.data_ptr(), dx.data_ptr(), _ptr(bars), n_g, s, ld, c, k,
                 _bf16(dt), _stream(),
             )
         else:
+            l = l.to(dt.dtype).contiguous()
             code = lib.hlhgat_laguerre_terms_bwd(
                 l.data_ptr(), dt.data_ptr(), dx.data_ptr(), n_g, s, c, k,
                 _bf16(dt), _stream(),

@@ -6,7 +6,8 @@ The port's module names follow the flax parameter paths, so a leaf at
 ``backbone.NEInt00.WV_Node.TorchLinear_0.weight``.  Leaves are renamed
 and reshaped as follows:
 
-* ``kernel`` [in, out] → ``weight`` [out, in] (transposed);
+* ``kernel`` [in, out] → ``weight`` [out, in] (transposed; a flax
+  ``nn.Conv`` kernel [k, in, out] → a Conv1d ``weight`` [out, in, k]);
 * ``weights`` (Laguerre [K, C, F]) → ``weight``, unchanged;
 * ``embedding`` → ``weight``; BN ``scale``/``offset`` → ``weight``/``bias``;
 * batch stats ``mean``/``var`` → ``running_mean``/``running_var``.
@@ -64,7 +65,7 @@ def _flax_leaf(module: nn.Module, leaf: str) -> str:
         return {"running_mean": "mean", "running_var": "var"}[leaf]
     if isinstance(module, nn.Embedding):
         return {"weight": "embedding"}[leaf]
-    if isinstance(module, nn.Linear):
+    if isinstance(module, (nn.Linear, nn.Conv1d)):
         return {"weight": "kernel", "bias": "bias"}[leaf]
     if hasattr(module, "running_mean"):  # MaskedBatchNorm
         return {"weight": "scale", "bias": "offset"}[leaf]
@@ -81,8 +82,8 @@ def to_flax_paths(
     ``tensors`` holds values shaped like ``model``'s parameters or buffers
     under their ``state_dict`` names — the parameters themselves, their
     ``.grad``s, or the BN running statistics.  The owning module's type
-    decides the flax leaf name; a Linear ``weight`` is transposed back to a
-    ``kernel``.  Parameter and batch-stat leaves of one module differ in
+    decides the flax leaf name; a Linear or Conv1d ``weight`` is transposed
+    back to a ``kernel``.  Parameter and batch-stat leaves of one module differ in
     their names, so one flat dictionary holds both collections.
     """
     modules = dict(model.named_modules())
@@ -90,7 +91,8 @@ def to_flax_paths(
     for name, tensor in tensors.items():
         owner, _, leaf = name.rpartition(".")
         flax_leaf = _flax_leaf(modules[owner], leaf)
-        arr = tensor.detach().float().cpu().numpy()
+        # a copy: the arrays outlive later in-place updates of the tensors
+        arr = tensor.detach().float().cpu().numpy().copy()
         if flax_leaf == "kernel":
             arr = arr.T
         out[tuple(owner.split(".")) + (flax_leaf,)] = arr

@@ -58,7 +58,7 @@ def test_laplacian_helpers_match_jax(rng):
     np.testing.assert_array_equal(build.eig_pe(l0, k=20), jbuild.eig_pe(j0, k=20))
 
 
-def test_dense_build_refuses_large_graphs(monkeypatch):
+def test_graphs_over_1024_edges_take_the_sparse_direct_build(monkeypatch):
     """``build_structure`` leaves the dense build to graphs of at most
     ``SPARSE_BUILD_THRESHOLD`` edges: a 1099-edge graph builds with the dense
     build made to raise, through the sparse-direct build, and gives the JAX

@@ -235,7 +235,7 @@ def test_full_width_presets_match_the_jax_parameter_tree(name, kw):
     assert set(presets.PRESETS) == {
         "zinc_pyr", "pascalvoc_node", "coco_node", "pcqm_link", "zinc_attpool",
         "zinc_poolint3_pyr", "pepfunc_pyr", "pepfunc_attpool", "cifar10sp_pyr",
-        "cifar10sp_attpool", "tsp_pyr"}
+        "cifar10sp_attpool", "tsp_pyr", "abcd_attpool", "hgat_attpool"}
     assert set(presets.PRESETS) <= set(jpresets.PRESETS)
 
 

@@ -336,6 +336,47 @@ def test_kernel_routes_take_blocks_over_128_rows(cuda, route, s):
         conv.use_terms_kernel(prev[1])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [200, 1001])
+def test_shared_operator_takes_the_folded_terms_kernel(cuda, s, dtype):
+    """A [1, S, S] operator shared by G = 5 graphs (the brain layout) on the
+    kernel routes: one terms launch on the folded [1, S, G·C] features
+    forward, one terms-backward launch, no fused launch; output (and in
+    float32 dx, dW, db) against the plain route (the broadcast recurrence).  S = 1001 is odd:
+    L's rows are not 16-byte aligned."""
+    prev = conv.use_fused_dense(), conv.use_terms_kernel()
+    try:
+        outs = {}
+        for name in ("fused", "terms", "plain"):
+            conv.use_fused_dense(name == "fused")
+            conv.use_terms_kernel(name == "terms")
+            l, _, w, b = _inputs(1, s, 24, 16, 4, dtype, cuda)
+            x = _normal((5, s, 24), 3, dtype, cuda)
+            x, w, b = (t.clone().requires_grad_() for t in (x, w, b))
+            lg.reset_launch_counts()
+            out = conv.laguerre_matvec(x, l, w, b)
+            out.backward(_normal(out.shape, 7, dtype, cuda))
+            torch.cuda.synchronize()
+            want = {key: 0 for key in lg.LAUNCHES}
+            if name != "plain":
+                want.update(laguerre_terms_dense=1, laguerre_terms_dense_bwd=1)
+            assert lg.LAUNCHES == want, (name, lg.LAUNCHES)
+            outs[name] = (out.detach(), x.grad, w.grad, b.grad)
+        for route in ("fused", "terms"):
+            # bfloat16: the output only (autograd through the plain
+            # recurrence rounds its cotangents at other points than the
+            # kernel's adjoint walk)
+            pairs = zip(outs[route], outs["plain"])
+            for a, r in (pairs if dtype == torch.float32 else [next(pairs)]):
+                assert a.shape == r.shape
+                _check(a, r, dtype)
+        with pytest.raises(ValueError):
+            lg.laguerre_dense_fused(l, x.detach(), w.detach(), b.detach())
+    finally:
+        conv.use_fused_dense(prev[0])
+        conv.use_terms_kernel(prev[1])
+
+
 # ---------------------------------------------------------------------------
 # ELL SpMM (kernel 5).  f32: the kernel and the plain version differ in
 # summation order only (W <= 20 terms): 1e-5 of max|ref|.  bf16: one final

@@ -24,12 +24,13 @@ _PROBE = textwrap.dedent("""
     want = ("train.losses", "train.metrics", "train.optim", "train.trainer",
             "profile_training", "profile_serving", "complex.batch", "ops.boundary",
             "ops.spmm", "ops.ell_spmm", "complex.coarsen", "nn.pool", "complex.augment",
-            "complex.dense", "data.synthetic", "serving")
+            "complex.dense", "data.synthetic", "serving", "data.brain", "data.datasets",
+            "models.abcd", "models.hgat", "nn.inception")
     print("WALKED", all(pkg.__name__ + "." + w in names for w in want))
 
     import torch
     from hl_hgat_tpu_torch.models import presets
-    from hl_hgat_tpu_torch.serving import Predictor
+    from hl_hgat_tpu_torch.serving import BrainPredictor, Predictor
     from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
     assert not torch.cuda.is_available()
     model, _ = presets.zinc_pyr(channels=(1,), filters=(8,), k=2, keig=4,
@@ -41,7 +42,9 @@ _PROBE = textwrap.dedent("""
                  lambda: presets.pepfunc_pyr(), lambda: presets.pepfunc_attpool(),
                  lambda: presets.cifar10sp_pyr(), lambda: presets.cifar10sp_attpool(),
                  lambda: presets.tsp_pyr(),
-                 lambda: Predictor(model, edge_level=True)):
+                 lambda: Predictor(model, edge_level=True),
+                 lambda: presets.abcd_attpool(), lambda: presets.hgat_attpool(),
+                 lambda: BrainPredictor(model, [], [])):
         try:
             call()
         except RuntimeError as err:
@@ -58,10 +61,10 @@ def test_port_imports_no_jax_and_refuses_silent_cpu():
     assert res.returncode == 0, res.stderr
     lines = res.stdout.splitlines()
     modules = [ln for ln in lines if ln.startswith("MODULES")][0].split()
-    assert int(modules[1]) >= 34
+    assert int(modules[1]) >= 39
     assert modules[2:] == ["BAD", "[]"], res.stdout
     assert "WALKED True" in lines, res.stdout
-    assert lines.count("RAISED True") == 13, res.stdout
+    assert lines.count("RAISED True") == 16, res.stdout
 
 
 def test_sources_name_no_jax():
