@@ -4,8 +4,10 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only [resident|band|ell]   # the kernel phases only
 
-1. Builds the CUDA kernels from ``hl_hgat_tpu_torch/csrc`` (nvcc, sm_90a),
-   prints the card's name and power limit, and reads the three Laguerre
+1. Builds the CUDA kernels from ``hl_hgat_tpu_torch/csrc`` (nvcc, sm_90a)
+   and, at the same time, the host library ``csrc/hlhgat_native.cpp`` (g++;
+   a ``[native]`` line with its build seconds), prints the card's name and
+   power limit, and reads the three Laguerre
    libraries with ``cuobjdump -sass``: every Laguerre kernel, fused and
    terms, forward and backward, and every product kernel of the band
    library, must hold tensor-core opcodes (HMMA / HGMMA), in float32
@@ -127,7 +129,26 @@
    memory and the top device operations, beside the same forward and steps
    on the plain route; ``abcd_attpool`` at its preset widths served once
    per dtype.
-11. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
+11. The data pipeline at the JAX CLI's zinc recipe (``[data]`` lines):
+   ZINC-format raw splits of ZINC_SPLITS seeded molecules of 9-38 atoms
+   written to a temporary directory, ``load_samples("zinc", ...)``: the
+   train split parsed, the val split parsed and cached, then read from the
+   cache (equal arrays); ``BucketedLoader`` (batch 128, packed, caps 128)
+   for each transfer, dense, compact and derived: the first batch moved to
+   the card and inflated there equal to the native dense batch (derived:
+   L0/L1 within 1 ulp, the rest bit-equal), the native collate equal to
+   ``collate_dense_packed``, host collate ms and bytes a batch over
+   DATA_COLLATE_BATCHES batches, inflate ms; bfloat16 features bit-equal
+   to the float32 batch cast on the card; full-width ``zinc_pyr`` through
+   ``Trainer.fit`` for DATA_EPOCHS epochs per dtype with the CLI's zinc
+   settings (PE flips, prefetch 2; 18 + 18 fused launches a step, 18 an
+   eval forward; finite, falling losses; finite val MAE; epoch and
+   train-epoch seconds, busy share), one more float32 train epoch with
+   prefetch 0, a step with flips on against the
+   step on a batch pre-flipped by the same draws (bit-equal when two equal
+   steps are); the val split through the coo loader on the ELL kernel
+   (80 launches a forward) against the packed predictions.
+12. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
    over every phase's main-path runs) and, last, the ``{"ok": true, ...}``
    line.
 
@@ -147,6 +168,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -222,6 +244,19 @@ ABCD_MODEL = dict(channels=(2, 2, 2), filters=(64, 128, 256), k=2, pool_num=1)
 # bfloat16 shared forward, terms kernel against the plain route (share of
 # max|ref| per output; 4.7e-4 measured at most on an H100); float32 keeps TOL
 BRAIN_BF16_TOL = 5e-3
+# the data pipeline at the JAX CLI's zinc recipe: ZINC-format raw splits of
+# the ZINC-12k subset's train and val sizes, molecules of 9-38 atoms;
+# load_samples' keig for zinc (hl_hgat_tpu/run.py:617) and the CLI's batch,
+# caps, transfer and trainer settings (run.py:37, 89, 95, 197-198, 575-594)
+ZINC_SPLITS = {"train": 10_000, "val": 1_000}
+ZINC_ATOMS = (9, 38)
+ZINC_LOAD_KEIG = 15 + 1
+DATA_LOADER = dict(batch_size=128, layout="dense_packed", node_cap=128, edge_cap=128)
+DATA_TRAINER = dict(task="regression", denorm=2.0109, save_gate=0.4, pe_flip_node_static=1,
+                    pe_flip_edge_static=1, prefetch=2)
+DATA_EPOCHS = 2
+DATA_COLLATE_BATCHES = 8  # batches a transfer's host collate is timed over
+DERIVED_RTOL = 3e-7  # derived L0/L1 against the host-built values: 1 ulp
 
 
 def fail(msg: str) -> None:
@@ -1791,6 +1826,308 @@ def brain_phase(torch, np, lg, ell, card):
     return total, ell_total, summary
 
 
+def write_zinc_raw(np, root: str, seed: int = 0) -> None:
+    """ZINC-format raw splits, the files PyG's ZINC dataset downloads:
+    ``{split}.pickle``, a list of dicts of torch tensors ``atom_type`` [n]
+    (0-27), ``bond_type`` [n, n] (0, or 1-3 on a bond) and
+    ``logP_SA_cycle_normalized`` [1].  Seeded connected molecules: a random
+    tree of 9-38 atoms plus up to three ring bonds; the label a function of
+    the size, the rings and the atom types plus noise, so that training has
+    something to learn."""
+    import os
+    import pickle
+
+    import torch
+
+    rng = np.random.default_rng(seed)
+    for split, count in ZINC_SPLITS.items():
+        mols = []
+        for _ in range(count):
+            n = int(rng.integers(ZINC_ATOMS[0], ZINC_ATOMS[1] + 1))
+            child = np.arange(1, n)
+            parent = rng.integers(0, child)
+            adj = np.zeros((n, n), np.int64)
+            adj[child, parent] = adj[parent, child] = rng.integers(1, 4, n - 1)
+            rings = 0
+            for _ in range(int(rng.integers(0, 4))):
+                a, b = rng.integers(0, n, 2)
+                if a != b and adj[a, b] == 0:
+                    adj[a, b] = adj[b, a] = 1
+                    rings += 1
+            atoms = rng.integers(0, 28, n)
+            y = 0.08 * (n - 23) - 0.6 * rings + 1.5 * float(np.mean(atoms < 4)) + 0.2 * rng.normal()
+            mols.append(dict(atom_type=torch.from_numpy(atoms), bond_type=torch.from_numpy(adj),
+                             logP_SA_cycle_normalized=torch.tensor([y], dtype=torch.float32)))
+        with open(os.path.join(root, f"{split}.pickle"), "wb") as f:
+            pickle.dump(mols, f)
+
+
+def sample_arrays(sample):
+    """Every array of a GraphSample, in a fixed order."""
+    out = [sample.x_t, sample.x_s, sample.y]
+    for lvl in sample.levels:
+        out += [getattr(lvl, f.name) for f in dataclasses.fields(lvl)]
+    return out
+
+
+def batch_tensors(batch, prefix=""):
+    """{path: array or tensor} of every array field of a batch."""
+    out = {}
+    if dataclasses.is_dataclass(batch):
+        for f in dataclasses.fields(batch):
+            out.update(batch_tensors(getattr(batch, f.name), f"{prefix}.{f.name}"))
+    elif isinstance(batch, (tuple, list)):
+        for i, v in enumerate(batch):
+            out.update(batch_tensors(v, f"{prefix}[{i}]"))
+    elif batch is not None and not isinstance(batch, (int, float, bool)):
+        out[prefix] = batch
+    return out
+
+
+def with_ell_forms(batch):
+    """A flat batch whose L0/L1 also carry their ELL forms, which the ELL
+    SpMM kernel reads (``collate(with_ell=True)`` on a loader's batch)."""
+    from hl_hgat_tpu_torch.complex.build import coo_to_ell
+
+    def ell_of(m):
+        cols, vals = coo_to_ell(m.rows, m.cols, m.vals, m.shape[0])
+        return dataclasses.replace(m, ell_cols=cols, ell_vals=vals)
+
+    return dataclasses.replace(batch, levels=tuple(
+        dataclasses.replace(lv, l0=ell_of(lv.l0), l1=ell_of(lv.l1)) for lv in batch.levels))
+
+
+def data_phase(torch, np, lg, ell, card):
+    """Phase 11: the data pipeline feeding full-width zinc_pyr training.
+    Returns the Laguerre and the ELL launches of its main-path runs."""
+    import tempfile
+
+    from hl_hgat_tpu_torch.complex.augment import pe_sign_flip
+    from hl_hgat_tpu_torch.complex.compact import inflate, maybe_inflate
+    from hl_hgat_tpu_torch.complex.dense import collate_dense_packed
+    from hl_hgat_tpu_torch.data.fast_collate import FlatSamples, collate_packed_fast
+    from hl_hgat_tpu_torch.data.ingest import load_samples
+    from hl_hgat_tpu_torch.data.loader import BucketedLoader
+    from hl_hgat_tpu_torch.data.prefetch import prefetch
+    from hl_hgat_tpu_torch.models import presets
+    from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    # ---- ingest: raw files -> load_samples.  The train split is parsed
+    # only; the val split is parsed and cached, then read from the cache,
+    # which must give the parse's arrays.
+    with tempfile.TemporaryDirectory(prefix="zinc_raw_") as root:
+        t0 = time.perf_counter()
+        write_zinc_raw(np, root)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train = load_samples("zinc", root, "train", keig=ZINC_LOAD_KEIG, cache=False)
+        t_train = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        val = load_samples("zinc", root, "val", keig=ZINC_LOAD_KEIG)
+        t_val = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cached = load_samples("zinc", root, "val", keig=ZINC_LOAD_KEIG)
+        t_read = time.perf_counter() - t0
+    for split, got in (("train", train), ("val", val), ("val cache", cached)):
+        if len(got) != ZINC_SPLITS[split.split()[0]]:
+            fail(f"ingest: {split} holds {len(got)} samples")
+    for a, b in zip(val, cached):
+        for u, v in zip(sample_arrays(a), sample_arrays(b)):
+            if not np.array_equal(u, v):
+                fail("ingest: the val cache differs from the parse")
+    print(f"[data] ingest: {len(train)} train + {len(val)} val ZINC-format molecules "
+          f"({sum(s.num_nodes for s in train)} train atoms), raw files written in "
+          f"{t_write:.2f} s; load_samples parse {t_train:.2f} s train, parse + cache "
+          f"{t_val:.2f} s val; val cache read {t_read:.2f} s, equal to the parse (host)",
+          flush=True)
+
+    # ---- the loader's transfers: the first batch on the card against the native dense batch
+    flat = FlatSamples(train)
+    bs, caps = DATA_LOADER["batch_size"], dict(node_cap=DATA_LOADER["node_cap"],
+                                                edge_cap=DATA_LOADER["edge_cap"])
+    order = np.arange(len(train))
+    np.random.default_rng(0).shuffle(order)  # the loader's first epoch (seed 0)
+    idx = order[:bs]
+    f32_first = {}
+    for transfer in ("dense", "compact", "derived"):
+        loader = BucketedLoader(train, transfer=transfer, **DATA_LOADER)
+        t0 = time.perf_counter()
+        batches = list(itertools.islice(loader, DATA_COLLATE_BATCHES))
+        host_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        first = batches[0]
+        f32_first[transfer] = first
+        if not np.array_equal(np.asarray(first.y), flat.y_graph[idx]):
+            fail(f"{transfer}: the first batch is not the loader's first draw")
+        nbytes = statistics.mean(
+            sum(v.nbytes for v in batch_tensors(b).values()) for b in batches)
+        moved_ms = median_ms(torch, lambda: first.to("cuda"), 5)
+        on_card = maybe_inflate(first.to("cuda"))
+        torch.cuda.synchronize()
+        off_card = [path for path, t in batch_tensors(on_card).items()
+                    if not (isinstance(t, torch.Tensor) and t.device.type == "cuda")]
+        if off_card:
+            fail(f"{transfer}: {off_card} not on the card after the transfer and inflate")
+        nb = on_card.x_t.shape[0]
+        ref_host = collate_packed_fast(flat, idx, num_blocks=nb, **caps)
+        ref = batch_tensors(ref_host.to("cuda"))
+        got = batch_tensors(on_card)
+        if set(got) != set(ref):
+            fail(f"{transfer}: fields {sorted(got)} against {sorted(ref)}")
+        for path, want in ref.items():
+            have = got[path]
+            if path.endswith((".l0", ".l1")) and transfer == "derived":
+                if not torch.equal(have != 0, want != 0):
+                    fail(f"derived {path}: sparsity pattern differs from the host's")
+                rel = float(((have - want).abs() / want.abs().clamp_min(1e-30)).max())
+                if not rel <= DERIVED_RTOL:
+                    fail(f"derived {path}: {rel:.3e} relative from the host's values")
+            elif have.dtype != want.dtype or not torch.equal(have, want):
+                fail(f"{transfer} {path}: not bit-equal to the native dense batch")
+        inflate_ms = inflate_dev = None
+        if transfer != "dense":
+            moved = first.to("cuda")
+            inflate_ms = median_ms(torch, lambda: inflate(moved), 10)
+            inflate_dev = device_ms(torch, lambda: inflate(moved), 10)
+        else:
+            reps = len(batches)  # full batches, no filler
+            t0 = time.perf_counter()
+            numpy_batches = [collate_dense_packed([train[j] for j in order[i * bs:(i + 1) * bs]],
+                                                  num_blocks=batches[i].x_t.shape[0], **caps)
+                             for i in range(reps)]
+            numpy_ms = (time.perf_counter() - t0) * 1e3 / reps
+            ours = batch_tensors(first)
+            for path, want in batch_tensors(numpy_batches[0]).items():
+                if ours[path].dtype != want.dtype or not np.array_equal(ours[path], want):
+                    fail(f"native collate {path} differs from collate_dense_packed's")
+        print(f"[data] transfer {transfer}: host collate {host_ms:.3f} ms a batch"
+              + (f" (NumPy collate_dense_packed {numpy_ms:.3f} ms)" if transfer == "dense" else "")
+              + f", {nbytes / 1e6:.3f} MB a batch host->device ({moved_ms:.3f} ms), {nb} blocks"
+              + (f"; inflate on the card {inflate_ms:.3f} ms, device {inflate_dev:.4f} ms"
+                 if inflate_ms is not None else "")
+              + f"; first batch equal to the native dense batch"
+              + (f" (L0/L1 within {DERIVED_RTOL:g} relative)" if transfer == "derived" else "")
+              + f" [{card}]", flush=True)
+    bf16 = next(iter(BucketedLoader(train, transfer="derived", feature_dtype="bfloat16",
+                                    **DATA_LOADER)))
+    got, ref = inflate(bf16.to("cuda")), inflate(f32_first["derived"].to("cuda"))
+    for name in ("x_t", "x_s"):
+        have, want = getattr(got, name), getattr(ref, name).to(torch.bfloat16)
+        if have.dtype != torch.bfloat16 or not torch.equal(have.view(torch.int16),
+                                                            want.view(torch.int16)):
+            fail(f"bfloat16 {name} cast on the host differs from the cast on the card")
+    print("[data] bfloat16 features cast on the host: bit-equal to the float32 batch cast on "
+          "the card", flush=True)
+
+    # ---- training: full-width zinc_pyr through Trainer.fit, derived transfer
+    launches = {name: 0 for name in lg.LAUNCHES}
+    none = dict(launches)
+    trainers = {}
+    for dtype in ("float32", "bfloat16"):
+        model, _ = presets.zinc_pyr(compute_dtype=dtype, seed=0)
+        kw = dict(transfer="derived", feature_dtype=dtype, **DATA_LOADER)
+        train_loader = BucketedLoader(train, **kw)
+        val_loader = BucketedLoader(val, shuffle=False, **kw)
+        trainer = Trainer(model, TrainerConfig(**DATA_TRAINER))
+        # fit asks for the val batches once the train epoch's loss is read
+        # back: the stamps between the two calls time each train epoch
+        stamps = []
+
+        def stamped(loader, what):
+            stamps.append((what, time.perf_counter()))
+            return loader
+
+        lg.reset_launch_counts()
+        trainer.fit(lambda: stamped(train_loader, "train"), lambda: stamped(val_loader, "val"),
+                    epochs=DATA_EPOCHS, verbose=False)
+        torch.cuda.synchronize()
+        counts = dict(lg.LAUNCHES)
+        steps, evals = DATA_EPOCHS * len(train_loader), DATA_EPOCHS * len(val_loader)
+        want = {**none, "laguerre_dense_fused": 18 * (steps + evals),
+                "laguerre_dense_fused_bwd": 18 * steps}
+        if counts != want:
+            fail(f"{dtype} fit launched {counts}, expected {want} (18 + 18 a step, 18 an eval)")
+        for name in launches:
+            launches[name] += counts[name]
+        hist = trainer.history
+        values = [r[k] for r in hist for k in ("train_loss", "val_loss", "val_metric")]
+        if len(hist) != DATA_EPOCHS or not all(np.isfinite(values)):
+            fail(f"{dtype} fit: history {hist}")
+        if not hist[1]["train_loss"] < hist[0]["train_loss"]:
+            fail(f"{dtype} fit: train loss did not fall: {hist[0]['train_loss']} -> "
+                 f"{hist[1]['train_loss']}")
+        epoch_s = [hist[0]["time"], hist[1]["time"] - hist[0]["time"]]
+        if [w for w, _ in stamps] != ["train", "val"] * DATA_EPOCHS:
+            fail(f"{dtype} fit asked for the batches as {[w for w, _ in stamps]}")
+        train_s = [b[1] - a[1] for a, b in zip(stamps[::2], stamps[1::2])]
+        batch = next(iter(train_loader))
+        dev_ms, busy, _ = device_profile(torch, lambda: trainer.train_step(batch), 3)
+        print(f"[data] {dtype} fit: {DATA_EPOCHS} epochs of {len(train_loader)} steps + "
+              f"{len(val_loader)} val batches, prefetch 2: epoch {epoch_s[0]:.2f} s, "
+              f"{epoch_s[1]:.2f} s ({len(train_loader) / epoch_s[1]:.2f} steps/s with the "
+              f"val pass), train part {train_s[0]:.2f} s, {train_s[1]:.2f} s; train loss "
+              f"{hist[0]['train_loss']:.5f} -> "
+              f"{hist[1]['train_loss']:.5f}, val MAE {hist[0]['val_metric']:.5f} -> "
+              f"{hist[1]['val_metric']:.5f}; 18 + 18 fused launches a step; a profiled step "
+              f"(transfer, inflate, flips, step): device {dev_ms:.3f} ms, busy "
+              f"{100 * busy:.1f} % [{card}]", flush=True)
+        trainers[dtype] = (trainer, train_loader, train_s)
+    trainer, train_loader, train_s = trainers["float32"]
+    t0 = time.perf_counter()
+    trainer.train_epoch(prefetch(train_loader, 0))  # reads the loss back: synchronized
+    no_prefetch = time.perf_counter() - t0
+    print(f"[data] float32 train epoch ({len(train_loader)} steps): prefetch 0 {no_prefetch:.2f} "
+          f"s, against {train_s[-1]:.2f} s with prefetch 2 in the fit's last epoch [{card}]",
+          flush=True)
+
+    # ---- a step with flips on equals a step with flips off on a pre-flipped batch
+    batch = f32_first["derived"]
+    flip_cfg = dict(DATA_TRAINER, seed=5)
+    plain_cfg = {k: v for k, v in flip_cfg.items() if not k.startswith("pe_flip")}
+    on = Trainer(copy.deepcopy(trainer.model), TrainerConfig(**flip_cfg))
+    offs = [Trainer(copy.deepcopy(trainer.model), TrainerConfig(**plain_cfg)) for _ in range(2)]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    pre = inflate(batch.to("cuda"))
+    pre = pre.replace(x_t=pe_sign_flip(pre.x_t, num_static=1, generator=g))
+    pre = pre.replace(x_s=pe_sign_flip(pre.x_s, num_static=1, generator=g))
+    losses = [on.train_step(batch)] + [t.train_step(pre) for t in offs]
+    params = [dict(t.model.named_parameters()) for t in [on] + offs]
+    same = [torch.equal(losses[0], losses[i]) and all(
+        torch.equal(params[0][k], params[i][k]) for k in params[0]) for i in (1, 2)]
+    twice = torch.equal(losses[1], losses[2]) and all(
+        torch.equal(params[1][k], params[2][k]) for k in params[1])
+    if twice and not same[0]:
+        fail("a step with PE flips differs from the step on the pre-flipped batch")
+    if not twice:  # the card's own step-to-step spread bounds the difference
+        spread = max(float((params[1][k] - params[2][k]).abs().max()) for k in params[1])
+        diff = max(float((params[0][k] - params[1][k]).abs().max()) for k in params[0])
+        if not diff <= 2 * spread:
+            fail(f"flip step differs by {diff:.3e}, two equal steps by {spread:.3e}")
+    print(f"[data] PE flips in the step against a pre-flipped batch: loss "
+          f"{float(losses[0]):.6f} / {float(losses[1]):.6f}, bit-equal {same[0]} (two plain "
+          f"steps bit-equal {twice})", flush=True)
+
+    # ---- the flat layout: the val split through the coo loader on the ELL kernel
+    kw = dict(batch_size=bs, shuffle=False, pad_final=False)
+    packed = torch.cat([trainer.eval_step(b)[0] for b in BucketedLoader(
+        val, transfer="derived", **DATA_LOADER | kw)])
+    flat_loader = BucketedLoader(val, layout="coo", **kw)
+    ell.reset_launch_counts()
+    flat_pred = torch.cat([trainer.eval_step(with_ell_forms(b))[0] for b in flat_loader])
+    torch.cuda.synchronize()
+    ell_counts = dict(ell.LAUNCHES)
+    if ell_counts != {"spmm_ell": 80 * len(flat_loader), "spmm_ell_bwd": 0}:
+        fail(f"flat eval launched {ell_counts}, expected 80 a forward")
+    err = float((flat_pred - packed).abs().max())
+    if flat_pred.shape != (len(val), 1) or not err <= CROSS_LAYOUT_ATOL:
+        fail(f"flat vs packed val predictions: shape {tuple(flat_pred.shape)}, max|err| {err}")
+    print(f"[data] val split through the coo loader on the ELL kernel ({len(flat_loader)} "
+          f"batches, {ell_counts['spmm_ell']} launches): max|flat - packed| {err:.3e}",
+          flush=True)
+    print(f"[data] phase 11 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches, ell_counts
+
+
 def print_laguerre_summary(summary, names, card):
     for name in names:
         for dtype in ("float32", "bfloat16"):
@@ -1831,10 +2168,24 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. build ---------------------------------------------------------
+    import threading
+
+    from hl_hgat_tpu_torch import native
+
     t0 = time.perf_counter()
+    host = {}
+    # the host library (g++) builds while nvcc runs; a failure raises below
+    builder = threading.Thread(target=lambda: host.update(
+        seconds=native.build(), lib=native.load()))
+    builder.start()
     logs = cuda_build.build()
     print(f"[build] {len(logs)} librar{'y' if len(logs) == 1 else 'ies'} built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    builder.join()
+    if host.get("lib") is None:
+        fail("the host library did not build or load (its error is printed above)")
+    print(f"[native] {native.library_path().name} built with g++ in {host['seconds']:.2f} s "
+          f"({'found built' if host['seconds'] == 0 else 'compiled now'})", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "bytes stack" in line or "Compiling entry" in line:
@@ -2020,7 +2371,17 @@ def main(argv=None) -> int:
     for name, n in brain_ell.items():
         ell_launches[name] += n
 
-    # ---- 10. result lines -------------------------------------------------
+    # ---- 11. the data pipeline feeding full-width zinc_pyr training ----------
+    data_launches, data_ell = data_phase(torch, np, lg, ell, card)
+    for name in ("laguerre_dense_fused", "laguerre_dense_fused_bwd"):
+        if data_launches[name] == 0:
+            fail(f"{name} was never launched on the data pipeline's path")
+    for name, n in data_launches.items():
+        launches[name] += n
+    for name, n in data_ell.items():
+        ell_launches[name] += n
+
+    # ---- 12. result lines -------------------------------------------------
     replaces = {
         "laguerre_dense_fused": "hl_hgat_tpu/ops/pallas_hodge.py:93",
         "laguerre_terms_dense": "hl_hgat_tpu/ops/pallas_hodge.py:285",

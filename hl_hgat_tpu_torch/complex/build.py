@@ -11,8 +11,10 @@ coarsened level of a pooled sample (``complex/coarsen.py``) with its pooling
 map.
 
 Graphs above ``SPARSE_BUILD_THRESHOLD`` edges take the sparse-direct
-Laplacian build (``hodge_laplacians_coo``, the JAX module's NumPy branch),
-which never forms an [E, E] matrix.
+Laplacian build (``hodge_laplacians_coo``), which never forms an [E, E]
+matrix.  Its L1 and the ELL packing of ``collate(with_ell=True)`` run in the
+host library (``native.py``), as in the JAX module; their NumPy versions
+(``hodge_l1_numpy``, ``coo_to_ell_numpy``) stay for the tests.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import dataclasses
 
 import numpy as np
 
+from hl_hgat_tpu_torch import native
 from hl_hgat_tpu_torch.complex.batch import ComplexBatch, ComplexLevel, CooMatrix, PoolMap
 
 
@@ -119,12 +122,13 @@ def boundary_dense(src: np.ndarray, dst: np.ndarray, num_nodes: int) -> np.ndarr
 
 
 def hodge_laplacians(
-    src: np.ndarray, dst: np.ndarray, num_nodes: int
-) -> tuple[np.ndarray, np.ndarray, float]:
+    src: np.ndarray, dst: np.ndarray, num_nodes: int, *, with_l1: bool = True
+) -> tuple[np.ndarray, np.ndarray | None, float]:
     """L0 = 2 B1 B1ᵀ / λmax, L1 = 2 B1ᵀ B1 / λmax (dense, float64).
 
     λmax is the largest eigenvalue of the unscaled L0, so both spectra lie
-    in [0, 2] (reference lib/Hodge_Dataset.py:451-456).
+    in [0, 2] (reference lib/Hodge_Dataset.py:451-456).  ``with_l1=False``
+    skips the [E, E] product (None in its place) where only L0 is read.
     """
     b1 = boundary_dense(src, dst, num_nodes)
     l0 = b1 @ b1.T
@@ -132,7 +136,7 @@ def hodge_laplacians(
     if max_eig <= 0:
         max_eig = 1.0
     l0 = 2.0 * l0 / max_eig
-    l1 = 2.0 * (b1.T @ b1) / max_eig
+    l1 = 2.0 * (b1.T @ b1) / max_eig if with_l1 else None
     return l0, l1, max_eig
 
 
@@ -163,11 +167,12 @@ def eig_pe(lap: np.ndarray, k: int = 9) -> np.ndarray:
 def hodge_laplacians_coo(
     src: np.ndarray, dst: np.ndarray, num_nodes: int
 ) -> tuple[tuple, tuple, float]:
-    """Sparse-direct L0/L1 construction that never densifies: the NumPy
-    branch of ``hl_hgat_tpu/complex/build.py::hodge_laplacians_coo``.
+    """Sparse-direct L0/L1 construction that never densifies, as
+    ``hl_hgat_tpu/complex/build.py::hodge_laplacians_coo``: L0 and λmax
+    (sparse Lanczos) in NumPy, L1 by the native build (``native.hodge_l1``).
 
-    nnz(L1) is about Σ deg² (edge pairs sharing a vertex) instead of E²;
-    λmax comes from sparse Lanczos.  Same math as `hodge_laplacians`:
+    nnz(L1) is about Σ deg² (edge pairs sharing a vertex) instead of E².
+    Same math as `hodge_laplacians`:
 
       L0[i, i] = deg(i);  L0[i, j] = −1 per edge {i, j}
       L1[e, e] = 2;       L1[e, f] = B1[v, e]·B1[v, f] for the shared v,
@@ -193,7 +198,21 @@ def hodge_laplacians_coo(
     if max_eig <= 0:
         max_eig = 1.0
     scale = 2.0 / max_eig
-    # L1: every ordered pair of edges within each node's incidence group
+    l0_mat.eliminate_zeros()
+    l0_coo = l0_mat.tocoo()
+    return (
+        (l0_coo.row.astype(np.int32), l0_coo.col.astype(np.int32),
+         (l0_coo.data * scale).astype(np.float32)),
+        native.hodge_l1(src, dst, num_nodes, scale),
+        max_eig,
+    )
+
+
+def hodge_l1_numpy(src: np.ndarray, dst: np.ndarray, num_nodes: int, scale: float):
+    """The NumPy version of ``native.hodge_l1`` (the JAX module's fallback
+    branch): every ordered pair of edges within each node's incidence
+    group, coalesced, sorted by (row, col), × ``scale`` in float64."""
+    e = src.shape[0]
     inc_node = np.concatenate([src, dst])
     inc_edge = np.concatenate([np.arange(e), np.arange(e)])
     inc_sign = np.concatenate([-np.ones(e), np.ones(e)])
@@ -215,15 +234,8 @@ def hodge_laplacians_coo(
                          minlength=uniq.size)
     keep = summed != 0
     uniq, summed = uniq[keep], summed[keep]
-    l0_mat.eliminate_zeros()
-    l0_coo = l0_mat.tocoo()
-    return (
-        (l0_coo.row.astype(np.int32), l0_coo.col.astype(np.int32),
-         (l0_coo.data * scale).astype(np.float32)),
-        ((uniq // e).astype(np.int32), (uniq % e).astype(np.int32),
-         (summed * scale).astype(np.float32)),
-        max_eig,
-    )
+    return ((uniq // e).astype(np.int32), (uniq % e).astype(np.int32),
+            (summed * scale).astype(np.float32))
 
 
 # Above this edge count the O(E²) dense L1 is replaced by the sparse-direct
@@ -518,13 +530,28 @@ def coo_to_ell(
     *,
     width: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Pack COO into ELL [num_rows, width] (cols, vals), zero-padded rows.
+    """Pack COO into ELL [num_rows, width] (cols, vals), zero-padded rows,
+    by the native packer (``native.coo_to_ell``), as the JAX package's
+    collate does.
 
     Entries with ``vals == 0`` are dropped; the others fill their row's
-    slots in the order they appear in the COO arrays (the slot order of the
-    JAX package's ``coo_to_ell`` loop, reproduced with a stable sort).
-    Padding slots carry column 0 and value 0.
+    slots in the order they appear in the COO arrays.  Padding slots carry
+    column 0 and value 0.  ``width`` defaults to the longest row; a row
+    that does not fit raises ValueError.
     """
+    return native.coo_to_ell(rows, cols, vals, num_rows, width)
+
+
+def coo_to_ell_numpy(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    num_rows: int,
+    *,
+    width: int | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """The NumPy version of `coo_to_ell`: the slot order of the JAX
+    package's ``coo_to_ell`` loop, reproduced with a stable sort."""
     rows, cols, vals = np.asarray(rows), np.asarray(cols), np.asarray(vals)
     keep = vals != 0
     r, c, v = rows[keep].astype(np.int64), cols[keep], vals[keep]

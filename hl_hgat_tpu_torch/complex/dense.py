@@ -328,6 +328,7 @@ def collate_dense_packed(
     y_per_edge: bool = False,
     bins: list[list[int]] | None = None,
     spans: dict[int, int] | None = None,
+    num_blocks: int | None = None,
     level_caps: list[tuple[int, int]] | None = None,
 ) -> DenseBatch:
     """Pack several graphs per dense block (block-diagonal operators), as
@@ -350,6 +351,9 @@ def collate_dense_packed(
     and padding belong to no row), with spills of their own.
 
     ``y_per_edge`` lays the labels out like x_s, [G, E, ...], 0 on padding.
+    ``num_blocks`` pads the block count to a fixed number (the extra blocks
+    all padding), for shapes that stay the same from batch to batch; a
+    plan that needs more blocks raises.
     """
     if bins is None:
         bins, spans = pack_plan(samples, node_cap, edge_cap)
@@ -369,6 +373,10 @@ def collate_dense_packed(
     for members in bins:
         block_of_bin.append(nb)
         nb += spans[members[0]] if spanning(members) else 1
+    if num_blocks is not None:
+        if nb > num_blocks:
+            raise ValueError(f"packing needs {nb} blocks > cap {num_blocks}")
+        nb = num_blocks
 
     # per level: the block shape and every graph's global (node, edge) slot
     caps: list[tuple[int, int]] = []

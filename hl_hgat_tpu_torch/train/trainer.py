@@ -12,18 +12,21 @@ decays below a floor (reference main_TSP...py:421-422).  The model and the
 optimizer hold the training state, so the steps take a batch and nothing
 else.
 
-A batch is a packed `DenseBatch` (graphs over one block span blocks) or a
-flat `ComplexBatch`; the ``node_classification`` and ``link_prediction``
-tasks read the flat batch's node mask, pairs and pair mask, and the
-``edge_binary`` task (the TSP model) per-edge labels on either layout.
+A batch is a packed `DenseBatch` (graphs over one block span blocks), a
+`CompactBatch` (``complex/compact.py``), which the steps densify on the
+trainer's device right after the transfer, or a flat `ComplexBatch`; the
+``node_classification`` and ``link_prediction`` tasks read the flat batch's
+node mask, pairs and pair mask, and the ``edge_binary`` task (the TSP
+model) per-edge labels on either layout.  ``fit`` collates the next
+``prefetch`` batches on a background thread (``data/prefetch.py``).
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: checkpoints (``ckpt_dir``, ``ckpt_every``, ``resume``), the
-positional-encoding sign flips (``pe_flip_*``) and ``prefetch > 0`` — see
+ignored: checkpoints (``ckpt_dir``, ``ckpt_every``, ``resume``), see
 ROADMAP.md, Queue 1.  The JAX ``prng_impl`` field selects a JAX random
 generator and has no counterpart: ``Trainer.generator``, on the trainer's
 device and seeded with ``config.seed``, is the one source of the step's
-random draws (``tsp_aug_prob``); dropout draws from torch's global stream.
+random draws (the PE sign flips, then ``tsp_aug_prob``, in the JAX
+trainer's order); dropout draws from torch's global stream.
 """
 
 from __future__ import annotations
@@ -36,9 +39,11 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
-from hl_hgat_tpu_torch.complex.augment import tsp_dropout
+from hl_hgat_tpu_torch.complex.augment import pe_sign_flip, tsp_dropout
 from hl_hgat_tpu_torch.complex.batch import ComplexLevel
+from hl_hgat_tpu_torch.complex.compact import maybe_inflate
 from hl_hgat_tpu_torch.complex.dense import Batch
+from hl_hgat_tpu_torch.data.prefetch import prefetch
 from hl_hgat_tpu_torch.device import resolve_device
 from hl_hgat_tpu_torch.train import losses as L
 from hl_hgat_tpu_torch.train import metrics as M
@@ -61,24 +66,24 @@ class TrainerConfig:
     denorm: float = 1.0  # MAE denormalization (ZINC: 2.0109)
     log_path: str | None = None
     seed: int = 0
+    # eigen-PE sign flips inside train_step (complex/augment.py): the number
+    # of leading static (non-PE) feature columns of x_t / x_s; None: off
+    pe_flip_node_static: int | None = None
+    pe_flip_edge_static: int | None = None
     # TSP structure augmentation inside train_step (complex/augment.py),
     # applied to each graph with this probability; None: off
     tsp_aug_prob: float | None = None
+    # batches fit collates ahead on a background thread (data/prefetch.py); 0: off
+    prefetch: int = 2
     # fields of the JAX config whose feature is not ported: any value but
     # the "off" default below raises NotImplementedError
     ckpt_dir: str | None = None
     ckpt_every: int = 0
-    pe_flip_node_static: int | None = None
-    pe_flip_edge_static: int | None = None
-    prefetch: int = 0  # the JAX default is 2; this package has no prefetcher
 
 
 _QUEUED_OPTIONS = {
     "ckpt_dir": "Queue 1 item 12 (checkpoint and CLI)",
     "ckpt_every": "Queue 1 item 12 (checkpoint and CLI)",
-    "pe_flip_node_static": "Queue 1 item 11 (data pipeline and augmentation)",
-    "pe_flip_edge_static": "Queue 1 item 11 (data pipeline and augmentation)",
-    "prefetch": "Queue 1 item 11 (data pipeline and augmentation)",
 }
 
 
@@ -142,6 +147,11 @@ class Trainer:
 
     # -- steps ---------------------------------------------------------------
 
+    def _on_device(self, batch):
+        """The batch's tensors on the trainer's device, a compact batch
+        densified there."""
+        return maybe_inflate(batch.to(self.device))
+
     def _forward_loss(self, batch: Batch):
         out = self.model(batch)
         if isinstance(out, tuple):
@@ -152,10 +162,16 @@ class Trainer:
         """Forward (BN on batch statistics), loss, backward, one Adam
         update.  Returns the loss as a 0-d tensor on the device — no
         readback, so the host can run ahead of the card."""
-        batch = batch.to(self.device)
-        if self.cfg.tsp_aug_prob is not None:
-            batch = tsp_dropout(batch, apply_prob=self.cfg.tsp_aug_prob,
-                                generator=self.generator)
+        batch = self._on_device(batch)
+        cfg = self.cfg
+        if cfg.pe_flip_node_static is not None:
+            batch = batch.replace(x_t=pe_sign_flip(
+                batch.x_t, num_static=cfg.pe_flip_node_static, generator=self.generator))
+        if cfg.pe_flip_edge_static is not None:
+            batch = batch.replace(x_s=pe_sign_flip(
+                batch.x_s, num_static=cfg.pe_flip_edge_static, generator=self.generator))
+        if cfg.tsp_aug_prob is not None:
+            batch = tsp_dropout(batch, apply_prob=cfg.tsp_aug_prob, generator=self.generator)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         _, loss = self._forward_loss(batch)
@@ -172,7 +188,10 @@ class Trainer:
 
     def eval_step(self, batch: Batch) -> tuple[torch.Tensor, torch.Tensor]:
         """(output, loss) in eval mode (BN on running statistics)."""
-        batch = batch.to(self.device)
+        return self._eval_forward(self._on_device(batch))
+
+    def _eval_forward(self, batch: Batch) -> tuple[torch.Tensor, torch.Tensor]:
+        """`eval_step` on a batch already on the device and inflated."""
         self.model.eval()
         with torch.inference_mode():
             return self._forward_loss(batch)
@@ -194,8 +213,8 @@ class Trainer:
         total, n = None, 0
         preds, ys, accs, masks, f1s = [], [], [], [], []
         for batch in batches:
-            batch = batch.to(self.device)
-            out, loss = self.eval_step(batch)
+            batch = self._on_device(batch)  # the metrics read its labels and ids
+            out, loss = self._eval_forward(batch)
             g = batch.num_graphs
             contrib = loss * g
             total = contrib if total is None else total + contrib
@@ -268,17 +287,18 @@ class Trainer:
         verbose: bool = True,
         resume: bool = False,
     ) -> "Trainer":
-        """``epochs`` rounds of train_epoch → evaluate → plateau step.
-        ``on_improve(trainer, metric)`` runs when the validation metric
-        passes the gate and beats the best so far."""
+        """``epochs`` rounds of train_epoch → evaluate → plateau step, each
+        iterable collated ``config.prefetch`` batches ahead on a background
+        thread.  ``on_improve(trainer, metric)`` runs when the validation
+        metric passes the gate and beats the best so far."""
         if resume:
             raise NotImplementedError(
                 "resume waits for ROADMAP.md Queue 1 item 12 (checkpoint and CLI)")
         cfg = self.cfg
         start = time.time()
         for epoch in range(1, epochs + 1):
-            train_loss = self.train_epoch(train_batches())
-            val_loss, val_metric = self.evaluate(val_batches())
+            train_loss = self.train_epoch(prefetch(train_batches(), cfg.prefetch))
+            val_loss, val_metric = self.evaluate(prefetch(val_batches(), cfg.prefetch))
             lr = self.plateau.step(val_loss)
             set_learning_rate(self.optimizer, lr)
             improved = self._improved(val_metric)

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports no jax, flax, optax or hl_hgat_tpu
-module, and its entry points refuse to fall back to the CPU without being
-asked."""
+"""The port stands alone: it imports no jax, flax, optax, ml_dtypes or
+hl_hgat_tpu module, loads its own build of the host library (never
+native/'s), and its entry points refuse to fall back to the CPU without
+being asked."""
 
 import os
 import pathlib
@@ -19,14 +20,23 @@ _PROBE = textwrap.dedent("""
         importlib.import_module(name)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                        "hl_hgat_tpu"))
+                                        "ml_dtypes", "hl_hgat_tpu"))
     print("MODULES", len(names), "BAD", bad)
     want = ("train.losses", "train.metrics", "train.optim", "train.trainer",
             "profile_training", "profile_serving", "complex.batch", "ops.boundary",
             "ops.spmm", "ops.ell_spmm", "complex.coarsen", "nn.pool", "complex.augment",
             "complex.dense", "data.synthetic", "serving", "data.brain", "data.datasets",
-            "models.abcd", "models.hgat", "nn.inception")
+            "models.abcd", "models.hgat", "nn.inception", "native", "data.fast_collate",
+            "complex.compact", "data.loader", "data.prefetch", "data.ingest", "data.lrgb")
     print("WALKED", all(pkg.__name__ + "." + w in names for w in want))
+
+    # the host library the port loads is its own build, never native/'s
+    from hl_hgat_tpu_torch import native
+    native.load()
+    with open("/proc/self/maps") as f:
+        libs = {line.split()[-1] for line in f if "hlhgat_native" in line}
+    print("NATIVE", sorted(libs) == [str(native.library_path())],
+          all("/_build/" in p and "/native/" not in p for p in libs))
 
     import torch
     from hl_hgat_tpu_torch.models import presets
@@ -61,9 +71,10 @@ def test_port_imports_no_jax_and_refuses_silent_cpu():
     assert res.returncode == 0, res.stderr
     lines = res.stdout.splitlines()
     modules = [ln for ln in lines if ln.startswith("MODULES")][0].split()
-    assert int(modules[1]) >= 39
+    assert int(modules[1]) >= 46
     assert modules[2:] == ["BAD", "[]"], res.stdout
     assert "WALKED True" in lines, res.stdout
+    assert "NATIVE True True" in lines, res.stdout
     assert lines.count("RAISED True") == 16, res.stdout
 
 
@@ -73,7 +84,9 @@ def test_sources_name_no_jax():
     files = sorted((ROOT / "hl_hgat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 27
     for path in files:
-        assert not pattern.search(path.read_text()), path
+        text = path.read_text()
+        assert not pattern.search(text), path
+        assert "ml_dtypes" not in text and "libhlhgat_native.so" not in text, path
 
 
 def test_every_cuda_source_is_built_and_ships_alone():

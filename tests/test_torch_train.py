@@ -304,10 +304,7 @@ def test_eval_step_uses_running_stats_and_leaves_them_alone(tiny):
     assert mae == pytest.approx(val_loss, rel=1e-5)  # denorm 1
 
 
-@pytest.mark.parametrize("cfg", [
-    dict(ckpt_dir="x"), dict(ckpt_every=1), dict(pe_flip_node_static=1),
-    dict(pe_flip_edge_static=1), dict(prefetch=2),
-])
+@pytest.mark.parametrize("cfg", [dict(ckpt_dir="x"), dict(ckpt_every=1)])
 def test_unported_options_raise(cfg):
     model = torch.nn.Linear(2, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
@@ -331,7 +328,7 @@ def test_config_fields_follow_the_jax_config():
     assert set(ref) - set(ours) == {"prng_impl"}  # a JAX generator choice
     assert set(ours) <= set(ref)
     differs = {k for k in ours if ours[k] != ref[k]}
-    assert differs == {"prefetch"}  # no prefetcher here yet: 0, not 2
+    assert differs == set()
 
 
 @pytest.mark.parametrize("task", ["classification", "multilabel", "brain"])
