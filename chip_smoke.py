@@ -30,7 +30,9 @@
    below (its 256-row L1 blocks; coarse-level blocks too where they exceed
    128 rows), counted per pass, and off the path the same graphs' 512-row
    L1 blocks at K = 4, C = F = 64 and 128.
-3. Serves 384 synthetic ZINC-like graphs through ``Predictor`` with a
+3. Serves 384 synthetic ZINC-like graphs through ``Predictor`` (loader-fed:
+   ``BucketedLoader``, derived transfer, inflated on the card; the [serve]
+   line gives the loader's block count beside the packing's) with a
    full-width, seeded ``zinc_pyr`` in float32 and bfloat16, on three conv
    routes: plain torch, terms kernel + torch GEMMs, fused kernel (default).
    Outputs must be finite, agree route to route within the tolerances
@@ -148,7 +150,19 @@
    step on a batch pre-flipped by the same draws (bit-equal when two equal
    steps are); the val split through the coo loader on the ELL kernel
    (80 launches a forward) against the packed predictions.
-12. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
+12. Checkpoint and resume at the JAX CLI's zinc recipe (``[ckpt]`` lines,
+   within CKPT_PHASE_S): ``run.main`` trains full-width ``zinc_pyr`` on
+   512 synthetic graphs 2 epochs with ``--ckpt_every 1``, resumes to 3
+   (``resumed from epoch 2``) and runs 3 straight (18 + 18 fused launches
+   a step, 18 an eval forward; epoch 3's losses within RESUME_RTOL); the
+   full state's size, load and save seconds; ``--test 1`` on the shipped
+   ``weights/torch/zinc_fold0`` against the JAX CLI's loss and metric in
+   its ``jax_reference.npz`` (CLI_RTOL); ``Predictor.from_checkpoint``
+   serving those weights to 384 graphs per dtype against the JAX forward
+   (TOL; 18 fused launches), with the Predictor call ms for the dense and
+   derived transfers; ``import_hgcnn`` of the ``model_zinc_pyr`` fixture
+   on the card against its reference output (TOL).
+13. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
    over every phase's main-path runs) and, last, the ``{"ok": true, ...}``
    line.
 
@@ -257,6 +271,25 @@ DATA_TRAINER = dict(task="regression", denorm=2.0109, save_gate=0.4, pe_flip_nod
 DATA_EPOCHS = 2
 DATA_COLLATE_BATCHES = 8  # batches a transfer's host collate is timed over
 DERIVED_RTOL = 3e-7  # derived L0/L1 against the host-built values: 1 ulp
+# phase 12: the CLI's zinc recipe (hl_hgat_tpu/run.py defaults: zinc_pyr
+# (2,3,3), (64,128,256), K=6, keig 15, MLP (256,256), batch 128, layout auto,
+# derived transfer) trained with checkpoints, resumed and compared; the
+# shipped weights/zinc_fold0 converted by scripts/convert_jax_checkpoint.py
+# (trained with --keig 4: its embedding table is [28, 60]) tested through
+# the CLI and served, against the JAX numbers in its jax_reference.npz
+CKPT_CLI = ["--benchmark", "zinc", "--synthetic", "--n_synthetic", "512", "--fold", "0",
+            "--ckpt_every", "1"]
+SHIPPED = "weights/torch/zinc_fold0"
+SHIPPED_KEIG = 4
+SHIPPED_TEST = ["--benchmark", "zinc", "--keig", str(SHIPPED_KEIG), "--synthetic",
+                "--n_synthetic", "128", "--fold", "0", "--test", "1", "--save_dir",
+                "weights/torch"]
+IMPORT_FIXTURE = "tests/golden/reference/model_zinc_pyr.npz"
+# epoch 3 resumed against straight: index_add_'s atomics on the card leave
+# the summation order free, so the bound is not bit equality
+RESUME_RTOL = 1e-5
+CLI_RTOL = 1e-4  # --test loss and metric against the JAX CLI's
+CKPT_PHASE_S = 60
 
 
 def fail(msg: str) -> None:
@@ -1094,6 +1127,7 @@ def zinc_wide_phase(torch, np, lg, model32, samples, served, card):
     packing's predictions ``served[dtype]``; then ZINC_WIDE_STEPS training
     steps at ``edge_cap=256`` in float32, the first loss against the
     128-row packing's.  Returns the launches."""
+    from hl_hgat_tpu_torch.complex.compact import maybe_inflate
     from hl_hgat_tpu_torch.complex.dense import collate_dense_packed
     from hl_hgat_tpu_torch.models import presets
     from hl_hgat_tpu_torch.serving import Predictor
@@ -1104,7 +1138,7 @@ def zinc_wide_phase(torch, np, lg, model32, samples, served, card):
         model = model32 if dtype == "float32" else presets.zinc_pyr(
             compute_dtype=dtype, seed=0)[0]
         pred = Predictor(model, batch_size=BATCH_GRAPHS, edge_cap=256)
-        batch = pred.collate(samples)
+        batch = maybe_inflate(pred.collate(samples))  # the loader's derived batch, inflated
         if batch.levels[0].l1.shape[1] != 256:
             fail(f"Predictor(edge_cap=256) packed L1 blocks of {batch.levels[0].l1.shape[1]}")
         lg.reset_launch_counts()
@@ -1185,6 +1219,7 @@ def pooled_phase(torch, np, lg, ell, model32, samples, card):
     the flat layout on the ELL kernel, held against the packed
     predictions.  Returns (Laguerre launches, ELL launches)."""
     from hl_hgat_tpu_torch.complex.build import collate
+    from hl_hgat_tpu_torch.complex.compact import maybe_inflate
     from hl_hgat_tpu_torch.models import presets
     from hl_hgat_tpu_torch.nn import conv
     from hl_hgat_tpu_torch.serving import Predictor
@@ -1200,7 +1235,7 @@ def pooled_phase(torch, np, lg, ell, model32, samples, card):
         model = model32 if dtype == "float32" else presets.cifar10sp_attpool(
             compute_dtype=dtype, seed=0)[0]
         pred = Predictor(model, batch_size=POOLED_GRAPHS, edge_cap=256)
-        batch = pred.collate(samples)
+        batch = maybe_inflate(pred.collate(samples))  # the loader's derived batch, inflated
         lg.reset_launch_counts()
         out = pred(samples)
         counts = dict(lg.LAUNCHES)
@@ -1317,6 +1352,7 @@ def tsp_phase(torch, np, lg, ell, card):
     the CPU.  Returns (Laguerre launches, ELL launches) of the phase."""
     from hl_hgat_tpu_torch.complex.augment import apply_tsp_keep, tsp_keep
     from hl_hgat_tpu_torch.complex.build import collate
+    from hl_hgat_tpu_torch.complex.compact import maybe_inflate
     from hl_hgat_tpu_torch.complex.dense import BlockDiagMatrix, collate_dense_packed
     from hl_hgat_tpu_torch.data.synthetic import tsp_like_samples
     from hl_hgat_tpu_torch.models import presets
@@ -1467,7 +1503,7 @@ def tsp_phase(torch, np, lg, ell, card):
 
         # edge-level serving on blocks that fit: fused kernel vs plain route vs CPU
         pred = Predictor(model, batch_size=TSP_SERVE_GRAPHS, edge_level=True, **TSP_CAPS)
-        sbatch = pred.collate(serve)
+        sbatch = maybe_inflate(pred.collate(serve))  # the loader's derived batch, inflated
         lg.reset_launch_counts()
         outs = pred(serve)
         counts = dict(lg.LAUNCHES)
@@ -2128,6 +2164,217 @@ def data_phase(torch, np, lg, ell, card):
     return launches, ell_counts
 
 
+def checkpoint_phase(torch, np, lg, card):
+    """Phase 12: checkpoint and resume through ``run.main`` at the CLI's zinc
+    recipe (2 epochs with ``--ckpt_every 1``, ``--resume`` to 3 against 3
+    straight), the full state saved and loaded, ``--test`` on the shipped
+    converted weights against the JAX CLI's loss and metric,
+    ``Predictor.from_checkpoint`` serving them in both dtypes against the
+    JAX forward, and ``import_hgcnn`` on the card against the reference
+    fixture.  Returns the Laguerre launches of its main-path runs."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from hl_hgat_tpu_torch import run
+    from hl_hgat_tpu_torch.complex.build import build_complex
+    from hl_hgat_tpu_torch.complex.dense import collate_dense_packed
+    from hl_hgat_tpu_torch.data.synthetic import zinc_like_samples
+    from hl_hgat_tpu_torch.models import presets
+    from hl_hgat_tpu_torch.models.backbone import BackboneConfig, HLHGCNNGraph
+    from hl_hgat_tpu_torch.nn.conv import LaguerreConv
+    from hl_hgat_tpu_torch.serving import Predictor
+    from hl_hgat_tpu_torch.train import checkpoint as ckpt
+    from hl_hgat_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from hl_hgat_tpu_torch.utils.torch_import import import_hgcnn
+
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in lg.LAUNCHES}
+    none = {name: 0 for name in lg.LAUNCHES}
+
+    def cli(argv):
+        """``run.main`` in process: (result, stdout, seconds, launches)."""
+        buf = io.StringIO()
+        lg.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = run.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(lg.LAUNCHES)
+        for name in total:
+            total[name] += counts[name]
+        for line in buf.getvalue().splitlines():
+            print(f"[ckpt]   {line}", flush=True)
+        return res, buf.getvalue(), seconds, counts
+
+    # a. train with checkpoints, resume, compare with a straight run
+    n_val = 512 // 10
+    steps = -(-(512 - n_val) // 128)  # train batches an epoch (the last filled)
+
+    def expect(epochs):
+        return {**none, "laguerre_dense_fused": 18 * (steps + 1) * epochs,
+                "laguerre_dense_fused_bwd": 18 * steps * epochs}
+
+    restore_s = []
+    maybe_restore = Trainer.maybe_restore
+
+    def timed_restore(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = maybe_restore(self, *a, **kw)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t0)
+        return out
+
+    Trainer.maybe_restore = timed_restore
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            resumed_dir, straight_dir = os.path.join(tmp, "resumed"), os.path.join(tmp, "straight")
+            _, _, s_two, c_two = cli(CKPT_CLI + ["--epochs", "2", "--save_dir", resumed_dir])
+            latest = os.path.join(resumed_dir, "zinc_fold0", "latest")
+            size = os.path.getsize(os.path.join(latest, "state.pt"))
+            meta = ckpt.load_metadata(latest)
+            resumed, out, s_res, c_res = cli(CKPT_CLI + ["--epochs", "3", "--resume", "1",
+                                                         "--save_dir", resumed_dir])
+            if "resumed from epoch 2" not in out:
+                fail("the resumed run did not print 'resumed from epoch 2'")
+            straight, _, s_str, c_str = cli(CKPT_CLI + ["--epochs", "3",
+                                                        "--save_dir", straight_dir])
+            for tag, got, epochs in (("2 epochs", c_two, 2), ("resume to 3", c_res, 1),
+                                     ("3 straight", c_str, 3)):
+                if got != expect(epochs):
+                    fail(f"checkpoint phase {tag} launched {got}, expected {expect(epochs)} "
+                         f"(18 + 18 a step, 18 an eval forward)")
+            if set(meta) != {"epoch", "metric", "lr", "best_metric"} or meta["epoch"] != 2:
+                fail(f"latest/meta.json after 2 epochs: {meta}")
+            h_res, h_str = resumed[0]["history"], straight[0]["history"][-1]
+            if [h["epoch"] for h in h_res] != [3]:
+                fail(f"the resumed run ran epochs {[h['epoch'] for h in h_res]}")
+            errs = {k: abs(h_res[0][k] - h_str[k]) / abs(h_str[k])
+                    for k in ("train_loss", "val_loss")}
+            print(f"[ckpt] zinc_pyr CLI, {steps} steps an epoch at batch 128: 2 epochs "
+                  f"{s_two:.2f} s, --resume to 3 {s_res:.2f} s (maybe_restore {restore_s[0]:.3f} "
+                  f"s), 3 straight {s_str:.2f} s; epoch 3 train loss {h_res[0]['train_loss']:.7f} "
+                  f"resumed vs {h_str['train_loss']:.7f} straight (rel {errs['train_loss']:.2e}), "
+                  f"val loss {h_res[0]['val_loss']:.7f} vs {h_str['val_loss']:.7f} (rel "
+                  f"{errs['val_loss']:.2e}); 18 + 18 launches a step [{card}]", flush=True)
+            if not all(e <= RESUME_RTOL for e in errs.values()):
+                fail(f"epoch 3 resumed differs from the straight run: {errs}")
+
+            # the full state: load into a fresh trainer, save it again
+            # the CLI's model for these flags (synthetic zinc: 16 input columns)
+            model, _ = run.make_model(run.build_argparser().parse_args(CKPT_CLI), in_t=16,
+                                      in_s=16)
+            trainer = Trainer(model, TrainerConfig())
+            t0 = time.perf_counter()
+            sections = ckpt.restore_checkpoint(latest, trainer)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            again = ckpt.save_checkpoint(os.path.join(tmp, "again"), trainer)
+            save_s = time.perf_counter() - t0
+            reread = ckpt.load_state(os.path.join(tmp, "again"))
+            for key, val in sections["model"].items():
+                if not torch.equal(reread["model"][key], val):
+                    fail(f"the state saved again differs at {key}")
+            print(f"[ckpt] full state (sections {sorted(sections)}): {size / 2**20:.2f} MiB; "
+                  f"load into a trainer on the card {load_s:.3f} s, save {save_s:.3f} s "
+                  f"({os.path.getsize(again) / 2**20:.2f} MiB) [{card}]", flush=True)
+    finally:
+        Trainer.maybe_restore = maybe_restore
+
+    # b. --test on the shipped weights against the JAX CLI's numbers
+    ref = np.load(os.path.join(SHIPPED, "jax_reference.npz"))
+    res, _, s_test, c_test = cli(SHIPPED_TEST)
+    if c_test != {**none, "laguerre_dense_fused": 18}:
+        fail(f"--test launched {c_test}, expected 18 fused (one eval batch)")
+    loss, metric = res[0]["loss"], res[0]["metric"]
+    rl = abs(loss - float(ref["cli_loss"])) / abs(float(ref["cli_loss"]))
+    rm = abs(metric - float(ref["cli_metric"])) / abs(float(ref["cli_metric"]))
+    print(f"[ckpt] --test on {SHIPPED}: loss {loss:.7f} (JAX CLI {float(ref['cli_loss']):.7f}, "
+          f"rel {rl:.2e}), metric {metric:.7f} (JAX {float(ref['cli_metric']):.7f}, rel "
+          f"{rm:.2e}), {s_test:.2f} s [{card}]", flush=True)
+    if not (rl <= CLI_RTOL and rm <= CLI_RTOL):
+        fail("--test on the shipped weights disagrees with the JAX CLI")
+
+    # c. serve the shipped weights
+    samples = zinc_like_samples(np.random.default_rng(0), BATCH_GRAPHS, keig=16)
+    jax_out = ref["out"]
+    scale = float(np.abs(jax_out).max())
+    width = samples[0].x_t.shape[1]
+    for dtype in ("float32", "bfloat16"):
+        model, _ = presets.zinc_pyr(keig=SHIPPED_KEIG, in_t=width, in_s=width,
+                                    compute_dtype=dtype, seed=0)
+        pred = Predictor.from_checkpoint(model, SHIPPED, batch_size=BATCH_GRAPHS)
+        lg.reset_launch_counts()
+        out = pred(samples)
+        counts = dict(lg.LAUNCHES)
+        if counts != {**none, "laguerre_dense_fused": 18}:
+            fail(f"serving the shipped weights ({dtype}) launched {counts}")
+        for name in total:
+            total[name] += counts[name]
+        err = float(np.abs(out - jax_out).max())
+        if out.shape != jax_out.shape or not err <= TOL[dtype] * scale:
+            fail(f"served shipped weights {dtype}: max|err| {err:.3e} against the JAX "
+                 f"forward (max|ref| {scale:.3e})")
+        batch = pred.collate(samples)
+        fwd_ms = median_ms(torch, lambda: pred.forward(batch), 10)
+        calls = {}
+        for transfer in ("dense", "derived"):
+            p = Predictor(pred.model, batch_size=BATCH_GRAPHS, transfer=transfer)
+            p(samples)  # warm
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                p(samples)
+                times.append((time.perf_counter() - t0) * 1e3)
+            calls[transfer] = statistics.median(times)
+        print(f"[serve] shipped zinc_fold0 {dtype}, {BATCH_GRAPHS} graphs: forward incl. "
+              f"inflate {fwd_ms:.3f} ms; Predictor call (loader, transfer, forward, readback) "
+              f"dense {calls['dense']:.1f} ms, derived {calls['derived']:.1f} ms; vs the JAX "
+              f"forward max|err| {err:.3e} (max|ref| {scale:.3e}); 18 fused launches "
+              f"[{card}]", flush=True)
+
+    # d. the reference importer on the card
+    fx = dict(np.load(IMPORT_FIXTURE))
+    n_off = np.concatenate([[0], np.cumsum(fx["num_node1"].astype(int))])
+    e_off = np.concatenate([[0], np.cumsum(fx["num_edge1"].astype(int))])
+    ei = fx["in/edge_index"]
+    fsamples = []
+    for i in range(len(n_off) - 1):
+        cols = (ei[0] >= n_off[i]) & (ei[0] < n_off[i + 1])
+        fsamples.append(build_complex(
+            ei[:, cols] - n_off[i], int(n_off[i + 1] - n_off[i]),
+            x_t=fx["in/x_t"][n_off[i]:n_off[i + 1]], x_s=fx["in/x_s"][e_off[i]:e_off[i + 1]],
+            y=np.zeros(1)))
+    cfg = BackboneConfig(channels=(2, 2), filters=(8, 16), k=3, init_k=3, deg_eps=0.0)
+    model = HLHGCNNGraph(cfg, fx["in/x_t"].shape[1], fx["in/x_s"].shape[1], mlp_channels=(),
+                         num_classes=1).cuda()
+    _, report = import_hgcnn(model, {k[3:]: v for k, v in fx.items() if k.startswith("sd/")})
+    batch = collate_dense_packed(fsamples).to("cuda")
+    n_convs = sum(1 for m in model.modules() if isinstance(m, LaguerreConv))
+    lg.reset_launch_counts()
+    with torch.inference_mode():
+        out = model.eval()(batch).float().cpu().numpy()
+    counts = dict(lg.LAUNCHES)
+    if counts != {**none, "laguerre_dense_fused": n_convs}:
+        fail(f"the imported fixture model launched {counts}, expected {n_convs} fused")
+    for name in total:
+        total[name] += counts[name]
+    err, fscale = float(np.abs(out - fx["out"]).max()), float(np.abs(fx["out"]).max())
+    print(f"[ckpt] import_hgcnn({IMPORT_FIXTURE}): {len(report.consumed)} tensors, "
+          f"{len(report.dropped)} dropped; forward on the card vs the reference's out max|err| "
+          f"{err:.3e} (max|ref| {fscale:.3e}), {n_convs} fused launches [{card}]", flush=True)
+    if not err <= TOL["float32"] * fscale:
+        fail("the imported fixture model disagrees with the reference's output")
+    took = time.perf_counter() - t_phase
+    print(f"[ckpt] phase 12 took {took:.1f} s [{card}]", flush=True)
+    if took > CKPT_PHASE_S:
+        fail(f"phase 12 took {took:.1f} s, over {CKPT_PHASE_S} s")
+    return total
+
+
 def print_laguerre_summary(summary, names, card):
     for name in names:
         for dtype in ("float32", "bfloat16"):
@@ -2155,6 +2402,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from hl_hgat_tpu_torch import cuda_build
+    from hl_hgat_tpu_torch.complex.compact import maybe_inflate
     from hl_hgat_tpu_torch.complex.dense import collate_dense_packed
     from hl_hgat_tpu_torch.data.synthetic import zinc_like_samples
     from hl_hgat_tpu_torch.models import presets
@@ -2274,7 +2522,10 @@ def main(argv=None) -> int:
         model = model32 if dtype == "float32" else presets.zinc_pyr(
             compute_dtype=dtype, seed=0)[0]
         pred = Predictor(model, batch_size=BATCH_GRAPHS)
-        batch = pred.collate(samples)
+        # the loader's derived batch, inflated on the card; its block count
+        # is the packing's rounded up by the loader's pinned caps
+        batch = maybe_inflate(pred.collate(samples))
+        blocks = batch.x_t.shape[0]
         outs, fwd_ms = {}, {}
         for route, (fused, terms) in ROUTES.items():
             conv.use_fused_dense(fused)
@@ -2294,10 +2545,11 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             pred(samples)
             e2e = (time.perf_counter() - t0) * 1e3
-            print(f"[serve] {dtype} {route}: forward {fwd_ms[route]:.3f} ms, "
+            print(f"[serve] {dtype} {route}: forward {fwd_ms[route]:.3f} ms on {blocks} blocks "
+                  f"({g} packed, rounded up by the loader), "
                   f"{BATCH_GRAPHS / fwd_ms[route] * 1e3:.1f} graphs/s, "
                   f"{real_edges / fwd_ms[route] * 1e3:.4e} real edges/s; "
-                  f"Predictor call incl. host collate {e2e:.1f} ms [{card}]", flush=True)
+                  f"Predictor call incl. loader and inflate {e2e:.1f} ms [{card}]", flush=True)
         conv.use_fused_dense(True)
         conv.use_terms_kernel(False)
         served[dtype] = outs["fused"]
@@ -2381,7 +2633,15 @@ def main(argv=None) -> int:
     for name, n in data_ell.items():
         ell_launches[name] += n
 
-    # ---- 12. result lines -------------------------------------------------
+    # ---- 12. checkpoint, resume, --test and serving of the shipped weights ---
+    ckpt_launches = checkpoint_phase(torch, np, lg, card)
+    for name in ("laguerre_dense_fused", "laguerre_dense_fused_bwd"):
+        if ckpt_launches[name] == 0:
+            fail(f"{name} was never launched on the checkpoint phase's path")
+    for name, n in ckpt_launches.items():
+        launches[name] += n
+
+    # ---- 13. result lines -------------------------------------------------
     replaces = {
         "laguerre_dense_fused": "hl_hgat_tpu/ops/pallas_hodge.py:93",
         "laguerre_terms_dense": "hl_hgat_tpu/ops/pallas_hodge.py:285",

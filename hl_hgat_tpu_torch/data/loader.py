@@ -174,6 +174,13 @@ class BucketedLoader:
     def __len__(self) -> int:
         return -(-(len(self.samples) // self.variants) // self.batch_size)
 
+    def set_epoch(self, epoch: int) -> "BucketedLoader":
+        """Serve epoch ``epoch`` (0-based) next: its shuffle, augmentation
+        variants and link queries.  A resumed run positions its loaders so,
+        and then sees the batches a straight run does."""
+        self._epoch = epoch
+        return self
+
     def __iter__(self) -> Iterator:
         ep = self._epoch
         rng = np.random.default_rng(self.seed + ep)

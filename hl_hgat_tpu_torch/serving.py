@@ -1,17 +1,21 @@
 """Batch inference (``hl_hgat_tpu/serving.py``).
 
-    model, _ = presets.zinc_pyr()                 # on the CUDA card
-    predictor = Predictor(model, batch_size=RECOMMENDED_THROUGHPUT_BATCH)
+    model, _ = presets.zinc_pyr(keig=4, in_t=16, in_s=16)   # on the CUDA card
+    predictor = Predictor.from_checkpoint(model, "weights/torch/zinc_fold0",
+                                          batch_size=RECOMMENDED_THROUGHPUT_BATCH)
     preds = predictor(samples)                    # [N, 1], input order
 
     model, _ = presets.tsp_pyr()                  # an edge-level model
     edge_preds = Predictor(model, edge_level=True, edge_cap=512)(samples)
                                                   # one [e_i, 1] array a graph
 
-Samples are packed with ``collate_dense_packed``; the forward runs in eval
-mode (BN on running statistics, no dropout) under ``torch.inference_mode``.
-A short final batch is filled with copies of its first sample, as the JAX
-Predictor does, and the filler rows are stripped.  Every graph must fit one
+Samples ride the training fast path: ``data/loader.py::BucketedLoader``
+(one bucket, no shuffle, packed blocks, ``transfer="derived"`` by default:
+B1 and the spectral scales cross to the card and ``maybe_inflate``
+rebuilds the operators there), and the forward runs in eval mode (BN on
+running statistics, no dropout) under ``torch.inference_mode``.  A short
+final batch is filled with the loader's filler graph, whose rows are
+stripped, so outputs align 1:1 with the inputs.  Every graph must fit one
 block of (node_cap, edge_cap) rows, as in the JAX loader: a larger one
 raises (batches with graphs spanning blocks are trained and evaluated
 through ``train.Trainer``).
@@ -33,14 +37,12 @@ import numpy as np
 import torch
 
 from hl_hgat_tpu_torch.complex.build import GraphSample
-from hl_hgat_tpu_torch.complex.dense import (
-    DenseBatch,
-    collate_dense_packed,
-    collate_dense_shared,
-    pack_graphs,
-)
+from hl_hgat_tpu_torch.complex.compact import level_edge_mask, maybe_inflate
+from hl_hgat_tpu_torch.complex.dense import DenseBatch, collate_dense_shared
 from hl_hgat_tpu_torch.data.datasets import brain_sample
+from hl_hgat_tpu_torch.data.loader import BucketedLoader
 from hl_hgat_tpu_torch.device import resolve_device
+from hl_hgat_tpu_torch.train.checkpoint import restore_checkpoint
 
 # The JAX package's serving batch for ZINC-sized graphs; here it is the
 # batch chip_smoke.py drives, not a measured optimum of this port.
@@ -48,9 +50,11 @@ RECOMMENDED_THROUGHPUT_BATCH = 384
 
 
 class Predictor:
-    """Deterministic forward over packed batches.  ``edge_level=True``
-    returns one unpadded array per input graph (per-edge outputs, TSP);
-    otherwise one leading-axis row per graph."""
+    """Deterministic forward over loader-fed packed batches.
+    ``edge_level=True`` returns one unpadded array per input graph
+    (per-edge outputs, TSP); otherwise one leading-axis row per graph.
+    ``transfer`` is the loader's: ``"derived"`` (default), ``"compact"``
+    or ``"dense"``."""
 
     def __init__(
         self,
@@ -60,6 +64,7 @@ class Predictor:
         edge_level: bool = False,
         node_cap: int = 128,
         edge_cap: int = 0,
+        transfer: str = "derived",
         device=None,
     ):
         self.device = resolve_device(device)
@@ -68,22 +73,22 @@ class Predictor:
         self.edge_level = edge_level
         self.node_cap = node_cap
         self.edge_cap = edge_cap or node_cap
+        self.transfer = transfer
 
-    def collate(self, samples: Sequence[GraphSample]) -> DenseBatch:
-        """One packed batch on the predictor's device; a graph over the caps
-        raises."""
-        samples = list(samples)
-        return collate_dense_packed(
-            samples, node_cap=self.node_cap, edge_cap=self.edge_cap,
-            y_per_edge=self.edge_level,
-            bins=pack_graphs(samples, self.node_cap, self.edge_cap),
-        ).to(self.device)
+    @classmethod
+    def from_checkpoint(cls, model: torch.nn.Module, ckpt_dir: str,
+                        example_samples: Sequence[GraphSample] | None = None,
+                        **kw) -> "Predictor":
+        """A predictor serving the ``model`` section of
+        ``<ckpt_dir>/state.pt`` (``train/checkpoint.py``; a model-only file
+        will do).  ``example_samples`` is accepted for the JAX signature
+        and unused: a torch module has its shapes already, where the JAX
+        Predictor initializes a restore template from them."""
+        self = cls(model, **kw)
+        restore_checkpoint(ckpt_dir, self.model)
+        return self
 
-    def forward(self, batch: DenseBatch) -> torch.Tensor:
-        with torch.inference_mode():
-            return self.model(batch)
-
-    def __call__(self, samples: Sequence[GraphSample]) -> np.ndarray | list[np.ndarray]:
+    def loader(self, samples: Sequence[GraphSample]) -> BucketedLoader:
         # serving inputs may be unlabeled; the collate wants a y array
         samples = [
             dataclasses.replace(
@@ -91,21 +96,38 @@ class Predictor:
             if s.y is None else s
             for s in samples
         ]
+        return BucketedLoader(
+            samples, batch_size=min(self.batch_size, len(samples)), shuffle=False,
+            num_buckets=1, layout="dense_packed", node_cap=self.node_cap,
+            edge_cap=self.edge_cap, transfer=self.transfer, y_per_edge=self.edge_level)
+
+    def collate(self, samples: Sequence[GraphSample]):
+        """The first batch the loader makes of ``samples``, on the
+        predictor's device (a compact batch not yet inflated); a graph over
+        the caps raises."""
+        return next(iter(self.loader(list(samples)))).to(self.device)
+
+    def forward(self, batch) -> torch.Tensor:
+        """The model on a batch on the device, inflated first if compact."""
+        with torch.inference_mode():
+            out = self.model(maybe_inflate(batch))
+        return out[0] if isinstance(out, tuple) else out
+
+    def __call__(self, samples: Sequence[GraphSample]) -> np.ndarray | list[np.ndarray]:
+        samples = list(samples)
         bs = min(self.batch_size, len(samples))
-        outs = []
-        for lo in range(0, len(samples), bs):
-            chunk = samples[lo : lo + bs]
-            keep = len(chunk)
-            chunk = chunk + [chunk[0]] * (bs - keep)  # filler, stripped below
-            batch = self.collate(chunk)
-            out = self.forward(batch).float().cpu().numpy()
+        outs: list[np.ndarray] = []
+        for i, host in enumerate(self.loader(samples)):
+            keep = min(bs, len(samples) - i * bs)  # the rest are filler
+            out = self.forward(host.to(self.device)).float().cpu().numpy()
             if not self.edge_level:
                 outs.append(out[:keep])
                 continue
-            # each graph's edge rows, in its own edge order
-            lvl = batch.level0
-            gid = lvl.s_gid.reshape(-1).cpu().numpy()
-            real = lvl.edge_mask.reshape(-1).cpu().numpy() > 0
+            # each graph's edge rows, in its own edge order, from the host
+            # batch's graph ids: no readback from the device
+            lvl = host.levels[0]
+            gid = np.asarray(lvl.s_gid).reshape(-1)
+            real = np.asarray(level_edge_mask(lvl)).reshape(-1) > 0
             flat = out.reshape((-1,) + out.shape[2:])
             outs.extend(flat[(gid == g) & real] for g in range(keep))
         return outs if self.edge_level else np.concatenate(outs, axis=0)

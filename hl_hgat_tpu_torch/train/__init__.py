@@ -1,5 +1,5 @@
-"""Training layer: losses, metrics, optimizer, plateau schedule, loop
-(``hl_hgat_tpu/train``, without checkpointing)."""
+"""Training layer: losses, metrics, optimizer, plateau schedule, loop and
+checkpoints (``hl_hgat_tpu/train``)."""
 
 from hl_hgat_tpu_torch.train.losses import (
     bce_logits_loss,

@@ -20,19 +20,29 @@ node mask, pairs and pair mask, and the ``edge_binary`` task (the TSP
 model) per-edge labels on either layout.  ``fit`` collates the next
 ``prefetch`` batches on a background thread (``data/prefetch.py``).
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: checkpoints (``ckpt_dir``, ``ckpt_every``, ``resume``), see
-ROADMAP.md, Queue 1.  The JAX ``prng_impl`` field selects a JAX random
-generator and has no counterpart: ``Trainer.generator``, on the trainer's
-device and seeded with ``config.seed``, is the one source of the step's
-random draws (the PE sign flips, then ``tsp_aug_prob``, in the JAX
-trainer's order); dropout draws from torch's global stream.
+Checkpoints (``train/checkpoint.py``) as in the JAX trainer: with
+``ckpt_dir`` the full state is saved there whenever the validation metric
+improves, and with ``ckpt_every`` N also to ``<ckpt_dir>/latest`` every N
+epochs; ``maybe_restore`` picks the newer of the two (``prefer="best"``:
+the improvement checkpoint only) and ``fit(resume=True)`` continues from
+it.  A resume restores what the JAX trainer restores: parameters, BN
+statistics, the Adam state, the random streams, the best metric and the
+plateau's lr from ``meta.json``; the plateau's ``best`` and ``num_bad`` are
+not saved (nor are they in the JAX package), so a resumed plateau counts
+afresh.
+
+The JAX ``prng_impl`` field selects a JAX random generator and has no
+counterpart: ``Trainer.generator``, on the trainer's device and seeded
+with ``config.seed``, is the one source of the step's random draws (the PE
+sign flips, then ``tsp_aug_prob``, in the JAX trainer's order); dropout
+draws from torch's global stream.  Both are saved in a checkpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from typing import Callable, Iterable
 
@@ -47,6 +57,12 @@ from hl_hgat_tpu_torch.data.prefetch import prefetch
 from hl_hgat_tpu_torch.device import resolve_device
 from hl_hgat_tpu_torch.train import losses as L
 from hl_hgat_tpu_torch.train import metrics as M
+from hl_hgat_tpu_torch.train.checkpoint import (
+    has_checkpoint,
+    load_metadata,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from hl_hgat_tpu_torch.train.optim import ReduceLROnPlateau, adam_l2, set_learning_rate
 
 
@@ -75,16 +91,12 @@ class TrainerConfig:
     tsp_aug_prob: float | None = None
     # batches fit collates ahead on a background thread (data/prefetch.py); 0: off
     prefetch: int = 2
-    # fields of the JAX config whose feature is not ported: any value but
-    # the "off" default below raises NotImplementedError
+    # the full state is saved here when the validation metric improves
+    # (train/checkpoint.py); None: no checkpoints
     ckpt_dir: str | None = None
+    # also save it every N epochs to <ckpt_dir>/latest, improved or not, so
+    # a crashed run resumes from its last epoch; 0: off
     ckpt_every: int = 0
-
-
-_QUEUED_OPTIONS = {
-    "ckpt_dir": "Queue 1 item 12 (checkpoint and CLI)",
-    "ckpt_every": "Queue 1 item 12 (checkpoint and CLI)",
-}
 
 
 def _loss_for(task: str):
@@ -125,11 +137,6 @@ class Trainer:
     otherwise; without a card and without ``device="cpu"`` it raises."""
 
     def __init__(self, model: torch.nn.Module, config: TrainerConfig, device=None):
-        defaults = TrainerConfig()
-        for name, where in _QUEUED_OPTIONS.items():
-            if getattr(config, name) != getattr(defaults, name):
-                raise NotImplementedError(
-                    f"TrainerConfig.{name} waits for ROADMAP.md {where}")
         self.cfg = config
         self._loss_fn = _loss_for(config.task)
         self.device = resolve_device(device)
@@ -144,6 +151,42 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.best_metric = np.inf if config.metric_mode == "min" else -np.inf
         self.history: list[dict] = []
+        # the epoch fit is running (1-based), for loaders positioned by epoch
+        self.epoch = 0
+
+    # -- state ---------------------------------------------------------------
+
+    def maybe_restore(self, prefer: str = "newest") -> int:
+        """Load a checkpoint from ``ckpt_dir`` if there is one; returns the
+        epoch to start from (1 when nothing was loaded).
+
+        ``prefer="newest"`` (resume) takes whichever of the improvement
+        checkpoint and ``latest/`` has the higher ``meta.json`` epoch and
+        needs the full state; ``prefer="best"`` (test, serving) takes the
+        improvement checkpoint only, and a file holding the model alone
+        will do.  The best metric and the plateau's lr come from
+        ``meta.json``."""
+        cfg = self.cfg
+        if not cfg.ckpt_dir:
+            return 1
+        if prefer not in ("newest", "best"):
+            raise ValueError(f"prefer must be 'newest' or 'best', got {prefer!r}")
+        dirs = (cfg.ckpt_dir,) if prefer == "best" else (
+            cfg.ckpt_dir, os.path.join(cfg.ckpt_dir, "latest"))
+        candidates = [d for d in dirs if has_checkpoint(d)]
+        if not candidates:
+            return 1
+        chosen = max(candidates, key=lambda d: int(load_metadata(d).get("epoch", 0)))
+        restore_checkpoint(chosen, self, full=prefer != "best")
+        meta = load_metadata(chosen)
+        if "best_metric" in meta:
+            self.best_metric = meta["best_metric"]
+        elif "metric" in meta:
+            self.best_metric = meta["metric"]
+        if "lr" in meta:
+            self.plateau.lr = meta["lr"]
+            set_learning_rate(self.optimizer, meta["lr"])
+        return int(meta.get("epoch", 0)) + 1
 
     # -- steps ---------------------------------------------------------------
 
@@ -290,13 +333,20 @@ class Trainer:
         """``epochs`` rounds of train_epoch → evaluate → plateau step, each
         iterable collated ``config.prefetch`` batches ahead on a background
         thread.  ``on_improve(trainer, metric)`` runs when the validation
-        metric passes the gate and beats the best so far."""
-        if resume:
-            raise NotImplementedError(
-                "resume waits for ROADMAP.md Queue 1 item 12 (checkpoint and CLI)")
+        metric passes the gate and beats the best so far, and with
+        ``ckpt_dir`` the state is saved then.  ``resume=True`` first loads
+        the newest checkpoint (``maybe_restore``) and continues after its
+        epoch; ``self.epoch`` holds the epoch running, so a loader can be
+        positioned by it."""
         cfg = self.cfg
         start = time.time()
-        for epoch in range(1, epochs + 1):
+        start_epoch = 1
+        if resume:
+            start_epoch = self.maybe_restore()
+            if verbose and start_epoch > 1:
+                print(f"resumed from epoch {start_epoch - 1}")
+        for epoch in range(start_epoch, epochs + 1):
+            self.epoch = epoch
             train_loss = self.train_epoch(prefetch(train_batches(), cfg.prefetch))
             val_loss, val_metric = self.evaluate(prefetch(val_batches(), cfg.prefetch))
             lr = self.plateau.step(val_loss)
@@ -306,6 +356,12 @@ class Trainer:
                 self.best_metric = val_metric
                 if on_improve is not None:
                     on_improve(self, val_metric)
+                if cfg.ckpt_dir:
+                    save_checkpoint(cfg.ckpt_dir, self,
+                                    extra=dict(epoch=epoch, metric=val_metric, lr=lr))
+            if cfg.ckpt_every and cfg.ckpt_dir and epoch % cfg.ckpt_every == 0:
+                save_checkpoint(os.path.join(cfg.ckpt_dir, "latest"), self, extra=dict(
+                    epoch=epoch, metric=val_metric, lr=lr, best_metric=self.best_metric))
             rec = dict(
                 epoch=epoch, time=time.time() - start, train_loss=train_loss,
                 val_loss=val_loss, val_metric=val_metric, lr=lr,
@@ -317,7 +373,7 @@ class Trainer:
                     f"Epoch {epoch:03d} t={rec['time']:.1f}s "
                     f"train={train_loss:.4f} val={val_loss:.4f} "
                     f"metric={val_metric:.4f} lr={lr:.2e}"
-                    + (" *improved*" if improved else "")
+                    + ((" *saved*" if cfg.ckpt_dir else " *improved*") if improved else "")
                 )
             if cfg.log_path:
                 with open(cfg.log_path, "a") as f:

@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-from hl_hgat_tpu.utils.torch_import import _translate_hgcnn
 from hl_hgat_tpu_torch.complex.batch import ComplexLevel, CooMatrix
 from hl_hgat_tpu_torch.complex.build import build_complex, collate
 from hl_hgat_tpu_torch.complex.coarsen import build_pyramid
@@ -28,6 +27,7 @@ from hl_hgat_tpu_torch.models.abcd import HLHGCNNAbcd
 from hl_hgat_tpu_torch.models.backbone import BackboneConfig
 from hl_hgat_tpu_torch.nn.blocks import HLFilter
 from hl_hgat_tpu_torch.nn.conv import ChebConv
+from hl_hgat_tpu_torch.utils.torch_import import _translate_hgcnn
 from hl_hgat_tpu_torch.weights import from_flax_variables
 
 FIX_DIR = os.path.join(os.path.dirname(__file__), "golden", "reference")

@@ -107,7 +107,7 @@ def test_msi_value_matches_reference(mode):
 def test_model_zinc_pyr_matches_reference(layout):
     """The reference model's own output, from its own state dict, on every
     layout the package has; the collated L0 must equal the reference's."""
-    from hl_hgat_tpu.utils.torch_import import _translate_hgcnn  # a name table, no JAX
+    from hl_hgat_tpu_torch.utils.torch_import import _translate_hgcnn
     from hl_hgat_tpu_torch.complex.build import build_complex, collate
     from hl_hgat_tpu_torch.complex.dense import collate_dense_packed
     from hl_hgat_tpu_torch.models.backbone import BackboneConfig, HLHGCNNGraph

@@ -343,7 +343,7 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "golden", "reference", "grad_z
 def _translated(fx, prefix):
     """Reference state-dict names → flax paths, through the JAX package's
     importer table (a module that imports no JAX)."""
-    from hl_hgat_tpu.utils.torch_import import _translate_hgcnn
+    from hl_hgat_tpu_torch.utils.torch_import import _translate_hgcnn
 
     entries, _ = _translate_hgcnn(
         {k[len(prefix):]: v for k, v in fx.items() if k.startswith(prefix)}, head="graph")

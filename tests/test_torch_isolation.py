@@ -27,7 +27,8 @@ _PROBE = textwrap.dedent("""
             "ops.spmm", "ops.ell_spmm", "complex.coarsen", "nn.pool", "complex.augment",
             "complex.dense", "data.synthetic", "serving", "data.brain", "data.datasets",
             "models.abcd", "models.hgat", "nn.inception", "native", "data.fast_collate",
-            "complex.compact", "data.loader", "data.prefetch", "data.ingest", "data.lrgb")
+            "complex.compact", "data.loader", "data.prefetch", "data.ingest", "data.lrgb",
+            "train.checkpoint", "utils.torch_import", "run")
     print("WALKED", all(pkg.__name__ + "." + w in names for w in want))
 
     # the host library the port loads is its own build, never native/'s
@@ -39,6 +40,7 @@ _PROBE = textwrap.dedent("""
           all("/_build/" in p and "/native/" not in p for p in libs))
 
     import torch
+    from hl_hgat_tpu_torch import run
     from hl_hgat_tpu_torch.models import presets
     from hl_hgat_tpu_torch.serving import BrainPredictor, Predictor
     from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
@@ -54,7 +56,9 @@ _PROBE = textwrap.dedent("""
                  lambda: presets.tsp_pyr(),
                  lambda: Predictor(model, edge_level=True),
                  lambda: presets.abcd_attpool(), lambda: presets.hgat_attpool(),
-                 lambda: BrainPredictor(model, [], [])):
+                 lambda: BrainPredictor(model, [], []),
+                 lambda: run.main(["--benchmark", "zinc", "--synthetic", "--n_synthetic", "4",
+                                   "--fold", "0", "--epochs", "1"])):
         try:
             call()
         except RuntimeError as err:
@@ -75,7 +79,7 @@ def test_port_imports_no_jax_and_refuses_silent_cpu():
     assert modules[2:] == ["BAD", "[]"], res.stdout
     assert "WALKED True" in lines, res.stdout
     assert "NATIVE True True" in lines, res.stdout
-    assert lines.count("RAISED True") == 16, res.stdout
+    assert lines.count("RAISED True") == 17, res.stdout
 
 
 def test_sources_name_no_jax():

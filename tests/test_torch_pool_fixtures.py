@@ -19,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from hl_hgat_tpu.utils.torch_import import _translate_hgcnn
 from hl_hgat_tpu_torch.complex.batch import ComplexLevel, CooMatrix, PoolMap
 from hl_hgat_tpu_torch.complex.build import build_complex, collate
 from hl_hgat_tpu_torch.complex.coarsen import build_pyramid
@@ -28,6 +27,7 @@ from hl_hgat_tpu_torch.models.backbone import BackboneConfig, HLHGCNNGraph
 from hl_hgat_tpu_torch.nn.interaction import NodeEdgeInt
 from hl_hgat_tpu_torch.nn.pool import sapool_scatter
 from hl_hgat_tpu_torch.train.losses import l1_loss
+from hl_hgat_tpu_torch.utils.torch_import import _translate_hgcnn
 from hl_hgat_tpu_torch.weights import from_flax_variables, to_flax_paths
 
 FIX_DIR = os.path.join(os.path.dirname(__file__), "golden", "reference")

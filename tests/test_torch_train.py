@@ -304,16 +304,7 @@ def test_eval_step_uses_running_stats_and_leaves_them_alone(tiny):
     assert mae == pytest.approx(val_loss, rel=1e-5)  # denorm 1
 
 
-@pytest.mark.parametrize("cfg", [dict(ckpt_dir="x"), dict(ckpt_every=1)])
-def test_unported_options_raise(cfg):
-    model = torch.nn.Linear(2, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        Trainer(model, TrainerConfig(**cfg), device="cpu")
-
-
 def test_resume_and_unknown_task_raise(tiny):
-    with pytest.raises(NotImplementedError, match="resume"):
-        _tiny_trainer().fit(lambda: tiny, lambda: tiny, epochs=1, resume=True)
     with pytest.raises(ValueError, match="unknown task"):
         Trainer(torch.nn.Linear(2, 1), TrainerConfig(task="ranking"), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -36,7 +36,6 @@ from hl_hgat_tpu.train.losses import focal_loss as jfocal_loss
 from hl_hgat_tpu.train.trainer import Trainer as JTrainer
 from hl_hgat_tpu.train.trainer import TrainerConfig as JTrainerConfig
 from hl_hgat_tpu.train.trainer import TrainState
-from hl_hgat_tpu.utils.torch_import import _translate_hgcnn
 from hl_hgat_tpu_torch.complex.augment import apply_tsp_keep, tsp_dropout, tsp_keep
 from hl_hgat_tpu_torch.complex.build import build_complex, collate
 from hl_hgat_tpu_torch.complex.dense import BlockDiagMatrix, collate_dense_packed
@@ -46,6 +45,7 @@ from hl_hgat_tpu_torch.models.backbone import BackboneConfig, HLHGCNNTsp
 from hl_hgat_tpu_torch.serving import Predictor
 from hl_hgat_tpu_torch.train.losses import focal_loss
 from hl_hgat_tpu_torch.train.trainer import Trainer, TrainerConfig
+from hl_hgat_tpu_torch.utils.torch_import import _translate_hgcnn
 from hl_hgat_tpu_torch.weights import from_flax_variables, to_flax_paths
 
 MODEL_ATOL = 1e-4
