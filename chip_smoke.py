@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only [resident|band|ell]   # the kernel phases only
+    python3 chip_smoke.py --parallel-only   # build, then phase 13 only
 
 1. Builds the CUDA kernels from ``hl_hgat_tpu_torch/csrc`` (nvcc, sm_90a)
    and, at the same time, the host library ``csrc/hlhgat_native.cpp`` (g++;
@@ -162,9 +163,31 @@
    (TOL; 18 fused launches), with the Predictor call ms for the dense and
    derived transfers; ``import_hgcnn`` of the ``model_zinc_pyr`` fixture
    on the card against its reference output (TOL).
-13. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
-   over every phase's main-path runs) and, last, the ``{"ok": true, ...}``
-   line.
+13. The parallel package (``[dp]`` and ``[gp]`` lines, within
+   PARALLEL_PHASE_S; every time "on one card, ranks sharing it"): one
+   ``DataParallelTrainer`` step of full-width ``zinc_pyr`` on the 384
+   graphs at world 1 on NCCL in this process, per dtype, against
+   ``Trainer.train_step`` from the same copy (TOL, bit-equal yes/no, 18 + 18
+   fused launches, both step times); two gloo ranks spawned on the one card
+   (NCCL refuses two ranks on one device; the kernels are built before they
+   start, every rank is joined with a timeout, and each reports its
+   launches): a step on the two distinct halves of the 384 graphs and one on
+   identical halves, each held to a single process's step on the mean
+   gradient and mean BN statistics (TRAIN_LEAF_TOL; parameters equal across
+   ranks), then ``run.main`` with ``--dp 2`` in the ranks at phase 12's
+   recipe, 2 epochs and ``--resume`` to 3 against 3 straight (finite
+   losses; epoch 3 within RESUME_RTOL; the recipe's targets are N(0, 1)
+   draws, so its L1 loss starts at its floor and need not fall); then the
+   graph-parallel model of ``examples/gp_brain.py`` on the Shen-268
+   skeleton and its MLGC level over two gloo ranks (the halo exchange staged
+   through host memory) against the single-process model on the flat layout
+   on the card (forward TOL; one Adam step, loss rtol 1e-4, parameters rtol
+   1e-3 / atol 1e-5), the halo and all-gather bytes of an L1 mat-vec, and
+   both step times.  The graph path's products are plain torch: no hand
+   kernel runs there.
+14. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
+   over every phase's main-path runs, the spawned ranks' included) and,
+   last, the ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the result lines.  Needs one card;
 exits non-zero without one.
@@ -290,6 +313,17 @@ IMPORT_FIXTURE = "tests/golden/reference/model_zinc_pyr.npz"
 RESUME_RTOL = 1e-5
 CLI_RTOL = 1e-4  # --test loss and metric against the JAX CLI's
 CKPT_PHASE_S = 60
+# phase 13: the parallel package.  Data parallelism on zinc_pyr (world 1 on
+# NCCL; world 2 on gloo, the ranks sharing the card) and the CLI's --dp 2 at
+# phase 12's recipe; the graph-parallel model of examples/gp_brain.py on the
+# Shen-268 skeleton over two gloo ranks
+DP_CLI = CKPT_CLI + ["--dp", "2"]
+GP_MODEL = dict(channels=(2, 2), filters=(32, 64), k=4, init_k=2, pool_locs=(0,), att_locs=(0,),
+                act="leaky_relu")
+GP_MLP = (64,)
+GP_LR = 1e-3
+GP_STEPS = 3  # timed steps after the checked one
+PARALLEL_PHASE_S = 120
 
 
 def fail(msg: str) -> None:
@@ -2375,6 +2409,361 @@ def checkpoint_phase(torch, np, lg, card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the parallel package, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+def pre_bn_biases(model) -> set:
+    """Every conv and Linear bias but the output layer's sits in front of a
+    BatchNorm: its exact gradient is zero, what comes back is noise."""
+    return {n for n, _ in model.named_parameters()
+            if n.endswith(".bias") and not n.endswith("bn.bias")
+            and "MaskedBatchNorm" not in n and n != "head.out.bias"}
+
+
+def state_error(got, ref, zero_grad) -> tuple[float, str]:
+    """Worst leaf of two state dicts: max|got − ref| of the leaf's max|ref|
+    (``zero_grad`` leaves and all-zero ones: of the largest entry of the
+    state), and where."""
+    top = max(float(abs(r).max()) for r in ref.values())
+    worst, where = 0.0, ""
+    for name, r in ref.items():
+        scale = float(abs(r).max())
+        if name in zero_grad or scale == 0.0:
+            scale = top
+        rel = float(abs(got[name].astype("float64") - r).max()) / scale
+        if rel >= worst:
+            worst, where = rel, name
+    return worst, where
+
+
+def _host_state(model):
+    """The model's state dict as float32 host arrays (copies)."""
+    return {k: v.detach().float().cpu().numpy().copy() for k, v in model.state_dict().items()}
+
+
+def _mean_step(torch, cfg, model, halves):
+    """One Adam step on the mean of the halves' gradients with the mean of
+    their BatchNorm statistics, in this process: (state dict after it, mean
+    loss)."""
+    from hl_hgat_tpu_torch.train import Trainer
+
+    grads, bufs, losses = [], [], []
+    for half in halves:
+        t = Trainer(copy.deepcopy(model), cfg)
+        losses.append(float(t._compute_gradients(half)))
+        grads.append([p.grad.clone() for p in t.model.parameters()])
+        bufs.append([b.clone() for b in t.model.buffers()])
+    mean = Trainer(copy.deepcopy(model), cfg)
+    for i, p in enumerate(mean.model.parameters()):
+        p.grad = sum(g[i] for g in grads) / len(grads)
+    mean.optimizer.step()
+    with torch.no_grad():
+        for i, b in enumerate(mean.model.buffers()):
+            b.copy_(sum(x[i] for x in bufs) / len(bufs))
+    return _host_state(mean.model), sum(losses) / len(losses)
+
+
+def dp_rank(rank: int, world: int, halves, save_dir: str) -> dict:
+    """One of two gloo ranks on the shared card: the data-parallel step of
+    full-width zinc_pyr on distinct halves (case 1) and on identical ones
+    (case 2), each against its single-process reference (rank 0), then the
+    CLI with --dp 2 at phase 12's recipe, 2 epochs and a resume to 3, and
+    3 epochs straight."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hl_hgat_tpu_torch import run
+    from hl_hgat_tpu_torch.models import presets
+    from hl_hgat_tpu_torch.ops import laguerre_dense as lg
+    from hl_hgat_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TrainerConfig(task="regression", lr=1e-3, weight_decay=1e-3)
+    model, _ = presets.zinc_pyr(seed=0)
+    out = {"launches": {name: 0 for name in lg.LAUNCHES}}
+
+    def driven(fn):
+        """fn() on the main path: its launches added to the rank's."""
+        lg.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = dict(lg.LAUNCHES)
+        for name, n in counts.items():
+            out["launches"][name] += n
+        return res, counts
+
+    on_card = [h.to("cuda") for h in halves]
+    for case, mine in (("distinct", on_card[rank]), ("identical", on_card[0])):
+        trainer = DataParallelTrainer(copy.deepcopy(model), cfg)
+        loss, counts = driven(lambda: float(trainer.train_step(mine)))
+        out[case] = dict(loss=loss, counts=counts, state=_host_state(trainer.model))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            trainer.train_step(mine)
+        torch.cuda.synchronize()
+        out[case]["ms"] = (time.perf_counter() - t0) * 1e3 / 3
+        if rank == 0:  # the single-process references, not on the main path
+            if case == "distinct":
+                out[case]["ref"], out[case]["ref_loss"] = _mean_step(torch, cfg, model, on_card)
+            else:
+                single = Trainer(copy.deepcopy(model), cfg)
+                out[case]["ref_loss"] = float(single.train_step(on_card[0]))
+                out[case]["ref"] = _host_state(single.model)
+    del on_card
+    for name, argv in (("two", DP_CLI + ["--epochs", "2", "--save_dir", save_dir]),
+                       ("resume", DP_CLI + ["--epochs", "3", "--resume", "1",
+                                            "--save_dir", save_dir]),
+                       ("straight", DP_CLI + ["--epochs", "3",
+                                              "--save_dir", save_dir + "_straight"])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res, counts = driven(lambda: run.main(argv))
+        out[name] = dict(history=res[0]["history"], counts=counts, text=buf.getvalue(),
+                         seconds=time.perf_counter() - t0)
+    return out
+
+
+def gp_sample(np, levels, pools, series):
+    """examples/gp_brain.py's sample on the Shen-268 skeleton: level 0 and
+    its MLGC level, 8 series columns a node, |FC| an edge."""
+    from hl_hgat_tpu_torch.complex.build import GraphSample
+
+    st = levels[0]
+    fc = np.corrcoef(series[0])
+    return GraphSample(x_t=series[0][:, :8].astype(np.float32).copy(),
+                       x_s=np.abs(fc[st.src, st.dst])[:, None].astype(np.float32),
+                       y=np.asarray([0.37], np.float32), levels=[levels[0], levels[1]],
+                       pools=[pools[0]])
+
+
+def gp_model(torch):
+    from hl_hgat_tpu_torch.models.backbone import BackboneConfig, HLHGCNNGraph
+
+    return HLHGCNNGraph(BackboneConfig(**GP_MODEL), 8, 1, mlp_channels=GP_MLP, num_classes=1,
+                        generator=torch.Generator().manual_seed(0))
+
+
+def gp_rank(rank: int, world: int, sample, state) -> dict:
+    """One of two gloo ranks on the shared card: its part of the Shen-268
+    complex, the eval forward and GP_STEPS ``DataParallelTrainer`` steps
+    over a (1, 2) mesh, the first checked."""
+    import torch
+
+    from hl_hgat_tpu_torch.parallel import graph_parallel as gp
+    from hl_hgat_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from hl_hgat_tpu_torch.parallel.gp_model import build_gp_batch, gp_apply
+    from hl_hgat_tpu_torch.parallel.mesh import make_mesh
+    from hl_hgat_tpu_torch.train import TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    batch = build_gp_batch(sample, world)
+    build_s = time.perf_counter() - t0
+    model = gp_model(torch).cuda()
+    model.load_state_dict(state)
+    with torch.inference_mode():
+        out = gp_apply(model.eval(), batch).float().cpu().numpy()
+    trainer = DataParallelTrainer(model, TrainerConfig(task="regression", lr=GP_LR),
+                                  make_mesh(1, world))
+    loss = float(trainer.train_step(batch))
+    after = _host_state(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GP_STEPS):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    l1 = batch.level0.l1
+    return dict(out=out, loss=loss, state=after, build_s=build_s,
+                ms=(time.perf_counter() - t0) * 1e3 / GP_STEPS,
+                bytes=gp.exchange_bytes(l1, GP_MODEL["filters"][0]),
+                rounds=l1.rounds(), halo=l1.halo_per_round, rows=l1.c_local)
+
+
+def parallel_phase(torch, np, lg, card, samples):
+    """Phase 13: the parallel package on the card.  Data parallelism at
+    world 1 on NCCL in this process, then at world 2 on gloo with both
+    ranks on the card (distinct and identical halves of the 384 graphs,
+    the --dp 2 CLI with a resume), then the graph-parallel model over two
+    gloo ranks on the Shen-268 skeleton.  Returns the Laguerre launches of
+    its main-path runs, the ranks' summed."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from hl_hgat_tpu_torch.complex.build import collate
+    from hl_hgat_tpu_torch.complex.dense import collate_dense_packed
+    from hl_hgat_tpu_torch.models import presets
+    from hl_hgat_tpu_torch.parallel import distributed as pdist
+    from hl_hgat_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    label = f"on one card, ranks sharing it [{card}]"
+    none = {name: 0 for name in lg.LAUNCHES}
+    per_step = {**none, "laguerre_dense_fused": 18, "laguerre_dense_fused_bwd": 18}
+    total = dict(none)
+    cfg = TrainerConfig(task="regression", lr=1e-3, weight_decay=1e-3)
+
+    # a. world 1 on NCCL, in this process: the DP step against Trainer.train_step
+    pdist.init_distributed(0, 1, init_method=f"tcp://localhost:{pdist.free_port()}")
+    if dist.get_backend() != "nccl":
+        fail(f"world 1 on one card took {dist.get_backend()}, not nccl")
+    batch = collate_dense_packed(samples).to("cuda")
+    try:
+        for dtype in ("float32", "bfloat16"):
+            model, _ = presets.zinc_pyr(compute_dtype=dtype, seed=0)
+            single, dp = Trainer(copy.deepcopy(model), cfg), DataParallelTrainer(model, cfg)
+            lg.reset_launch_counts()
+            loss = float(dp.train_step(batch))
+            torch.cuda.synchronize()
+            counts = dict(lg.LAUNCHES)
+            if counts != per_step:
+                fail(f"[dp] world 1 {dtype} step launched {counts}, expected {per_step}")
+            for name in total:
+                total[name] += counts[name]
+            ref_loss = float(single.train_step(batch))
+            got, ref = _host_state(dp.model), _host_state(single.model)
+            equal = all(np.array_equal(got[k], ref[k]) for k in ref)
+            worst, where = state_error(got, ref, pre_bn_biases(model))
+            ms = {}
+            for tag, tr in (("dp", dp), ("single", single)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    tr.train_step(batch)
+                torch.cuda.synchronize()
+                ms[tag] = (time.perf_counter() - t0) * 1e3 / 3
+            print(f"[dp] world 1 nccl {dtype}, zinc_pyr on {BATCH_GRAPHS} graphs: loss "
+                  f"{loss:.7f} vs Trainer.train_step {ref_loss:.7f}; parameters worst leaf "
+                  f"{worst:.3e} of max|ref| ({where}), bit-equal: {'yes' if equal else 'no'}; "
+                  f"18 + 18 fused launches; step {ms['dp']:.3f} ms vs {ms['single']:.3f} ms "
+                  f"single-process {label}", flush=True)
+            if not (worst <= TOL[dtype] and abs(loss - ref_loss) <= TOL[dtype] * abs(ref_loss)):
+                fail(f"[dp] world 1 {dtype} step disagrees with Trainer.train_step")
+    finally:
+        dist.destroy_process_group()
+
+    # b. world 2 on gloo, both ranks on the card; the CLI with --dp 2
+    half = len(samples) // 2
+    halves = [collate_dense_packed(samples[:half]), collate_dense_packed(samples[half:])]
+    with tempfile.TemporaryDirectory() as save_dir:
+        t0 = time.perf_counter()
+        per_rank = pdist.spawn_ranks(dp_rank, 2, halves, save_dir, timeout=PARALLEL_PHASE_S)
+        spawn_s = time.perf_counter() - t0
+    r0 = per_rank[0]
+    zero_grad = pre_bn_biases(presets.zinc_pyr(seed=0)[0])
+    ref_name = {"distinct": "one Adam step on the mean gradient and mean BN statistics",
+                "identical": "Trainer.train_step"}
+    for case in ("distinct", "identical"):
+        for r in per_rank:
+            if r[case]["counts"] != per_step:
+                fail(f"[dp] world 2 {case} step launched {r[case]['counts']} on a rank")
+        equal = all(np.array_equal(per_rank[1][case]["state"][k], v)
+                    for k, v in r0[case]["state"].items())
+        worst, where = state_error(r0[case]["state"], r0[case]["ref"], zero_grad)
+        ref_loss = r0[case]["ref_loss"]
+        print(f"[dp] world 2 gloo, {case} halves of {half} graphs: loss {r0[case]['loss']:.7f} "
+              f"vs {ref_loss:.7f} single-process ({ref_name[case]}); "
+              f"parameters equal across ranks: {'yes' if equal else 'no'}; worst leaf "
+              f"{worst:.3e} of max|ref| ({where}); 18 + 18 fused launches a step per rank; "
+              f"step {r0[case]['ms']:.3f} ms {label}", flush=True)
+        if not equal:
+            fail(f"[dp] world 2 {case}: the ranks' parameters differ")
+        if not (worst <= TRAIN_LEAF_TOL and abs(r0[case]["loss"] - ref_loss)
+                <= TRAIN_NORM_TOL * abs(ref_loss)):
+            fail(f"[dp] world 2 {case} step disagrees with the single-process step")
+    hist = r0["two"]["history"] + r0["resume"]["history"]
+    for line in (r0["two"]["text"] + r0["resume"]["text"]).splitlines():
+        print(f"[dp]   {line}", flush=True)
+    losses = [h["train_loss"] for h in hist]
+    val = [h["val_loss"] for h in hist]
+    h_str = r0["straight"]["history"][-1]
+    errs = {k: abs(hist[-1][k] - h_str[k]) / abs(h_str[k]) for k in ("train_loss", "val_loss")}
+    if ([h["epoch"] for h in hist] != [1, 2, 3] or not np.all(np.isfinite(losses + val))
+            or "resumed from epoch 2" not in r0["resume"]["text"]):
+        fail(f"[dp] the --dp 2 CLI run: epochs {[h['epoch'] for h in hist]}, losses {losses}")
+    if max(errs.values()) > RESUME_RTOL:
+        fail(f"[dp] --dp 2: the resumed epoch 3 is off the straight run's by {errs}")
+    batches = -(-(512 - 512 // 10) // 128)  # train batches an epoch, as in phase 12
+    steps = -(-batches // 2)  # grouped by the 2 ranks
+    for r, rank in zip(per_rank, (0, 1)):
+        for name, epochs in (("two", 2), ("resume", 1), ("straight", 3)):
+            want = {**none, "laguerre_dense_fused": 18 * (steps + (rank == 0)) * epochs,
+                    "laguerre_dense_fused_bwd": 18 * steps * epochs}
+            if r[name]["counts"] != want:
+                fail(f"[dp] --dp 2 rank {rank} {name} launched {r[name]['counts']}, "
+                     f"expected {want}")
+        for name, n in r["launches"].items():
+            total[name] += n
+    print(f"[dp] --dp 2 CLI, {steps} steps an epoch per rank at batch 128 a rank: train loss "
+          f"by epoch {[round(x, 5) for x in losses]}, val {[round(x, 5) for x in val]} (the "
+          f"synthetic targets are N(0, 1) draws: the L1 loss starts at its floor, E|y| = "
+          f"0.798); epoch 3 resumed vs straight rel {errs['train_loss']:.2e} train, "
+          f"{errs['val_loss']:.2e} val; 2 epochs {r0['two']['seconds']:.2f} s, --resume to 3 "
+          f"{r0['resume']['seconds']:.2f} s, 3 straight {r0['straight']['seconds']:.2f} s; "
+          f"both ranks spawned, checked and joined in {spawn_s:.1f} s {label}", flush=True)
+
+    # c. the graph-parallel model over two gloo ranks on the Shen-268 skeleton
+    levels, pools, series, _, _ = brain_data(np, with_flat=False)
+    sample = gp_sample(np, levels, pools, series)
+    model = gp_model(torch).cuda()
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    flat = collate([sample], multiple=1).to("cuda")
+    with torch.inference_mode():
+        ref_out = model.eval()(flat).float().cpu().numpy()
+    single = Trainer(model, TrainerConfig(task="regression", lr=GP_LR))
+    ref_loss = float(single.train_step(flat))
+    ref_state = _host_state(single.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GP_STEPS):
+        single.train_step(flat)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3 / GP_STEPS
+    per_rank = pdist.spawn_ranks(gp_rank, 2, sample, state, timeout=PARALLEL_PHASE_S)
+    zero_grad = pre_bn_biases(gp_model(torch))
+    g0 = per_rank[0]
+    scale = float(np.abs(ref_out).max())
+    err = max(float(np.abs(r["out"] - ref_out).max()) for r in per_rank)
+    bad = [k for k, v in ref_state.items()
+           if not np.allclose(g0["state"][k], v, rtol=1e-3,
+                              atol=2 * GP_LR if k in zero_grad else 1e-5)]
+    worst, where = state_error(g0["state"], ref_state, zero_grad)
+    halo, gather = g0["bytes"]
+    print(f"[gp] Shen-268 skeleton ({levels[0].num_nodes} nodes, {levels[0].num_edges} edges, "
+          f"MLGC level {levels[1].num_nodes}/{levels[1].num_edges}) over 2 gloo ranks, "
+          f"gp_brain model: forward max|err| {err:.3e} (max|ref| {scale:.3e}) vs the "
+          f"single-process forward; one Adam step loss {g0['loss']:.7f} vs {ref_loss:.7f}, "
+          f"parameters worst leaf {worst:.3e} of max|ref| ({where}), outside rtol 1e-3 / "
+          f"atol 1e-5 (biases a BN follows: 2·lr): {bad}", flush=True)
+    print(f"[gp] L1 mat-vec at {GP_MODEL['filters'][0]} columns: halo {halo} B over rounds "
+          f"{g0['rounds']} ({g0['halo']} rows a block of {g0['rows']}) vs all-gather "
+          f"{gather} B; host build of a part {g0['build_s']:.2f} s; step {g0['ms']:.3f} ms "
+          f"graph-parallel vs {single_ms:.3f} ms single-process (mean of {GP_STEPS}) {label}",
+          flush=True)
+    if not err <= TOL["float32"] * scale:
+        fail("[gp] the graph-parallel forward disagrees with the single-process forward")
+    if abs(g0["loss"] - ref_loss) > 1e-4 * abs(ref_loss) or bad:
+        fail("[gp] the graph-parallel step disagrees with the single-process step")
+    if any(not np.array_equal(per_rank[1]["state"][k], v) for k, v in g0["state"].items()):
+        fail("[gp] the ranks' parameters differ")
+    took = time.perf_counter() - t_phase
+    print(f"[dp] phase 13 took {took:.1f} s, Laguerre launches on its main path (the ranks' "
+          f"summed; the graph path launches none) {total} {label}", flush=True)
+    if took > PARALLEL_PHASE_S:
+        fail(f"phase 13 took {took:.1f} s, over {PARALLEL_PHASE_S} s")
+    return total
+
+
 def print_laguerre_summary(summary, names, card):
     for name in names:
         for dtype in ("float32", "bfloat16"):
@@ -2393,6 +2782,8 @@ def main(argv=None) -> int:
                     help="build and check the kernels only (phases 2, 2b, 4 and 6; "
                          "'resident': 2 and 4, blocks of at most 128 rows; 'band': 2b, "
                          "blocks over 128 rows; 'ell': 6), no result line")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="build, then phase 13 alone (the parallel package), no result line")
     args = ap.parse_args(argv)
     import torch
 
@@ -2466,6 +2857,11 @@ def main(argv=None) -> int:
     g = host_batch.x_t.shape[0]
     print(f"[data] {BATCH_GRAPHS} graphs, {real_edges} real edges, {g} blocks of "
           f"{host_batch.x_t.shape[1]} ({time.perf_counter() - t0:.2f} s host)", flush=True)
+
+    if args.parallel_only:
+        parallel_phase(torch, np, lg, card, samples)
+        print("[parallel-only] done, no result line", flush=True)
+        return 0
 
     # ---- 2. kernels vs plain at main-path shapes --------------------------
     model32, _ = presets.zinc_pyr(seed=0)
@@ -2641,7 +3037,15 @@ def main(argv=None) -> int:
     for name, n in ckpt_launches.items():
         launches[name] += n
 
-    # ---- 13. result lines -------------------------------------------------
+    # ---- 13. the parallel package: DP on NCCL and gloo, --dp 2, graph parallel ---
+    dp_launches = parallel_phase(torch, np, lg, card, samples)
+    for name in ("laguerre_dense_fused", "laguerre_dense_fused_bwd"):
+        if dp_launches[name] == 0:
+            fail(f"{name} was never launched on the parallel phase's path")
+    for name, n in dp_launches.items():
+        launches[name] += n
+
+    # ---- 14. result lines -------------------------------------------------
     replaces = {
         "laguerre_dense_fused": "hl_hgat_tpu/ops/pallas_hodge.py:93",
         "laguerre_terms_dense": "hl_hgat_tpu/ops/pallas_hodge.py:285",

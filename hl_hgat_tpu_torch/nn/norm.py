@@ -5,12 +5,20 @@ output is re-masked so padding stays zero, and the running statistics
 follow torch's defaults: eps 1e-5, momentum 0.1, unbiased running
 variance.  The apply is folded: y = x·a + b with a = γ/√(var+ε),
 b = β − μ·a, computed in float32 and rounded to x's dtype.
+
+Inside ``parallel.graph_parallel.graph_axis(group)`` the rows of a masked
+input are one rank's part of a graph-sharded complex: the count, sum and
+sum of squares are summed over the group before the division, so every
+rank normalizes with the whole complex's statistics (an unmasked input,
+such as the head's replicated readout, is not reduced).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from hl_hgat_tpu_torch.parallel import graph_parallel as gp
 
 
 EPS = 1e-5
@@ -51,9 +59,15 @@ class MaskedBatchNorm(nn.Module):
             total_sq = (xf * xf).sum(reduce_axes)
         else:
             per_row = xf[..., 0].numel() / max(m.numel(), 1)
-            n_valid = torch.clamp(m.sum() * per_row, min=1.0)
+            n_valid = m.sum() * per_row
             total = (xf * m).sum(reduce_axes)
             total_sq = (xf * xf * m).sum(reduce_axes)
+            if gp.graph_axis_active():
+                c = total.shape[0]
+                both = gp.all_reduce_sum(torch.cat([total, total_sq, n_valid[None]]),
+                                         gp.active_graph_group())
+                total, total_sq, n_valid = both[:c], both[c:2 * c], both[2 * c]
+            n_valid = torch.clamp(n_valid, min=1.0)
         mean = total / n_valid
         var = torch.clamp(total_sq / n_valid - mean * mean, min=0.0)
         with torch.no_grad():

@@ -17,6 +17,7 @@ from torch import nn
 from hl_hgat_tpu_torch.nn.interaction import NodeEdgeInt
 from hl_hgat_tpu_torch.ops.dispatch import pool_to_coarse
 from hl_hgat_tpu_torch.ops.segment import segment_mean
+from hl_hgat_tpu_torch.parallel import graph_parallel as gp
 
 
 def global_mean_pool(x: torch.Tensor, seg_id: torch.Tensor, num_graphs: int,
@@ -58,5 +59,9 @@ class SAPool(nn.Module):
 
 
 def max_normalize(a: torch.Tensor) -> torch.Tensor:
-    """Gates over their largest value (at least 1e-12)."""
-    return a / torch.clamp(a.max(), min=1e-12)
+    """Gates over their largest value (at least 1e-12); inside
+    ``graph_parallel.graph_axis`` the largest over every rank's rows."""
+    top = a.max()
+    if gp.graph_axis_active():
+        top = gp.all_reduce_max(top, gp.active_graph_group())
+    return a / torch.clamp(top, min=1e-12)

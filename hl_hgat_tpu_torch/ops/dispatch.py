@@ -18,6 +18,12 @@ Every model op exists in two layouts sharing one call site:
   ``index_add`` over the flattened rows: the JAX package's XLA route, with
   no Pallas kernel there either.
 
+A level of one complex sharded over the ranks of a graph group
+(`parallel.graph_parallel.ShardedLevel`, its operators `HaloShard`s) sends
+each op that crosses the row partition through a collective here: the
+mat-vecs and boundary couplings through the halo exchange, the readouts and
+the pooling through an ``all_reduce`` (``parallel/graph_parallel.py``).
+
 Modules call these functions and never branch themselves.
 """
 
@@ -33,6 +39,13 @@ from hl_hgat_tpu_torch.ops import boundary as B
 from hl_hgat_tpu_torch.ops.ell_spmm import spmm_ell_symmetric
 from hl_hgat_tpu_torch.ops.segment import segment_mean, segment_mean_onehot
 from hl_hgat_tpu_torch.ops.spmm import spmm_coo
+from hl_hgat_tpu_torch.parallel.graph_parallel import (
+    HaloShard,
+    ShardedLevel,
+    halo_matvec,
+    sharded_mean,
+    sharded_pool,
+)
 
 
 def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -100,7 +113,8 @@ def _spill_add(y, spill: CooMatrix | None, x, *, transpose: bool = False,
 def lap_matvec(lap, x: torch.Tensor) -> torch.Tensor:
     """L @ x for a `CooMatrix` (flat x [N, ...], trailing axes flattened
     for the product), dense blocks (lap [G, S, S], x [G, S, C]) or a
-    `BlockDiagMatrix` (blocks, bands, spill)."""
+    `BlockDiagMatrix` (blocks, bands, spill), or a `HaloShard` (this rank's
+    rows of a graph-sharded operator, x its [c_local, ...] rows)."""
     if isinstance(lap, CooMatrix):
         flat = x.reshape(x.shape[0], -1)
         if lap.ell_cols is not None and lap.symmetric:
@@ -111,11 +125,15 @@ def lap_matvec(lap, x: torch.Tensor) -> torch.Tensor:
     if isinstance(lap, BlockDiagMatrix):
         out = _band_add(_bmm(lap.blocks, x), lap.band_up, lap.band_dn, x)
         return _spill_add(out, lap.spill, x)
+    if isinstance(lap, HaloShard):
+        return halo_matvec(lap, x)
     return _bmm(lap, x)
 
 
 def abs_b1_s2t(level, x_s: torch.Tensor) -> torch.Tensor:
     """|B1| @ x_s (each node gathers its incident edges)."""
+    if isinstance(level, ShardedLevel):
+        return halo_matvec(level.b1_abs, x_s)
     if isinstance(level, ComplexLevel):
         return B.boundary_abs_s2t(
             x_s, level.src, level.dst, level.num_nodes, edge_mask=level.edge_mask)
@@ -125,6 +143,8 @@ def abs_b1_s2t(level, x_s: torch.Tensor) -> torch.Tensor:
 
 def abs_b1_t2s(level, x_t: torch.Tensor) -> torch.Tensor:
     """|B1|ᵀ @ x_t (each edge sums its endpoints)."""
+    if isinstance(level, ShardedLevel):
+        return halo_matvec(level.b1t_abs, x_t)
     if isinstance(level, ComplexLevel):
         return B.boundary_abs_t2s(x_t, level.src, level.dst, edge_mask=level.edge_mask)
     out = _band_add(_t2s_mm(level.b1.abs(), x_t), level.b1_bu, level.b1_bd, x_t,
@@ -134,6 +154,8 @@ def abs_b1_t2s(level, x_t: torch.Tensor) -> torch.Tensor:
 
 def b1_t2s(level, x_t: torch.Tensor) -> torch.Tensor:
     """B1ᵀ @ x_t (signed endpoint difference)."""
+    if isinstance(level, ShardedLevel):
+        return halo_matvec(level.b1t, x_t)
     if isinstance(level, ComplexLevel):
         return B.boundary_t2s(x_t, level.src, level.dst, edge_mask=level.edge_mask)
     out = _band_add(_t2s_mm(level.b1, x_t), level.b1_bu, level.b1_bd, x_t, transpose=True)
@@ -156,17 +178,33 @@ def _packed_mean(x, gid, mask, num_graphs):
     return segment_mean(flat, gid, num_graphs, weights=w)
 
 
+def _block_mean(x, mask):
+    """One graph a block (``collate_dense_shared``, no graph ids): the
+    masked mean over each block's rows, in float32 as the JAX package's
+    promotion gives it."""
+    m = mask[..., None].float()
+    return (x.float() * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+
+
 def masked_mean_nodes(level, x: torch.Tensor, num_graphs: int):
     """Per-graph mean over valid nodes → [num_graphs, F]."""
+    if isinstance(level, ShardedLevel):
+        return sharded_mean(x, level.n_id, num_graphs, level.node_mask, level.group)
     if isinstance(level, ComplexLevel):
         return segment_mean(x, level.n_id, num_graphs, weights=level.node_mask)
+    if level.n_gid is None:
+        return _block_mean(x, level.node_mask)
     return _packed_mean(x, level.n_gid, level.node_mask, num_graphs)
 
 
 def masked_mean_edges(level, x: torch.Tensor, num_graphs: int):
     """Per-graph mean over valid edges → [num_graphs, F]."""
+    if isinstance(level, ShardedLevel):
+        return sharded_mean(x, level.s_id, num_graphs, level.edge_mask, level.group)
     if isinstance(level, ComplexLevel):
         return segment_mean(x, level.s_id, num_graphs, weights=level.edge_mask)
+    if level.s_gid is None:
+        return _block_mean(x, level.edge_mask)
     return _packed_mean(x, level.s_gid, level.edge_mask, num_graphs)
 
 
@@ -176,7 +214,10 @@ def pool_to_coarse(pool, fine, coarse, x_t: torch.Tensor, x_s: torch.Tensor):
     edges weigh 0 or land in the dump slot); dense, the `DensePool`
     averaging operators as batched GEMMs plus their spills.  Coarse padding
     rows are zeroed (the dense branch multiplies by the float32 mask, as the
-    JAX package does)."""
+    JAX package does).  On a `ShardedLevel` the coarse owners may be other
+    ranks: the sums meet in an ``all_reduce``."""
+    if isinstance(fine, ShardedLevel):
+        return sharded_pool(pool, fine, coarse, x_t, x_s)
     if isinstance(pool, PoolMap):
         x_t_c = segment_mean(x_t, pool.pos_t, coarse.num_nodes, weights=fine.node_mask)
         x_s_c = segment_mean(x_s, pool.pos_s, coarse.num_edges, weights=fine.edge_mask)

@@ -17,11 +17,21 @@ converts a JAX one.
 
 Flags for a JAX mechanism are mapped or refused, each with its reason in
 ``--help``: ``--prng rbg``, ``--remat`` other than 0, ``--swap_dw 0`` in
-bfloat16, ``--stack_concat never`` and ``--dp`` > 1 are refused; ``--fused``
+bfloat16 and ``--stack_concat never`` are refused; ``--fused``
 defaults to 1 (the fused CUDA kernel is the port's conv route on the card)
 and ``--fused 0`` selects the plain recurrence; ``--rois 0`` finds the
 reference's group data in ``$HLHGAT_BRAIN_DIR``.  ``--device`` (new) names
 the device: the card by default, ``cpu`` on request, never a fallback.
+
+``--dp N`` trains data-parallel over N ranks, one process each
+(``parallel/dp_trainer.py``), with ``--batch_size`` per rank as in the JAX
+CLI: under torchrun the CLI joins its ranks (``WORLD_SIZE`` must be N),
+otherwise it starts N local ranks itself.  The backend is NCCL when every
+rank has a card of its own and gloo when ranks share one
+(``parallel/distributed.py``).
+
+    torchrun --nproc_per_node 4 -m hl_hgat_tpu_torch.run --dp 4 --benchmark zinc ...
+    python -m hl_hgat_tpu_torch.run --dp 2 --benchmark zinc ...   # 2 local ranks
 """
 
 from __future__ import annotations
@@ -116,8 +126,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         f"(models/backbone.py); never is {REFUSED}: the port's backbone "
                         "always materializes the stacks")
     p.add_argument("--dp", type=int, default=1,
-                   help=f"data-parallel devices; >1 is {REFUSED} until its data-parallel "
-                        "trainer lands (ROADMAP.md, Queue 1 item 13)")
+                   help="data-parallel ranks: >1 trains through DataParallelTrainer "
+                        "(parallel/dp_trainer.py), one process a rank (torchrun's, or N "
+                        "local ranks started here; NCCL when each rank has its own card, "
+                        "gloo when they share one); --batch_size is per rank")
     p.add_argument("--fused", type=int, default=1,
                    help="dense-layout Laguerre convs through the fused CUDA kernel: "
                         "default 1 in the port (its default conv route on the card, "
@@ -205,8 +217,6 @@ def refusals(args) -> list[str]:
     if args.stack_concat == "never":
         out.append("--stack_concat never: the port's backbone materializes the stacks "
                    "per block or per layer (models/backbone.py)")
-    if args.dp > 1:
-        out.append(f"--dp {args.dp}: data parallelism waits for ROADMAP.md Queue 1 item 13")
     return out
 
 
@@ -356,7 +366,7 @@ def run_brain(args, device) -> list[dict]:
     from hl_hgat_tpu_torch.data.synthetic import synthetic_fmri_series
     from hl_hgat_tpu_torch.models import presets
     from hl_hgat_tpu_torch.serving import BrainPredictor
-    from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
+    from hl_hgat_tpu_torch.train import TrainerConfig
     from hl_hgat_tpu_torch.train.metrics import pearson_corr
 
     rng = np.random.default_rng(0)
@@ -431,7 +441,7 @@ def run_brain(args, device) -> list[dict]:
             ckpt_dir=os.path.join(args.save_dir, f"brain_fold{fold}"),
             ckpt_every=args.ckpt_every, seed=fold,
         )
-        trainer = Trainer(model, cfg, device=device)
+        trainer = _make_trainer(args, model, cfg, device)
         torch.manual_seed(fold)  # dropout's stream, as in the graph branch
 
         perm = np.random.default_rng(fold).permutation(len(ts_all))
@@ -483,7 +493,25 @@ def main(argv=None) -> list[dict]:
     from hl_hgat_tpu_torch.device import resolve_device
     from hl_hgat_tpu_torch.nn import conv
 
-    device = resolve_device(args.device)
+    if args.dp > 1:
+        import torch.distributed as dist
+
+        from hl_hgat_tpu_torch.parallel import distributed as pdist
+
+        device_type = resolve_device(args.device).type  # no card and no --device cpu: raise
+        if not dist.is_initialized():
+            if "WORLD_SIZE" not in os.environ:
+                # N local ranks, each running this CLI; rank 0's results
+                return pdist.spawn_ranks(_dp_rank_main, args.dp,
+                                         sys.argv[1:] if argv is None else argv,
+                                         device_type=device_type, timeout=None)[0]
+            pdist.init_distributed(device_type=device_type)
+        if dist.get_world_size() != args.dp:
+            raise SystemExit(f"--dp {args.dp} under a process group of "
+                             f"{dist.get_world_size()} ranks")
+        device = pdist.rank_device()
+    else:
+        device = resolve_device(args.device)
     fused_before = conv.use_fused_dense()
     conv.use_fused_dense(bool(args.fused))
     try:
@@ -494,11 +522,27 @@ def main(argv=None) -> list[dict]:
         conv.use_fused_dense(fused_before)
 
 
+def _dp_rank_main(rank: int, world: int, argv) -> list[dict]:
+    """One local rank of ``--dp``: this CLI inside the rank's process group."""
+    return main(argv)
+
+
+def _make_trainer(args, model, cfg, device):
+    """The fold's trainer: ``DataParallelTrainer`` with ``--dp`` > 1."""
+    from hl_hgat_tpu_torch.train import Trainer
+
+    if args.dp > 1:
+        from hl_hgat_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+
+        return DataParallelTrainer(model, cfg, device=device)
+    return Trainer(model, cfg, device=device)
+
+
 def _run_graph(args, device) -> list[dict]:
     import torch
 
     from hl_hgat_tpu_torch.data.loader import BucketedLoader
-    from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
+    from hl_hgat_tpu_torch.train import TrainerConfig
 
     if args.aug_variants == -1:  # auto: reference-faithful defaults
         args.aug_variants = 8 if args.benchmark == "cifar10sp" else 1
@@ -573,7 +617,7 @@ def _run_graph(args, device) -> list[dict]:
             pe_flip_edge_static=(settings["pe_static"] or (None, None))[1],
             tsp_aug_prob=tsp_aug_prob,
         )
-        trainer = Trainer(model, cfg, device=device)
+        trainer = _make_trainer(args, model, cfg, device)
         # dropout draws from torch's global stream: seeded with the fold, as
         # the JAX trainer seeds its training stream
         torch.manual_seed(fold)

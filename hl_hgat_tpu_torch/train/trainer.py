@@ -177,7 +177,7 @@ class Trainer:
         if not candidates:
             return 1
         chosen = max(candidates, key=lambda d: int(load_metadata(d).get("epoch", 0)))
-        restore_checkpoint(chosen, self, full=prefer != "best")
+        self._restore_checkpoint(chosen, full=prefer != "best")
         meta = load_metadata(chosen)
         if "best_metric" in meta:
             self.best_metric = meta["best_metric"]
@@ -205,6 +205,14 @@ class Trainer:
         """Forward (BN on batch statistics), loss, backward, one Adam
         update.  Returns the loss as a 0-d tensor on the device — no
         readback, so the host can run ahead of the card."""
+        loss = self._compute_gradients(batch)
+        self.optimizer.step()
+        return loss
+
+    def _compute_gradients(self, batch: Batch) -> torch.Tensor:
+        """`train_step` up to the update: the batch on the device with the
+        step's random draws, forward, loss and backward.  Every parameter
+        has a gradient afterwards; returns the detached loss."""
         batch = self._on_device(batch)
         cfg = self.cfg
         if cfg.pe_flip_node_static is not None:
@@ -226,7 +234,6 @@ class Trainer:
             for p in group["params"]:
                 if p.grad is None and p.requires_grad:
                     p.grad = torch.zeros_like(p)
-        self.optimizer.step()
         return loss.detach()
 
     def eval_step(self, batch: Batch) -> tuple[torch.Tensor, torch.Tensor]:
@@ -312,6 +319,12 @@ class Trainer:
 
     # -- fit -----------------------------------------------------------------
 
+    def _save_checkpoint(self, ckpt_dir: str, extra: dict) -> None:
+        save_checkpoint(ckpt_dir, self, extra=extra)
+
+    def _restore_checkpoint(self, ckpt_dir: str, full: bool) -> None:
+        restore_checkpoint(ckpt_dir, self, full=full)
+
     def _improved(self, metric: float) -> bool:
         cfg = self.cfg
         if cfg.metric_mode == "min":
@@ -357,10 +370,10 @@ class Trainer:
                 if on_improve is not None:
                     on_improve(self, val_metric)
                 if cfg.ckpt_dir:
-                    save_checkpoint(cfg.ckpt_dir, self,
-                                    extra=dict(epoch=epoch, metric=val_metric, lr=lr))
+                    self._save_checkpoint(cfg.ckpt_dir,
+                                          dict(epoch=epoch, metric=val_metric, lr=lr))
             if cfg.ckpt_every and cfg.ckpt_dir and epoch % cfg.ckpt_every == 0:
-                save_checkpoint(os.path.join(cfg.ckpt_dir, "latest"), self, extra=dict(
+                self._save_checkpoint(os.path.join(cfg.ckpt_dir, "latest"), dict(
                     epoch=epoch, metric=val_metric, lr=lr, best_metric=self.best_metric))
             rec = dict(
                 epoch=epoch, time=time.time() - start, train_loss=train_loss,

@@ -60,7 +60,6 @@ def test_parser_has_every_jax_flag_with_its_default():
     ("--remat", "msi", "JAX transformation"),
     ("--swap_dw", "0", "swapped-dW"),
     ("--stack_concat", "never", "materializes"),
-    ("--dp", "2", "item 13"),
 ])
 def test_refused_flags_raise_with_their_reason(flag, value, reason):
     argv = ["--benchmark", "zinc", "--dtype", "bfloat16", flag, value] + TINY
@@ -69,6 +68,27 @@ def test_refused_flags_raise_with_their_reason(flag, value, reason):
     assert reason in str(err.value)
     # --help gives the reason too
     assert run.REFUSED in _actions(run.build_argparser())[flag.lstrip("-")].help
+
+
+def test_dp_is_accepted_and_its_batch_size_is_per_rank():
+    args = run.build_argparser().parse_args(["--dp", "2"])
+    assert run.refusals(args) == []
+    dp_help = _actions(run.build_argparser())["dp"].help
+    assert "--batch_size is per rank" in dp_help
+    assert run.REFUSED not in dp_help
+
+
+def test_dp_2_trains_over_two_local_ranks(tmp_path):
+    """``--dp 2`` on the CPU: two spawned gloo ranks run the fold, the
+    first's results come back; then ``--resume`` to a second epoch."""
+    argv = (["--benchmark", "zinc", "--synthetic", "--n_synthetic", "24", "--dp", "2",
+             "--save_dir", str(tmp_path), "--ckpt_every", "1"] + TINY)
+    hist = main(argv)[0]["history"]
+    assert [h["epoch"] for h in hist] == [1]
+    assert np.isfinite(hist[0]["train_loss"]) and np.isfinite(hist[0]["val_loss"])
+    hist = main(argv + ["--epochs", "2", "--resume", "1"])[0]["history"]
+    assert [h["epoch"] for h in hist] == [2]
+    assert np.isfinite(hist[0]["train_loss"])
 
 
 def test_swap_dw_0_is_accepted_in_float32():

@@ -28,7 +28,9 @@ _PROBE = textwrap.dedent("""
             "complex.dense", "data.synthetic", "serving", "data.brain", "data.datasets",
             "models.abcd", "models.hgat", "nn.inception", "native", "data.fast_collate",
             "complex.compact", "data.loader", "data.prefetch", "data.ingest", "data.lrgb",
-            "train.checkpoint", "utils.torch_import", "run")
+            "train.checkpoint", "utils.torch_import", "run", "parallel.mesh",
+            "parallel.distributed", "parallel.data_parallel", "parallel.dp_trainer",
+            "parallel.graph_parallel", "parallel.sharded_layer", "parallel.gp_model")
     print("WALKED", all(pkg.__name__ + "." + w in names for w in want))
 
     # the host library the port loads is its own build, never native/'s
@@ -80,6 +82,19 @@ def test_port_imports_no_jax_and_refuses_silent_cpu():
     assert "WALKED True" in lines, res.stdout
     assert "NATIVE True True" in lines, res.stdout
     assert lines.count("RAISED True") == 17, res.stdout
+
+
+def test_a_spawned_rank_imports_no_jax():
+    """A rank that ``parallel.distributed.spawn_ranks`` starts from a
+    process holding the JAX package (this one) runs the parallel path with
+    nothing of jax, flax, optax or hl_hgat_tpu."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_parallel_ranks
+
+    from hl_hgat_tpu_torch.parallel.distributed import spawn_ranks
+
+    assert spawn_ranks(torch_parallel_ranks.imported_modules, 2, device_type="cpu",
+                       timeout=120) == [[], []]
 
 
 def test_sources_name_no_jax():
