@@ -174,7 +174,8 @@
    launches): a step on the two distinct halves of the 384 graphs and one on
    identical halves, each held to a single process's step on the mean
    gradient and mean BN statistics (TRAIN_LEAF_TOL; parameters equal across
-   ranks), then ``run.main`` with ``--dp 2`` in the ranks at phase 12's
+   ranks) and the averaged gradient that the update read to that mean
+   gradient (TRAIN_LEAF_TOL, TRAIN_NORM_TOL; so at world 1), then ``run.main`` with ``--dp 2`` in the ranks at phase 12's
    recipe, 2 epochs and ``--resume`` to 3 against 3 straight (finite
    losses; epoch 3 within RESUME_RTOL; the recipe's targets are N(0, 1)
    draws, so its L1 loss starts at its floor and need not fall); then the
@@ -182,7 +183,11 @@
    skeleton and its MLGC level over two gloo ranks (the halo exchange staged
    through host memory) against the single-process model on the flat layout
    on the card (forward TOL; one Adam step, loss rtol 1e-4, parameters rtol
-   1e-3 / atol 1e-5), the halo and all-gather bytes of an L1 mat-vec, and
+   1e-3 / atol 1e-5 on every leaf; the averaged gradient that the update
+   read against the single-process gradient, GP_GRAD_RTOL / GP_GRAD_ATOL,
+   also for the same backbone with a linear head, the one whose loss
+   reaches every layer: the gp_brain head's hidden BatchNorm sees one
+   graph, so there only the output bias has a gradient), the halo and all-gather bytes of an L1 mat-vec, and
    both step times.  The graph path's products are plain torch: no hand
    kernel runs there.
 14. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
@@ -321,7 +326,14 @@ DP_CLI = CKPT_CLI + ["--dp", "2"]
 GP_MODEL = dict(channels=(2, 2), filters=(32, 64), k=4, init_k=2, pool_locs=(0,), att_locs=(0,),
                 act="leaky_relu")
 GP_MLP = (64,)
+# the head's hidden BatchNorm sees the one graph, so only the output bias of
+# that model has a gradient: the gradient rule is held on the same backbone
+# with a linear head (GP_PROBE_MLP), whose loss reaches every layer
+GP_PROBE_MLP = ()
 GP_LR = 1e-3
+# one computation's gradient against another's, per entry (the JAX tests' bar)
+GP_GRAD_RTOL, GP_GRAD_ATOL = 2e-3, 1e-5
+ZERO_GRAD = 1e-6  # share of the largest gradient entry below which a leaf's gradient is rounding
 GP_STEPS = 3  # timed steps after the checked one
 PARALLEL_PHASE_S = 120
 
@@ -539,7 +551,8 @@ def check_kernels(torch, np, lg, l_blocks, conv_shapes, seed):
 ROUTES = {"plain": (False, False), "terms": (False, True), "fused": (True, False)}
 
 
-def compare_grads(tag, got, ref, zero_grad, leaf_tol=None, norm_tol=None, cosine=None):
+def compare_grads(tag, got, ref, zero_grad, leaf_tol=None, norm_tol=None, cosine=None,
+                  prefix="train"):
     """Two whole-model gradients: worst leaf error (of the leaf's
     max|ref|), error of the whole gradient (of its norm), and cosine; fails
     on the bounds that are given.  Leaves in ``zero_grad`` (a bias in front
@@ -564,7 +577,7 @@ def compare_grads(tag, got, ref, zero_grad, leaf_tol=None, norm_tol=None, cosine
         got2 += float((a * a).sum())
     norm_rel = (err2 / ref2) ** 0.5
     cos = dot / (ref2 * got2) ** 0.5
-    print(f"[train] {tag}: worst leaf {worst:.3e} of max|ref| ({where}), whole gradient "
+    print(f"[{prefix}] {tag}: worst leaf {worst:.3e} of max|ref| ({where}), whole gradient "
           f"{norm_rel:.3e} of its norm, cosine {cos:.6f}", flush=True)
     if leaf_tol is not None and not worst <= leaf_tol:
         fail(f"{tag}: gradient of {where} is off by {worst:.3e} of max|ref| > {leaf_tol}")
@@ -574,11 +587,11 @@ def compare_grads(tag, got, ref, zero_grad, leaf_tol=None, norm_tol=None, cosine
         fail(f"{tag}: cosine {cos:.4f} < {cosine}")
 
 
-def compare_train_grads(tag, dtype, got, ref, zero_grad):
+def compare_train_grads(tag, dtype, got, ref, zero_grad, prefix="train"):
     if dtype == "float32":
-        compare_grads(tag, got, ref, zero_grad, TRAIN_LEAF_TOL, TRAIN_NORM_TOL)
+        compare_grads(tag, got, ref, zero_grad, TRAIN_LEAF_TOL, TRAIN_NORM_TOL, prefix=prefix)
     else:
-        compare_grads(tag, got, ref, zero_grad, cosine=TRAIN_BF16_COSINE)
+        compare_grads(tag, got, ref, zero_grad, cosine=TRAIN_BF16_COSINE, prefix=prefix)
 
 
 def train_phase(torch, np, model32, samples, host_batch, real_edges, card):
@@ -2414,12 +2427,31 @@ def checkpoint_phase(torch, np, lg, card):
 # ---------------------------------------------------------------------------
 
 
-def pre_bn_biases(model) -> set:
-    """Every conv and Linear bias but the output layer's sits in front of a
-    BatchNorm: its exact gradient is zero, what comes back is noise."""
-    return {n for n, _ in model.named_parameters()
-            if n.endswith(".bias") and not n.endswith("bn.bias")
-            and "MaskedBatchNorm" not in n and n != "head.out.bias"}
+def zero_grad_leaves(grads) -> set:
+    """The leaves whose reference gradient is zero to rounding (the biases
+    that a BatchNorm on batch statistics follows): no entry above ZERO_GRAD
+    of the largest entry of the whole gradient (host arrays)."""
+    top = max(float(abs(g).max()) for g in grads.values())
+    return {k for k, g in grads.items() if float(abs(g).max()) <= ZERO_GRAD * top}
+
+
+def capture_grads(trainer) -> dict:
+    """A dict that the trainer's next optimizer step fills, before it
+    updates anything, with every parameter's gradient as a float32 host
+    array: what the update reads, after the ranks averaged it."""
+    seen: dict = {}
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    step = trainer.optimizer.step
+
+    def first_step(*args, **kwargs):
+        if not seen:
+            for group in trainer.optimizer.param_groups:
+                for p in group["params"]:
+                    seen[names[id(p)]] = p.grad.detach().float().cpu().numpy().copy()
+        return step(*args, **kwargs)
+
+    trainer.optimizer.step = first_step
+    return seen
 
 
 def state_error(got, ref, zero_grad) -> tuple[float, str]:
@@ -2446,7 +2478,7 @@ def _host_state(model):
 def _mean_step(torch, cfg, model, halves):
     """One Adam step on the mean of the halves' gradients with the mean of
     their BatchNorm statistics, in this process: (state dict after it, mean
-    loss)."""
+    loss, the mean gradient as host arrays)."""
     from hl_hgat_tpu_torch.train import Trainer
 
     grads, bufs, losses = [], [], []
@@ -2458,18 +2490,20 @@ def _mean_step(torch, cfg, model, halves):
     mean = Trainer(copy.deepcopy(model), cfg)
     for i, p in enumerate(mean.model.parameters()):
         p.grad = sum(g[i] for g in grads) / len(grads)
+    mean_grads = {n: p.grad.float().cpu().numpy().copy()
+                  for n, p in mean.model.named_parameters()}
     mean.optimizer.step()
     with torch.no_grad():
         for i, b in enumerate(mean.model.buffers()):
             b.copy_(sum(x[i] for x in bufs) / len(bufs))
-    return _host_state(mean.model), sum(losses) / len(losses)
+    return _host_state(mean.model), sum(losses) / len(losses), mean_grads
 
 
 def dp_rank(rank: int, world: int, halves, save_dir: str) -> dict:
     """One of two gloo ranks on the shared card: the data-parallel step of
     full-width zinc_pyr on distinct halves (case 1) and on identical ones
-    (case 2), each against its single-process reference (rank 0), then the
-    CLI with --dp 2 at phase 12's recipe, 2 epochs and a resume to 3, and
+    (case 2), each with the gradient its update read, against its
+    single-process reference (rank 0), then the CLI with --dp 2 at phase 12's recipe, 2 epochs and a resume to 3, and
     3 epochs straight."""
     import contextlib
     import io
@@ -2501,8 +2535,10 @@ def dp_rank(rank: int, world: int, halves, save_dir: str) -> dict:
     on_card = [h.to("cuda") for h in halves]
     for case, mine in (("distinct", on_card[rank]), ("identical", on_card[0])):
         trainer = DataParallelTrainer(copy.deepcopy(model), cfg)
+        grads = capture_grads(trainer)
         loss, counts = driven(lambda: float(trainer.train_step(mine)))
-        out[case] = dict(loss=loss, counts=counts, state=_host_state(trainer.model))
+        out[case] = dict(loss=loss, counts=counts, state=_host_state(trainer.model),
+                         grads=grads)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
@@ -2511,9 +2547,11 @@ def dp_rank(rank: int, world: int, halves, save_dir: str) -> dict:
         out[case]["ms"] = (time.perf_counter() - t0) * 1e3 / 3
         if rank == 0:  # the single-process references, not on the main path
             if case == "distinct":
-                out[case]["ref"], out[case]["ref_loss"] = _mean_step(torch, cfg, model, on_card)
+                (out[case]["ref"], out[case]["ref_loss"],
+                 out[case]["ref_grads"]) = _mean_step(torch, cfg, model, on_card)
             else:
                 single = Trainer(copy.deepcopy(model), cfg)
+                out[case]["ref_grads"] = capture_grads(single)
                 out[case]["ref_loss"] = float(single.train_step(on_card[0]))
                 out[case]["ref"] = _host_state(single.model)
     del on_card
@@ -2544,17 +2582,19 @@ def gp_sample(np, levels, pools, series):
                        pools=[pools[0]])
 
 
-def gp_model(torch):
+def gp_model(torch, mlp=GP_MLP):
     from hl_hgat_tpu_torch.models.backbone import BackboneConfig, HLHGCNNGraph
 
-    return HLHGCNNGraph(BackboneConfig(**GP_MODEL), 8, 1, mlp_channels=GP_MLP, num_classes=1,
+    return HLHGCNNGraph(BackboneConfig(**GP_MODEL), 8, 1, mlp_channels=mlp, num_classes=1,
                         generator=torch.Generator().manual_seed(0))
 
 
-def gp_rank(rank: int, world: int, sample, state) -> dict:
+def gp_rank(rank: int, world: int, sample, state, probe_state) -> dict:
     """One of two gloo ranks on the shared card: its part of the Shen-268
     complex, the eval forward and GP_STEPS ``DataParallelTrainer`` steps
-    over a (1, 2) mesh, the first checked."""
+    over a (1, 2) mesh, the first checked with the gradient its update
+    read; then one step of the linear-head model (``probe_state``) for its
+    gradient."""
     import torch
 
     from hl_hgat_tpu_torch.parallel import graph_parallel as gp
@@ -2572,8 +2612,9 @@ def gp_rank(rank: int, world: int, sample, state) -> dict:
     model.load_state_dict(state)
     with torch.inference_mode():
         out = gp_apply(model.eval(), batch).float().cpu().numpy()
-    trainer = DataParallelTrainer(model, TrainerConfig(task="regression", lr=GP_LR),
-                                  make_mesh(1, world))
+    mesh = make_mesh(1, world)
+    trainer = DataParallelTrainer(model, TrainerConfig(task="regression", lr=GP_LR), mesh)
+    grads = capture_grads(trainer)
     loss = float(trainer.train_step(batch))
     after = _host_state(model)
     torch.cuda.synchronize()
@@ -2581,9 +2622,15 @@ def gp_rank(rank: int, world: int, sample, state) -> dict:
     for _ in range(GP_STEPS):
         trainer.train_step(batch)
     torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / GP_STEPS
+    probe = gp_model(torch, GP_PROBE_MLP).cuda()
+    probe.load_state_dict(probe_state)
+    probe_trainer = DataParallelTrainer(probe, TrainerConfig(task="regression", lr=GP_LR), mesh)
+    probe_grads = capture_grads(probe_trainer)
+    probe_loss = float(probe_trainer.train_step(batch))
     l1 = batch.level0.l1
-    return dict(out=out, loss=loss, state=after, build_s=build_s,
-                ms=(time.perf_counter() - t0) * 1e3 / GP_STEPS,
+    return dict(out=out, loss=loss, state=after, grads=grads, probe_loss=probe_loss,
+                probe_grads=probe_grads, build_s=build_s, ms=ms,
                 bytes=gp.exchange_bytes(l1, GP_MODEL["filters"][0]),
                 rounds=l1.rounds(), halo=l1.halo_per_round, rows=l1.c_local)
 
@@ -2622,6 +2669,7 @@ def parallel_phase(torch, np, lg, card, samples):
         for dtype in ("float32", "bfloat16"):
             model, _ = presets.zinc_pyr(compute_dtype=dtype, seed=0)
             single, dp = Trainer(copy.deepcopy(model), cfg), DataParallelTrainer(model, cfg)
+            dp_grads, ref_grads = capture_grads(dp), capture_grads(single)
             lg.reset_launch_counts()
             loss = float(dp.train_step(batch))
             torch.cuda.synchronize()
@@ -2633,7 +2681,8 @@ def parallel_phase(torch, np, lg, card, samples):
             ref_loss = float(single.train_step(batch))
             got, ref = _host_state(dp.model), _host_state(single.model)
             equal = all(np.array_equal(got[k], ref[k]) for k in ref)
-            worst, where = state_error(got, ref, pre_bn_biases(model))
+            g_equal = all(np.array_equal(dp_grads[k], ref_grads[k]) for k in ref_grads)
+            worst, where = state_error(got, ref, zero_grad_leaves(ref_grads))
             ms = {}
             for tag, tr in (("dp", dp), ("single", single)):
                 torch.cuda.synchronize()
@@ -2644,11 +2693,17 @@ def parallel_phase(torch, np, lg, card, samples):
                 ms[tag] = (time.perf_counter() - t0) * 1e3 / 3
             print(f"[dp] world 1 nccl {dtype}, zinc_pyr on {BATCH_GRAPHS} graphs: loss "
                   f"{loss:.7f} vs Trainer.train_step {ref_loss:.7f}; parameters worst leaf "
-                  f"{worst:.3e} of max|ref| ({where}), bit-equal: {'yes' if equal else 'no'}; "
+                  f"{worst:.3e} of max|ref| ({where}), bit-equal: {'yes' if equal else 'no'} "
+                  f"(gradients: {'yes' if g_equal else 'no'}); "
                   f"18 + 18 fused launches; step {ms['dp']:.3f} ms vs {ms['single']:.3f} ms "
                   f"single-process {label}", flush=True)
             if not (worst <= TOL[dtype] and abs(loss - ref_loss) <= TOL[dtype] * abs(ref_loss)):
                 fail(f"[dp] world 1 {dtype} step disagrees with Trainer.train_step")
+            compare_train_grads(
+                f"world 1 nccl {dtype}, the gradient the update read vs Trainer.train_step's",
+                dtype, *({k: torch.from_numpy(v) for k, v in g.items()}
+                         for g in (dp_grads, ref_grads)),
+                zero_grad_leaves(ref_grads), prefix="dp")
     finally:
         dist.destroy_process_group()
 
@@ -2660,15 +2715,17 @@ def parallel_phase(torch, np, lg, card, samples):
         per_rank = pdist.spawn_ranks(dp_rank, 2, halves, save_dir, timeout=PARALLEL_PHASE_S)
         spawn_s = time.perf_counter() - t0
     r0 = per_rank[0]
-    zero_grad = pre_bn_biases(presets.zinc_pyr(seed=0)[0])
     ref_name = {"distinct": "one Adam step on the mean gradient and mean BN statistics",
                 "identical": "Trainer.train_step"}
+    ref_grad_name = {"distinct": "the mean of the halves' gradients in one process",
+                     "identical": "Trainer.train_step's"}
     for case in ("distinct", "identical"):
         for r in per_rank:
             if r[case]["counts"] != per_step:
                 fail(f"[dp] world 2 {case} step launched {r[case]['counts']} on a rank")
         equal = all(np.array_equal(per_rank[1][case]["state"][k], v)
                     for k, v in r0[case]["state"].items())
+        zero_grad = zero_grad_leaves(r0[case]["ref_grads"])
         worst, where = state_error(r0[case]["state"], r0[case]["ref"], zero_grad)
         ref_loss = r0[case]["ref_loss"]
         print(f"[dp] world 2 gloo, {case} halves of {half} graphs: loss {r0[case]['loss']:.7f} "
@@ -2681,6 +2738,12 @@ def parallel_phase(torch, np, lg, card, samples):
         if not (worst <= TRAIN_LEAF_TOL and abs(r0[case]["loss"] - ref_loss)
                 <= TRAIN_NORM_TOL * abs(ref_loss)):
             fail(f"[dp] world 2 {case} step disagrees with the single-process step")
+        ref_grads = {k: torch.from_numpy(v) for k, v in r0[case]["ref_grads"].items()}
+        for rank, r in enumerate(per_rank):
+            compare_grads(f"world 2 gloo, {case} halves, rank {rank}: the averaged gradient the "
+                          f"update read vs {ref_grad_name[case]}",
+                          {k: torch.from_numpy(v) for k, v in r[case]["grads"].items()},
+                          ref_grads, zero_grad, TRAIN_LEAF_TOL, TRAIN_NORM_TOL, prefix="dp")
     hist = r0["two"]["history"] + r0["resume"]["history"]
     for line in (r0["two"]["text"] + r0["resume"]["text"]).splitlines():
         print(f"[dp]   {line}", flush=True)
@@ -2721,6 +2784,7 @@ def parallel_phase(torch, np, lg, card, samples):
     with torch.inference_mode():
         ref_out = model.eval()(flat).float().cpu().numpy()
     single = Trainer(model, TrainerConfig(task="regression", lr=GP_LR))
+    ref_grads = capture_grads(single)
     ref_loss = float(single.train_step(flat))
     ref_state = _host_state(single.model)
     torch.cuda.synchronize()
@@ -2729,27 +2793,50 @@ def parallel_phase(torch, np, lg, card, samples):
         single.train_step(flat)
     torch.cuda.synchronize()
     single_ms = (time.perf_counter() - t0) * 1e3 / GP_STEPS
-    per_rank = pdist.spawn_ranks(gp_rank, 2, sample, state, timeout=PARALLEL_PHASE_S)
-    zero_grad = pre_bn_biases(gp_model(torch))
+    probe = gp_model(torch, GP_PROBE_MLP).cuda()
+    probe_state = {k: v.detach().cpu().clone() for k, v in probe.state_dict().items()}
+    probe_single = Trainer(probe, TrainerConfig(task="regression", lr=GP_LR))
+    probe_ref = capture_grads(probe_single)
+    probe_ref_loss = float(probe_single.train_step(flat))
+    per_rank = pdist.spawn_ranks(gp_rank, 2, sample, state, probe_state,
+                                 timeout=PARALLEL_PHASE_S)
     g0 = per_rank[0]
     scale = float(np.abs(ref_out).max())
     err = max(float(np.abs(r["out"] - ref_out).max()) for r in per_rank)
     bad = [k for k, v in ref_state.items()
-           if not np.allclose(g0["state"][k], v, rtol=1e-3,
-                              atol=2 * GP_LR if k in zero_grad else 1e-5)]
-    worst, where = state_error(g0["state"], ref_state, zero_grad)
+           if not np.allclose(g0["state"][k], v, rtol=1e-3, atol=1e-5)]
+    worst, where = state_error(g0["state"], ref_state, zero_grad_leaves(ref_grads))
     halo, gather = g0["bytes"]
     print(f"[gp] Shen-268 skeleton ({levels[0].num_nodes} nodes, {levels[0].num_edges} edges, "
           f"MLGC level {levels[1].num_nodes}/{levels[1].num_edges}) over 2 gloo ranks, "
           f"gp_brain model: forward max|err| {err:.3e} (max|ref| {scale:.3e}) vs the "
           f"single-process forward; one Adam step loss {g0['loss']:.7f} vs {ref_loss:.7f}, "
           f"parameters worst leaf {worst:.3e} of max|ref| ({where}), outside rtol 1e-3 / "
-          f"atol 1e-5 (biases a BN follows: 2·lr): {bad}", flush=True)
+          f"atol 1e-5: {bad}", flush=True)
     print(f"[gp] L1 mat-vec at {GP_MODEL['filters'][0]} columns: halo {halo} B over rounds "
           f"{g0['rounds']} ({g0['halo']} rows a block of {g0['rows']}) vs all-gather "
           f"{gather} B; host build of a part {g0['build_s']:.2f} s; step {g0['ms']:.3f} ms "
           f"graph-parallel vs {single_ms:.3f} ms single-process (mean of {GP_STEPS}) {label}",
           flush=True)
+    grad_bad = {}
+    for tag, key, ref_g in (("gp_brain model", "grads", ref_grads),
+                            ("linear-head model", "probe_grads", probe_ref)):
+        carrying = len(ref_g) - len(zero_grad_leaves(ref_g))
+        compare_grads(f"{tag}, the averaged gradient the update read vs the single-process "
+                      f"step's ({carrying} of {len(ref_g)} leaves carry a gradient)",
+                      {k: torch.from_numpy(v) for k, v in g0[key].items()},
+                      {k: torch.from_numpy(v) for k, v in ref_g.items()},
+                      zero_grad_leaves(ref_g), prefix="gp")
+        grad_bad[tag] = [k for k, v in ref_g.items()
+                         if not np.allclose(g0[key][k], v, rtol=GP_GRAD_RTOL, atol=GP_GRAD_ATOL)]
+        if any(not np.array_equal(per_rank[1][key][k], v) for k, v in g0[key].items()):
+            fail(f"[gp] {tag}: the ranks' averaged gradients differ")
+    print(f"[gp] gradient leaves outside rtol {GP_GRAD_RTOL} / atol {GP_GRAD_ATOL}: {grad_bad}; "
+          f"linear-head loss {g0['probe_loss']:.7f} vs {probe_ref_loss:.7f}", flush=True)
+    if any(grad_bad.values()):
+        fail("[gp] the graph-parallel gradient disagrees with the single-process gradient")
+    if abs(g0["probe_loss"] - probe_ref_loss) > 1e-4 * abs(probe_ref_loss):
+        fail("[gp] the linear-head model's loss disagrees with the single-process loss")
     if not err <= TOL["float32"] * scale:
         fail("[gp] the graph-parallel forward disagrees with the single-process forward")
     if abs(g0["loss"] - ref_loss) > 1e-4 * abs(ref_loss) or bad:

@@ -210,38 +210,107 @@ def flax_variables(model) -> dict:
     return out
 
 
-def jax_train_step(jmodel, variables, batch, cfg: dict):
+def _jax_loss_fn(trainer, variables):
+    """The JAX ``Trainer``'s training loss of the parameters on a batch (BN
+    on batch statistics, the first step's dropout key)."""
+    from hl_hgat_tpu.complex.compact import maybe_inflate
+
+    _, step_rng = jax.random.split(jax.random.key(0))
+
+    def loss_fn(params, batch):
+        batch = maybe_inflate(batch)
+        out, _ = trainer._apply(params, variables["batch_stats"], batch, train=True,
+                                rng=step_rng)
+        return trainer._loss_fn(out[0] if isinstance(out, tuple) else out, batch)
+
+    return loss_fn
+
+
+def _port_names(grads) -> dict:
+    from hl_hgat_tpu_torch.weights import from_flax_variables
+
+    return {k: v.numpy() for k, v in from_flax_variables(
+        {"params": jax.tree.map(np.asarray, grads)}).items()}
+
+
+def jax_grads(jmodel, variables, batches, cfg: dict):
+    """The mean over ``batches`` of the JAX ``Trainer``'s training loss at
+    ``variables`` and of its ``jax.grad``, the gradient by the port's
+    parameter names."""
+    from hl_hgat_tpu.train.trainer import Trainer as JTrainer
+    from hl_hgat_tpu.train.trainer import TrainerConfig as JTrainerConfig
+
+    loss_fn = _jax_loss_fn(JTrainer(jmodel, JTrainerConfig(**cfg)), variables)
+    value_and_grad = jax.jit(jax.value_and_grad(loss_fn))
+    losses, grads = zip(*(value_and_grad(variables["params"], b) for b in batches))
+    mean = jax.tree.map(lambda *g: sum(g) / len(g), *grads)
+    return float(np.mean(losses)), _port_names(mean)
+
+
+def jax_train_step(jmodel, variables, batch, cfg: dict, *, eval_out: bool = False):
     """One JAX ``Trainer`` step from ``variables`` on ``batch``: (loss,
-    state dict of the parameters and statistics after it)."""
+    state dict of the parameters and statistics after it, the gradient the
+    update read), and with ``eval_out`` the eval forward at ``variables``
+    first, all in one compiled call."""
     from hl_hgat_tpu.train.trainer import Trainer as JTrainer
     from hl_hgat_tpu.train.trainer import TrainerConfig as JTrainerConfig
     from hl_hgat_tpu.train.trainer import TrainState
     from hl_hgat_tpu_torch.weights import from_flax_variables
 
     trainer = JTrainer(jmodel, JTrainerConfig(**cfg))
+    grad_fn = jax.grad(_jax_loss_fn(trainer, variables))
+
+    def step(state, batch):
+        out = jmodel.apply(variables, batch, deterministic=True) if eval_out else None
+        return trainer._train_step_impl(state, batch) + (grad_fn(state.params, batch), out)
+
     state = TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
                        opt_state=trainer.tx.init(variables["params"]),
                        step=jnp.zeros((), jnp.int32), rng=jax.random.key(0))
-    state, loss = jax.jit(trainer._train_step_impl)(state, batch)
+    state, loss, grads, out = jax.jit(step)(state, batch)
     after = from_flax_variables(jax.tree.map(np.asarray, {
         "params": state.params, "batch_stats": state.batch_stats}))
-    return float(loss), {k: v.numpy() for k, v in after.items()}
+    res = float(loss), {k: v.numpy() for k, v in after.items()}, _port_names(grads)
+    return res + (np.asarray(out),) if eval_out else res
+
+
+def check_grads(got: dict, want: dict) -> None:
+    """Every parameter's gradient against ``jax.grad``'s, leaf by leaf, at
+    the JAX tests' gradient bar (``test_reference_parity._check_grads``)."""
+    assert set(got) == set(want)
+    for name, g in want.items():
+        np.testing.assert_allclose(got[name], g, rtol=2e-3, atol=1e-5, err_msg=name)
+
+
+ZERO_GRAD = 1e-6  # share of the largest gradient entry below which a leaf's gradient is rounding
+
+
+def rounding_leaves(grads: dict) -> set:
+    """The leaves whose reference gradient is zero to rounding and not
+    exactly zero (the biases that a BatchNorm on batch statistics follows):
+    no entry above ZERO_GRAD of the largest entry of the whole gradient.
+    Adam's first step moves such a weight by lr·g/(|g|+eps), that is by the
+    sign of the rounding, so the step is not compared there; the gradient
+    check holds these leaves."""
+    top = max(float(np.abs(g).max()) for g in grads.values())
+    return {k for k, g in grads.items() if 0.0 < float(np.abs(g).max()) <= ZERO_GRAD * top}
 
 
 _GP_ORACLES: dict = {}
 
 
-def _gp_oracle(cfg: dict) -> dict:
-    """The sample, the model's weights, the JAX model's eval forward and
-    one Adam step on the single-device flat batch
-    (``tests/test_parallel.py::test_gp_full_model_matches_single_device``)."""
+def _gp_oracle(cfg: dict, mlp: tuple = (16,)) -> dict:
+    """The sample, the model's weights, the JAX model's eval forward,
+    ``jax.grad`` and one Adam step on the single-device flat batch
+    (``tests/test_parallel.py::test_gp_full_model_matches_single_device``;
+    ``mlp`` the head's hidden widths)."""
     from hl_hgat_tpu.complex.build import collate as jcollate
     from hl_hgat_tpu.data.synthetic import random_simplex_sample as jsample
     from hl_hgat_tpu.models import BackboneConfig as JCfg
     from hl_hgat_tpu.models import HLHGCNNGraph as JGraph
     from hl_hgat_tpu_torch.data.synthetic import random_simplex_sample
 
-    key = tuple(sorted(cfg.items()))
+    key = (tuple(sorted(cfg.items())), mlp)
     if key in _GP_ORACLES:
         return _GP_ORACLES[key]
     kw = dict(n_nodes=56, extra_edges=40, node_feat=6, edge_feat=4, keig=0, num_pool=1)
@@ -249,45 +318,69 @@ def _gp_oracle(cfg: dict) -> dict:
     jsmp = jsample(np.random.default_rng(0), **kw)
     np.testing.assert_array_equal(sample.x_t, jsmp.x_t)
     np.testing.assert_array_equal(sample.pools[0][1], jsmp.pools[0][1])
-    spec = dict(cfg=cfg, in_t=6, in_s=4, mlp_channels=(16,), num_classes=1)
+    spec = dict(cfg=cfg, in_t=6, in_s=4, mlp_channels=mlp, num_classes=1)
     model = ranks.graph_model(spec)
     v = flax_variables(model)
-    jmodel = JGraph(cfg=JCfg(**cfg), mlp_channels=(16,), num_classes=1)
+    jmodel = JGraph(cfg=JCfg(**cfg), mlp_channels=mlp, num_classes=1)
     batch = jax.tree.map(jnp.asarray, jcollate([jsmp]))
-    out = np.asarray(jax.jit(jmodel.apply, static_argnames="deterministic")(
-        v, batch, deterministic=True))
-    loss, after = jax_train_step(jmodel, v, batch, GP_TRAIN)
+    loss, after, grads, out = jax_train_step(jmodel, v, batch, GP_TRAIN, eval_out=True)
     _GP_ORACLES[key] = dict(sample=sample, spec=spec, state=model.state_dict(), out=out,
-                            loss=loss, after=after)
+                            loss=loss, after=after, grads=grads)
     return _GP_ORACLES[key]
 
 
 def _check_gp(oracle, n_parts):
+    if not oracle["spec"]["mlp_channels"]:  # a linear head: the loss reaches every layer
+        top = max(float(np.abs(g).max()) for g in oracle["grads"].values())
+        flat = {k for k, g in oracle["grads"].items()
+                if k.endswith("weight") and float(np.abs(g).max()) <= ZERO_GRAD * top}
+        assert not flat, sorted(flat)
     per_rank = spawn_ranks(ranks.gp_case, n_parts, oracle["sample"], oracle["spec"],
                            oracle["state"], GP_TRAIN, **SPAWN)
     for r in per_rank:
         np.testing.assert_allclose(r["out"], oracle["out"], rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(r["loss"], oracle["loss"], rtol=1e-4)
+        check_grads(r["grads"], oracle["grads"])
+    rounding = rounding_leaves(oracle["grads"])
     for name, want in oracle["after"].items():
         for r in per_rank:
             np.testing.assert_array_equal(r["state"][name], per_rank[0]["state"][name])
-        np.testing.assert_allclose(per_rank[0]["state"][name], want, rtol=1e-3, atol=1e-5,
-                                   err_msg=name)
+        if name not in rounding:
+            np.testing.assert_allclose(per_rank[0]["state"][name], want, rtol=1e-3,
+                                       atol=1e-5, err_msg=name)
+    return per_rank
 
 
 @pytest.mark.parametrize("n_parts", [2, 3])
 def test_gp_full_model_matches_jax_single_device(n_parts):
     """Backbone, MSI, Laguerre convs, gates, pooling, readout and head on
     one complex sharded over ``n_parts`` ranks: the forward on every rank
-    equals JAX's single-device forward, and one Adam step through the halo
-    exchange gives JAX's parameters."""
+    equals JAX's single-device forward; the gradient that the step's update
+    reads equals ``jax.grad`` on every rank; and one Adam step gives JAX's
+    parameters.  With the JAX test's head (a hidden layer whose BatchNorm
+    sees one graph) only the output bias has a gradient: the gradient rule
+    is held by the next test."""
     _check_gp(_gp_oracle(GP_CFG), n_parts)
+
+
+@pytest.mark.parametrize("n_parts", [2, 3])
+def test_gp_gradient_reaching_every_layer_matches_jax_grad(n_parts):
+    """The same model with a linear head, so the loss reaches every layer:
+    the gradient that the step's update reads (the backward's all-reduce
+    sums through the readouts, BatchNorm statistics and pooling, the halo
+    exchange's reverse ring, then the mean over the graph group) equals
+    ``jax.grad`` of the single-device loss leaf by leaf, rtol 2e-3 / atol
+    1e-5, on every rank; then the forward, loss and one Adam step as
+    above."""
+    _check_gp(_gp_oracle(GP_CFG, mlp=()), n_parts)
 
 
 def test_gp_max_normalized_relu_gates_match_jax():
     """The CIFAR gate variant: ReLU gates divided by their max, which is
-    taken over every rank's rows (an all-reduce max and its backward)."""
-    _check_gp(_gp_oracle(dict(GP_CFG, att_sigma="relu", max_normalize_gates=True)), 2)
+    taken over every rank's rows (an all-reduce max and its backward):
+    forward, gradient and step against JAX, with the linear head so that
+    the gradient reaches the gates."""
+    _check_gp(_gp_oracle(dict(GP_CFG, att_sigma="relu", max_normalize_gates=True), mlp=()), 2)
 
 
 def test_gp_edge_level_model_matches_the_single_process_model():

@@ -27,6 +27,25 @@ def _np(sd):
     return {k: v.detach().cpu().numpy().copy() for k, v in sd.items()}
 
 
+def capture_grads(trainer) -> dict:
+    """A dict that the trainer's next optimizer step fills, before it
+    updates anything, with every parameter's gradient by name: what the
+    update reads, after the ranks averaged it."""
+    seen: dict = {}
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    step = trainer.optimizer.step
+
+    def first_step(*args, **kwargs):
+        if not seen:
+            for group in trainer.optimizer.param_groups:
+                for p in group["params"]:
+                    seen[names[id(p)]] = p.grad.detach().cpu().numpy().copy()
+        return step(*args, **kwargs)
+
+    trainer.optimizer.step = first_step
+    return seen
+
+
 def graph_model(spec: dict, state_dict=None) -> HLHGCNNGraph:
     """``HLHGCNNGraph`` from ``spec`` (cfg, in_t, in_s, mlp_channels,
     num_classes), loaded with ``state_dict``."""
@@ -126,7 +145,8 @@ def gp_tsp_case(rank: int, world: int, sample, spec: dict, state_dict):
 
 def gp_case(rank: int, world: int, sample, spec: dict, state_dict, cfg: dict) -> dict:
     """The graph-parallel model on this rank's part: the eval forward and
-    one ``DataParallelTrainer`` step over a (1, world) mesh."""
+    one ``DataParallelTrainer`` step over a (1, world) mesh, with the
+    gradient that step's update read."""
     from hl_hgat_tpu_torch.parallel.dp_trainer import DataParallelTrainer
     from hl_hgat_tpu_torch.parallel.gp_model import build_gp_batch, gp_apply
     from hl_hgat_tpu_torch.parallel.mesh import make_mesh
@@ -140,8 +160,9 @@ def gp_case(rank: int, world: int, sample, spec: dict, state_dict, cfg: dict) ->
     trainer = DataParallelTrainer(model, TrainerConfig(**cfg), make_mesh(1, world,
                                                                          device_type="cpu"),
                                   device="cpu")
+    grads = capture_grads(trainer)
     loss = float(trainer.train_step(batch))
-    return dict(out=out, loss=loss, state=_np(model.state_dict()))
+    return dict(out=out, loss=loss, grads=grads, state=_np(model.state_dict()))
 
 
 # ---------------------------------------------------------------------------
@@ -151,10 +172,11 @@ def gp_case(rank: int, world: int, sample, spec: dict, state_dict, cfg: dict) ->
 
 def dp_case(rank: int, world: int, spec: dict, cases: dict, cfg: dict) -> dict:
     """Per layout, from one state dict: the data-parallel step on this
-    rank's sub-batch (``batches[rank]``), and in the same process the
-    single-process references: ``Trainer.train_step`` on that sub-batch
-    and one Adam step on the mean of every sub-batch's gradient with the
-    mean of their BatchNorm statistics."""
+    rank's sub-batch (``batches[rank]``) with the gradient its update read,
+    and in the same process the single-process references:
+    ``Trainer.train_step`` on that sub-batch and one Adam step on the mean
+    of every sub-batch's gradient with the mean of their BatchNorm
+    statistics."""
     from hl_hgat_tpu_torch.parallel.dp_trainer import DataParallelTrainer
     from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
 
@@ -164,6 +186,7 @@ def dp_case(rank: int, world: int, spec: dict, cases: dict, cfg: dict) -> dict:
         batches = batches["batches"]
         dp = DataParallelTrainer(graph_model(sp, state_dict), TrainerConfig(**cfg),
                                  device="cpu")
+        dp_grads = capture_grads(dp)
         loss = float(dp.train_step(batches[rank]))
         single = Trainer(graph_model(sp, state_dict), TrainerConfig(**cfg), device="cpu")
         single_loss = float(single.train_step(batches[rank]))
@@ -180,7 +203,10 @@ def dp_case(rank: int, world: int, spec: dict, cases: dict, cfg: dict) -> dict:
         with torch.no_grad():
             for i, b_ in enumerate(mean.model.buffers()):
                 b_.copy_(sum(b[i] for b in bufs) / len(bufs))
-        out[name] = dict(loss=loss, state=_np(dp.model.state_dict()), single_loss=single_loss,
+        out[name] = dict(loss=loss, grads=dp_grads, state=_np(dp.model.state_dict()),
+                         mean_grads={n: p.grad.numpy().copy()
+                                     for n, p in mean.model.named_parameters()},
+                         single_loss=single_loss,
                          single=_np(single.model.state_dict()),
                          mean_loss=float(np.mean(losses)), mean=_np(mean.model.state_dict()))
     return out
