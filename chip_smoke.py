@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only [resident|band|ell]   # the kernel phases only
     python3 chip_smoke.py --parallel-only   # build, then phase 13 only
+    python3 chip_smoke.py --analysis-only   # build, then phase 14 only
 
 1. Builds the CUDA kernels from ``hl_hgat_tpu_torch/csrc`` (nvcc, sm_90a)
    and, at the same time, the host library ``csrc/hlhgat_native.cpp`` (g++;
@@ -184,13 +185,34 @@
    through host memory) against the single-process model on the flat layout
    on the card (forward TOL; one Adam step, loss rtol 1e-4, parameters rtol
    1e-3 / atol 1e-5 on every leaf; the averaged gradient that the update
-   read against the single-process gradient, GP_GRAD_RTOL / GP_GRAD_ATOL,
-   also for the same backbone with a linear head, the one whose loss
-   reaches every layer: the gp_brain head's hidden BatchNorm sees one
-   graph, so there only the output bias has a gradient), the halo and all-gather bytes of an L1 mat-vec, and
+   read against the single-process gradient, GP_GRAD_RTOL / GP_GRAD_ATOL;
+   for the same backbone with a linear head, the one whose loss reaches
+   every layer (the gp_brain head's hidden BatchNorm sees one graph, so
+   there only the output bias has a gradient), ``compare_train_grads``'
+   bounds, the leaves outside GP_GRAD_RTOL / GP_GRAD_ATOL reported; both
+   sides sum with torch's deterministic algorithms), the halo and
+   all-gather bytes of an L1 mat-vec, and
    both step times.  The graph path's products are plain torch: no hand
    kernel runs there.
-14. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
+14. The analysis layer and the three examples (``[analysis]`` lines,
+   within ANALYSIS_PHASE_S): ``examples.brain_demo`` at ANALYSIS_DEMO (268
+   ROIs, the real Shen-268 parcellation's size; 24 subjects, T = 96, 5
+   epochs, batch 8, a 20 % mask): the pyramid's sizes, the host ms of the
+   native MLGC matcher against the pure-Python walk, the level-0 L1's row
+   padding per band launch; trained from one seeded model on the
+   terms-kernel route and on the plain route (per-epoch losses, step ms by
+   ``utils.profiling.StepTimer`` synchronized, launches of kernels 2 and 4
+   a step with the band ones, none fused; falling epoch losses), the first
+   step from the same weights (loss TOL, gradient ``compare_train_grads``),
+   the kernel route's trained weights served on both routes (validation
+   predictions and the attention matrix within ANALYSIS_TOL of max|ref|;
+   the two routes' epoch losses and outputs trained apart reported);
+   ``trace_context`` around three demo steps (the Chrome trace names the
+   resident and band terms kernels); ``enable_nan_checks`` (a / a on zeros
+   raises, a demo forward raises nothing); the figures' arrays on the card
+   against the CPU (TOL); ``examples.gp_brain`` at GP_DEMO over two gloo
+   ranks sharing the card (finite losses, equal on both ranks).
+15. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
    over every phase's main-path runs, the spawned ranks' included) and,
    last, the ``{"ok": true, ...}`` line.
 
@@ -212,6 +234,7 @@ import copy
 import dataclasses
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -331,11 +354,36 @@ GP_MLP = (64,)
 # with a linear head (GP_PROBE_MLP), whose loss reaches every layer
 GP_PROBE_MLP = ()
 GP_LR = 1e-3
-# one computation's gradient against another's, per entry (the JAX tests' bar)
+# one computation's gradient against another's, per entry (the JAX tests' bar).
+# The linear-head model is held to compare_train_grads' bounds instead: its
+# partitioned sums round otherwise than the single process's, which moves a
+# pre-activation within rounding of a ReLU kink across it (measured on an
+# H100: the same 1.074e-2 of one leaf, 2.1e-4 of the whole gradient, every
+# run with deterministic sums; with the card's atomics two single-process
+# runs differ from each other by more than this bar)
 GP_GRAD_RTOL, GP_GRAD_ATOL = 2e-3, 1e-5
 ZERO_GRAD = 1e-6  # share of the largest gradient entry below which a leaf's gradient is rounding
 GP_STEPS = 3  # timed steps after the checked one
 PARALLEL_PHASE_S = 120
+# phase 14: the brain demo at the size of the real Shen-268 parcellation (the
+# --rois that --real on sets), its other flags at their defaults (24
+# subjects, T = 96, 5 epochs, batch 8, a 20 % mask); kernel route against the
+# plain route from the same weights
+ANALYSIS_DEMO = ["--real", "off", "--rois", "268"]
+ANALYSIS_ROUTES = {"plain": (False, False), "terms": (False, True)}
+# The routes are held where one computation meets another on the same
+# weights: the first step's loss (TOL) and gradient (compare_train_grads),
+# and the kernel route's trained weights served on both routes (validation
+# predictions and the attention matrix within ANALYSIS_TOL of max|ref|).
+# Two runs trained apart are reported, not bounded: every Adam step moves
+# each weight by about lr whatever the gradient's size, so an entry whose
+# gradient is rounding (a bias in front of a BatchNorm has none) moves
+# either way, and 10 steps on 16 subjects carry that far (measured 0.24 of
+# the epoch loss on an H100)
+ANALYSIS_TOL = 1e-3
+ANALYSIS_TRACE_STEPS = 3
+GP_DEMO = ["--parts", "2", "--steps", "3"]  # two ranks share the card
+ANALYSIS_PHASE_S = 90
 
 
 def fail(msg: str) -> None:
@@ -2605,6 +2653,7 @@ def gp_rank(rank: int, world: int, sample, state, probe_state) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)  # as the reference (phase 13 c)
     t0 = time.perf_counter()
     batch = build_gp_batch(sample, world)
     build_s = time.perf_counter() - t0
@@ -2775,7 +2824,12 @@ def parallel_phase(torch, np, lg, card, samples):
           f"{r0['resume']['seconds']:.2f} s, 3 straight {r0['straight']['seconds']:.2f} s; "
           f"both ranks spawned, checked and joined in {spawn_s:.1f} s {label}", flush=True)
 
-    # c. the graph-parallel model over two gloo ranks on the Shen-268 skeleton
+    # c. the graph-parallel model over two gloo ranks on the Shen-268 skeleton.
+    # Its sums (index_add_) take their deterministic implementations, here and
+    # in the ranks: with the card's atomics the summation order changes from
+    # run to run, and a pre-activation within rounding of a ReLU kink then
+    # flips, which moves the linear-head gradient by 1e-2 of a leaf
+    torch.use_deterministic_algorithms(True, warn_only=True)
     levels, pools, series, _, _ = brain_data(np, with_flat=False)
     sample = gp_sample(np, levels, pools, series)
     model = gp_model(torch).cuda()
@@ -2800,6 +2854,7 @@ def parallel_phase(torch, np, lg, card, samples):
     probe_ref_loss = float(probe_single.train_step(flat))
     per_rank = pdist.spawn_ranks(gp_rank, 2, sample, state, probe_state,
                                  timeout=PARALLEL_PHASE_S)
+    torch.use_deterministic_algorithms(False)
     g0 = per_rank[0]
     scale = float(np.abs(ref_out).max())
     err = max(float(np.abs(r["out"] - ref_out).max()) for r in per_rank)
@@ -2822,18 +2877,21 @@ def parallel_phase(torch, np, lg, card, samples):
     for tag, key, ref_g in (("gp_brain model", "grads", ref_grads),
                             ("linear-head model", "probe_grads", probe_ref)):
         carrying = len(ref_g) - len(zero_grad_leaves(ref_g))
+        bounds = (dict(leaf_tol=TRAIN_LEAF_TOL, norm_tol=TRAIN_NORM_TOL)
+                  if key == "probe_grads" else {})
         compare_grads(f"{tag}, the averaged gradient the update read vs the single-process "
                       f"step's ({carrying} of {len(ref_g)} leaves carry a gradient)",
                       {k: torch.from_numpy(v) for k, v in g0[key].items()},
                       {k: torch.from_numpy(v) for k, v in ref_g.items()},
-                      zero_grad_leaves(ref_g), prefix="gp")
+                      zero_grad_leaves(ref_g), prefix="gp", **bounds)
         grad_bad[tag] = [k for k, v in ref_g.items()
                          if not np.allclose(g0[key][k], v, rtol=GP_GRAD_RTOL, atol=GP_GRAD_ATOL)]
         if any(not np.array_equal(per_rank[1][key][k], v) for k, v in g0[key].items()):
             fail(f"[gp] {tag}: the ranks' averaged gradients differ")
-    print(f"[gp] gradient leaves outside rtol {GP_GRAD_RTOL} / atol {GP_GRAD_ATOL}: {grad_bad}; "
-          f"linear-head loss {g0['probe_loss']:.7f} vs {probe_ref_loss:.7f}", flush=True)
-    if any(grad_bad.values()):
+    print(f"[gp] gradient leaves outside rtol {GP_GRAD_RTOL} / atol {GP_GRAD_ATOL}: {grad_bad} "
+          f"(the linear-head model's reported); linear-head loss {g0['probe_loss']:.7f} vs "
+          f"{probe_ref_loss:.7f}", flush=True)
+    if grad_bad["gp_brain model"]:
         fail("[gp] the graph-parallel gradient disagrees with the single-process gradient")
     if abs(g0["probe_loss"] - probe_ref_loss) > 1e-4 * abs(probe_ref_loss):
         fail("[gp] the linear-head model's loss disagrees with the single-process loss")
@@ -2849,6 +2907,262 @@ def parallel_phase(torch, np, lg, card, samples):
     if took > PARALLEL_PHASE_S:
         fail(f"phase 13 took {took:.1f} s, over {PARALLEL_PHASE_S} s")
     return total
+
+
+def matcher_ms(np, levels, weight):
+    """Host ms of the native matcher and of the pure-Python walk on the
+    demo's two coarsening steps (level 0 weighted, level 1 unweighted on its
+    row-major sorted list, as ``complex.coarsen.mlgc`` feeds them), and
+    whether their assignments agree."""
+    from hl_hgat_tpu_torch import native
+    from hl_hgat_tpu_torch.complex.coarsen import graclus_cluster
+
+    out = []
+    for lvl, w in ((levels[0], weight), (levels[1], None)):
+        src, dst, n = lvl.src, lvl.dst, lvl.num_nodes
+        if w is None:
+            order = np.lexsort((dst, src))
+            src, dst = src[order], dst[order]
+        t0 = time.perf_counter()
+        fast = native.graclus_match(src, dst, w, n)
+        t1 = time.perf_counter()
+        if w is None:  # the walk over the symmetric row-major list
+            ss, dd = np.concatenate([src, dst]), np.concatenate([dst, src])
+            order = np.lexsort((dd, ss))
+            slow = graclus_cluster(ss[order], dd[order], None, n, directed=True)
+        else:
+            slow = graclus_cluster(src, dst, w, n)
+        t2 = time.perf_counter()
+        out.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, bool(np.array_equal(fast, slow))))
+    return out
+
+
+def trace_kernel_names(path: str) -> set:
+    """Names of the device kernels in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def analysis_phase(torch, np, lg, ell, card):
+    """Phase 14: the analysis layer and the examples on the card.  The brain
+    demo (``examples.brain_demo``) at ANALYSIS_DEMO on the terms-kernel route
+    and on the plain route from the same weights (sizes, matcher ms, per-epoch
+    losses, StepTimer step ms, launches of kernels 2 and 4 per step with the
+    band ones, the routes held to each other); ``trace_context`` around three
+    demo steps (the trace names the terms kernels); ``enable_nan_checks`` on
+    the card; the three figures' arrays on the card against the CPU;
+    ``examples.gp_brain`` over two gloo ranks.  Returns the Laguerre launches
+    of the kernel route's demo run."""
+    import dataclasses as dc
+    import tempfile
+
+    from hl_hgat_tpu_torch.examples import brain_demo, figures, gp_brain
+    from hl_hgat_tpu_torch.nn import conv
+    from hl_hgat_tpu_torch.train.losses import mse_loss
+    from hl_hgat_tpu_torch.utils import profiling
+
+    def log(msg):
+        print(f"[analysis] {msg}", flush=True)
+
+    t_phase = time.perf_counter()
+    args = brain_demo.build_argparser().parse_args(ANALYSIS_DEMO)
+    t0 = time.perf_counter()
+    init = brain_demo.init_stage(args, log=lambda m: log(m.strip()))
+    init_s = time.perf_counter() - t0
+    sizes = [(lvl.num_nodes, lvl.num_edges) for lvl in init.levels]
+    weight = np.abs(np.mean([smp.x_s[:, 0] for smp in init.train + init.val], axis=0))
+    matcher = matcher_ms(np, init.levels, weight)
+    log(f"init at {init.rois} ROIs, {args.subjects} subjects, T = {args.t}: pyramid (nodes, "
+        f"edges) {sizes}, {init_s:.2f} s host; matcher ms native vs pure Python (same "
+        "assignments): " + "; ".join(f"level {i} {a:.3f} vs {b:.3f} ({'yes' if same else 'no'})"
+                                     for i, (a, b, same) in enumerate(matcher)))
+    if init.rois != 268 or len(init.levels) != 3:
+        fail(f"[analysis] the demo built {init.rois} ROIs and {len(init.levels)} levels")
+    t0 = time.perf_counter()
+    train = brain_demo.batches(init.train, args.batch_size, "cuda")
+    val = brain_demo.batches(init.val, args.batch_size, "cuda")
+    torch.cuda.synchronize()
+    log(f"{len(train)} train batches and {len(val)} val batch(es) of shared operators (L1 "
+        f"{[tuple(lvl.l1.shape) for lvl in train[0].levels]}) collated and moved in "
+        f"{time.perf_counter() - t0:.2f} s")
+    l1 = train[0].levels[0].l1
+    pad_ms = median_ms(torch, lambda: lg._band_operator(l1, torch.float32), 5)
+    log(f"the level-0 L1's {l1.shape[-1]}-element rows padded to "
+        f"{lg._band_operator(l1, torch.float32)[1]} on every band launch: {pad_ms:.4f} ms a "
+        f"launch [{card}]")
+    model, meta = brain_demo.build_model(init, "cuda")
+    state = copy.deepcopy(model.state_dict())
+    steps = len(train) * args.epochs
+
+    results, main_path, first = {}, {}, {}
+    for route, (fused, terms) in ANALYSIS_ROUTES.items():
+        conv.use_fused_dense(fused)
+        conv.use_terms_kernel(terms)
+        # the first step's loss and gradient from the shared weights
+        model.load_state_dict(state)
+        model.train().zero_grad(set_to_none=True)
+        loss = mse_loss(model(train[0])[0].reshape(-1), train[0].y.reshape(-1))
+        loss.backward()
+        first[route] = (float(loss.detach()), {n: p.grad.detach().clone()
+                                      for n, p in model.named_parameters()})
+        model.load_state_dict(state)
+        timer = profiling.StepTimer()
+        lg.reset_launch_counts()
+        ell.reset_launch_counts()
+        losses = brain_demo.train_stage(model, train, args.epochs, log=lambda m: None,
+                                        timer=timer)
+        counts, band = dict(lg.LAUNCHES), dict(lg.BAND_LAUNCHES)
+        ev = brain_demo.evaluate_stage(model, val, meta, log=lambda m: None)
+        eval_counts = {k: lg.LAUNCHES[k] - counts[k] for k in counts}
+        an = brain_demo.analyze_stage(dc.replace(init, rng=copy.deepcopy(init.rng)),
+                                      ev["edge_att"], log=lambda m: None)
+        if route == "terms":
+            main_path = dict(lg.LAUNCHES)
+        results[route] = dict(losses=losses, ev=ev, an=an)
+        ms = [t * 1e3 for t in timer.times]
+        per = {k: counts[k] / steps for k in ("laguerre_terms_dense", "laguerre_terms_dense_bwd")}
+        per_band = {k: band[k] / steps for k in per}
+        log(f"{route} route: epoch losses {[round(x, 6) for x in losses]}; step ms (StepTimer, "
+            f"synchronized) first {ms[0]:.1f}, median of the rest "
+            f"{statistics.median(ms[1:]):.3f}; launches a step (kernels 2, 4) "
+            f"{per['laguerre_terms_dense']:g} + {per['laguerre_terms_dense_bwd']:g}, band "
+            f"{per_band['laguerre_terms_dense']:g} + {per_band['laguerre_terms_dense_bwd']:g}, "
+            f"fused {counts['laguerre_dense_fused']}; val forward {eval_counts}; corr "
+            f"{ev['corr']:.3f}, RMSE {ev['rmse']:.3f} [{card}]")
+        if not np.isfinite(losses).all() or not np.isfinite(ev["pred"]).all():
+            fail(f"[analysis] {route} route: non-finite losses or predictions")
+        if route == "terms":
+            if min(per.values()) <= 0 or min(per_band.values()) <= 0:
+                fail(f"[analysis] the kernel route launched {counts} (band {band})")
+            if counts["laguerre_dense_fused"] or counts["laguerre_dense_fused_bwd"]:
+                fail(f"[analysis] the shared layout took the fused kernel: {counts}")
+        elif any(counts.values()) or any(eval_counts.values()):
+            fail(f"[analysis] the plain route launched {counts} {eval_counts}")
+    # the kernel route's trained weights served on the plain route
+    conv.use_fused_dense(False)
+    conv.use_terms_kernel(False)
+    ev = brain_demo.evaluate_stage(model, val, meta, log=lambda m: None)
+    served = dict(ev=ev, an=brain_demo.analyze_stage(
+        dc.replace(init, rng=copy.deepcopy(init.rng)), ev["edge_att"], log=lambda m: None))
+    conv.use_fused_dense(True)
+    got = results["terms"]
+    (loss, grads), (ref_loss, ref_grads) = first["terms"], first["plain"]
+    log(f"first step from the same weights: loss {loss:.7f} vs plain route {ref_loss:.7f}")
+    if not abs(loss - ref_loss) <= TOL["float32"] * abs(ref_loss):
+        fail("[analysis] the kernel route's first loss disagrees with the plain route's")
+    compare_train_grads("brain demo terms vs plain route, first step", "float32", grads,
+                        ref_grads, zero_grad_leaves(ref_grads), prefix="analysis")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], results["plain"]["losses"]))
+    errs = {}
+    for tag, ref in (("same weights", served), ("trained apart", results["plain"])):
+        pred_scale = float(np.abs(ref["ev"]["pred"]).max())
+        att_scale = float(np.abs(ref["an"]["fc_att"]).max())
+        errs[tag] = (float(np.abs(got["ev"]["pred"] - ref["ev"]["pred"]).max()) / pred_scale,
+                     float(np.abs(got["an"]["fc_att"] - ref["an"]["fc_att"]).max()) / att_scale)
+    log(f"kernel route vs plain route: epoch losses trained apart worst rel {loss_err:.3e} "
+        f"(reported); validation "
+        f"predictions and attention matrix, max|err| / max|ref|: the kernel route's weights on "
+        f"both routes {errs['same weights'][0]:.3e}, {errs['same weights'][1]:.3e}; the two "
+        f"routes trained apart {errs['trained apart'][0]:.3e}, {errs['trained apart'][1]:.3e} "
+        f"(reported); top edges {tuple(map(int, got['an']['top']))} / "
+        f"{tuple(map(int, results['plain']['an']['top']))}")
+    for route, res in results.items():
+        if not res["losses"][-1] < res["losses"][0]:
+            fail(f"[analysis] {route} route: the epoch loss did not fall {res['losses']}")
+    if not max(errs["same weights"]) <= ANALYSIS_TOL:
+        fail("[analysis] the kernel route's predictions or attention disagree with plain")
+
+    # trace_context around three demo steps on the kernel route
+    conv.use_terms_kernel(True)
+    optimizer = brain_demo.adam_l2(model.parameters(), lr=brain_demo.LR)
+    brain_demo.train_step(model, optimizer, train[0])
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir:
+        t0 = time.perf_counter()
+        with profiling.trace_context(logdir) as prof:
+            for i in range(ANALYSIS_TRACE_STEPS):
+                brain_demo.train_step(model, optimizer, train[i % len(train)])
+            torch.cuda.synchronize()
+        trace_s = time.perf_counter() - t0
+        path = f"{logdir}/{profiling.TRACE_FILE}"
+        size = os.path.getsize(path)
+        names = trace_kernel_names(path)
+    conv.use_terms_kernel(False)
+    device_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    import re
+
+    ours = sorted({m.group(0) for m in (re.search(r"\w*(terms_|band_)\w*", n) for n in names)
+                   if m})
+    log(f"trace of {ANALYSIS_TRACE_STEPS} steps: {size} B Chrome trace, {len(names)} kernel "
+        f"names, {device_us / 1e3 / ANALYSIS_TRACE_STEPS:.3f} device ms a step, "
+        f"{trace_s:.2f} s with the trace written; the terms kernels in it: {ours}")
+    if not any("terms_" in n for n in ours) or not any("band_" in n for n in ours):
+        fail("[analysis] the trace does not name the terms kernels (resident and band)")
+
+    # enable_nan_checks on the card
+    profiling.enable_nan_checks(True)
+    try:
+        zeros = torch.zeros(4, device="cuda")
+        try:
+            zeros / zeros
+        except FloatingPointError as err:
+            raised = str(err)
+        else:
+            fail("[analysis] a / a on zeros raised nothing with NaN checks on")
+        conv.use_terms_kernel(True)
+        lg.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model.eval()(val[0])
+        torch.cuda.synchronize()
+        checked_s = time.perf_counter() - t0
+        checked = lg.LAUNCHES["laguerre_terms_dense"]
+    finally:
+        profiling.enable_nan_checks(False)
+        conv.use_terms_kernel(False)
+    log(f"NaN checks: a / a on zeros raised ({raised}); a demo forward with checks on raised "
+        f"nothing ({checked} terms launches checked after launch, {checked_s:.2f} s)")
+    if checked == 0:
+        fail("[analysis] the checked forward launched no terms kernel")
+
+    # the figures' arrays on the card against the CPU, the same weights
+    t0 = time.perf_counter()
+    errs = {}
+    for name, fn in (("tsp_trend", figures.tsp_trend_arrays),
+                     ("cifar_attention", figures.cifar_attention_arrays)):
+        card_arrays, cpu_arrays = fn(0, "cuda"), fn(0, "cpu")
+        keys = ("node", "edge") if name == "tsp_trend" else ("a_t", "a_s")
+        for key in keys:
+            a, b = np.asarray(card_arrays[key]), np.asarray(cpu_arrays[key])
+            errs[f"{name}.{key}"] = float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                                     1e-30)
+    brain_card, brain_cpu = figures.brain_fc_arrays(0), figures.brain_fc_arrays(0)
+    errs["brain_fc.matrix"] = float(np.abs(brain_card["matrix"] - brain_cpu["matrix"]).max())
+    log(f"figure arrays card vs CPU, max|err| / max|ref|: "
+        f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if max(errs.values()) > TOL["float32"]:
+        fail("[analysis] a figure's arrays on the card disagree with the CPU's")
+
+    # gp_brain over two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    gp_results = gp_brain.main(GP_DEMO)
+    gp_s = time.perf_counter() - t0
+    losses = gp_results[0]["losses"]
+    log(f"gp_brain {' '.join(GP_DEMO)}: losses {[round(x, 6) for x in losses]}, ranks' launches "
+        f"{[r['launches'] for r in gp_results]}; {gp_s:.1f} s with spawn and join, steps "
+        f"{gp_results[0]['seconds'][-1]:.2f} s (on one card, ranks sharing it) [{card}]")
+    if not np.isfinite(losses).all() or losses != gp_results[1]["losses"]:
+        fail("[analysis] gp_brain's losses are not finite or differ across ranks")
+
+    took = time.perf_counter() - t_phase
+    log(f"phase 14 took {took:.1f} s; Laguerre launches on its main path (the kernel route's "
+        f"demo run) {main_path} [{card}]")
+    if took > ANALYSIS_PHASE_S:
+        fail(f"phase 14 took {took:.1f} s, over {ANALYSIS_PHASE_S} s")
+    return main_path
 
 
 def print_laguerre_summary(summary, names, card):
@@ -2871,6 +3185,9 @@ def main(argv=None) -> int:
                          "blocks over 128 rows; 'ell': 6), no result line")
     ap.add_argument("--parallel-only", action="store_true",
                     help="build, then phase 13 alone (the parallel package), no result line")
+    ap.add_argument("--analysis-only", action="store_true",
+                    help="build, then phase 14 alone (the analysis layer and the examples), "
+                         "no result line")
     args = ap.parse_args(argv)
     import torch
 
@@ -2948,6 +3265,10 @@ def main(argv=None) -> int:
     if args.parallel_only:
         parallel_phase(torch, np, lg, card, samples)
         print("[parallel-only] done, no result line", flush=True)
+        return 0
+    if args.analysis_only:
+        analysis_phase(torch, np, lg, ell, card)
+        print("[analysis-only] done, no result line", flush=True)
         return 0
 
     # ---- 2. kernels vs plain at main-path shapes --------------------------
@@ -3132,7 +3453,15 @@ def main(argv=None) -> int:
     for name, n in dp_launches.items():
         launches[name] += n
 
-    # ---- 14. result lines -------------------------------------------------
+    # ---- 14. the analysis layer, the brain demo at 268 ROIs, the examples ----
+    analysis_launches = analysis_phase(torch, np, lg, ell, card)
+    for name in ("laguerre_terms_dense", "laguerre_terms_dense_bwd"):
+        if analysis_launches[name] == 0:
+            fail(f"{name} was never launched on the brain demo's path")
+    for name, n in analysis_launches.items():
+        launches[name] += n
+
+    # ---- 15. result lines -------------------------------------------------
     replaces = {
         "laguerre_dense_fused": "hl_hgat_tpu/ops/pallas_hodge.py:93",
         "laguerre_terms_dense": "hl_hgat_tpu/ops/pallas_hodge.py:285",

@@ -112,6 +112,41 @@ def canonical_undirected(
     return out_ei, out_attr
 
 
+def par2adj(par1: np.ndarray) -> np.ndarray:
+    """The canonical edge list [2, E] of a dense boundary operator, the
+    inverse of ``boundary_dense`` (reference ``par2adj``,
+    lib/Hodge_Dataset.py:194-209): each column has −1 at src, +1 at dst."""
+    srcs, dsts = [], []
+    for e in range(par1.shape[1]):
+        nz = np.nonzero(par1[:, e])[0]
+        srcs.append(int(nz[par1[nz, e] < 0][0]))
+        dsts.append(int(nz[par1[nz, e] > 0][0]))
+    return np.stack([np.asarray(srcs, np.int32), np.asarray(dsts, np.int32)])
+
+
+def post2poss(pos_t: np.ndarray, edge_index: np.ndarray, edge_index1: np.ndarray) -> np.ndarray:
+    """Edge cluster assignment from node clusters (reference
+    lib/Hodge_Dataset.py:212-238): an edge inside one cluster maps to −1
+    (the reference's ``inf``), any other to the index of the coarse edge
+    (min, max) in ``edge_index1``; KeyError when that edge is missing."""
+    coarse = {(int(a), int(b)): i for i, (a, b) in enumerate(zip(edge_index1[0], edge_index1[1]))}
+    pos_t = np.asarray(pos_t).reshape(-1)
+    out = np.empty(edge_index.shape[1], np.int64)
+    for i in range(edge_index.shape[1]):
+        a, b = int(pos_t[edge_index[0, i]]), int(pos_t[edge_index[1, i]])
+        out[i] = -1 if a == b else coarse[(min(a, b), max(a, b))]
+    return out
+
+
+def unbatch_edge_attr(edge_attr: np.ndarray, s_id: np.ndarray, edge_mask: np.ndarray,
+                      num_graphs: int) -> list[np.ndarray]:
+    """Batched per-edge rows split back per graph, padding dropped
+    (reference ``unbatch_edge_attr``, lib/Hodge_Cheb_Conv.py:244-251)."""
+    s_id = np.asarray(s_id)
+    valid = np.asarray(edge_mask) > 0
+    return [np.asarray(edge_attr)[(s_id == g) & valid] for g in range(num_graphs)]
+
+
 def boundary_dense(src: np.ndarray, dst: np.ndarray, num_nodes: int) -> np.ndarray:
     """Dense B1 [num_nodes, num_edges]: −1 at src, +1 at dst per column."""
     e = src.shape[0]

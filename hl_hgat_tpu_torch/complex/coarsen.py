@@ -1,18 +1,20 @@
 """Multi-level graph coarsening (MLGC): graclus matching and the coarse complex.
 
-A NumPy copy of ``hl_hgat_tpu/complex/coarsen.py`` (the JAX package's module
-reaches ``hl_hgat_tpu.native`` and its build module, so the port keeps its
-own).  It takes the JAX package's pure-Python paths, which give the same
-assignments as its native matcher: greedy heavy-edge matching, nodes visited
-in index order, each node's neighbours in ascending index order for the
-unweighted build (the reference runs graclus on the symmetric, row-major L0
-pattern, reference lib/Hodge_Dataset.py:241-295) and by descending weight
-for the weighted one (lib/Hodge_Dataset.py:298-353).  Host-side dataset
-preprocessing, never on the training path.  The brain options of
-``mlgc`` (pooled edge features, pruned coarse edges, dropped nodes, a given
-visit order, directed matching) are the JAX module's too: with them the
-brain pyramid of ``data/brain.py`` reproduces the reference's
-torch-cluster run (HL-HGAT-DEMO/lib/Hodge_Dataset.py:219-258).
+A NumPy copy of ``hl_hgat_tpu/complex/coarsen.py`` that takes the same
+matcher in each case: greedy heavy-edge matching, nodes visited in index
+order.  The unweighted build (the reference runs graclus on the symmetric,
+row-major L0 pattern, reference lib/Hodge_Dataset.py:241-295) and the
+weighted one (neighbours by descending weight, lib/Hodge_Dataset.py:298-353)
+run the host library's ``graclus_match`` (``native.py``); the unweighted
+build sorts the canonical list row-major first, so each node meets its
+neighbours in ascending index order.  A given visit order or directed
+matching (the brain pyramid) takes the Python walk of ``graclus_cluster``.
+The coarse edges always come from the library's ``coarse_edges``.
+Host-side dataset preprocessing, never on the training path.  The brain
+options of ``mlgc`` (pooled edge features, pruned coarse edges, dropped
+nodes, a given visit order, directed matching) are the JAX module's too:
+with them the brain pyramid of ``data/brain.py`` reproduces the
+reference's torch-cluster run (HL-HGAT-DEMO/lib/Hodge_Dataset.py:219-258).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import dataclasses
 
 import numpy as np
 
+from hl_hgat_tpu_torch import native
 from hl_hgat_tpu_torch.complex.build import GraphStructure, build_structure
 
 
@@ -73,28 +76,14 @@ def graclus_cluster(
 def coarse_edges(
     c_node: np.ndarray, src: np.ndarray, dst: np.ndarray
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Coarse edge set in first-seen order and the fine→coarse edge map.
+    """Coarse edge set in first-seen order and the fine→coarse edge map
+    (the host library's ``coarse_edges``).
 
     A fine edge whose endpoints fall into one cluster is deleted (map −1);
     otherwise the coarse edge (min, max) is created on first sight and
     reused after (reference lib/Hodge_Dataset.py:260-274).
     """
-    c_edge = np.zeros(src.shape[0], np.int64)
-    ei0: list[int] = []
-    ei1: list[int] = []
-    seen: dict[tuple[int, int], int] = {}
-    for i in range(src.shape[0]):
-        a, b = int(c_node[src[i]]), int(c_node[dst[i]])
-        if a == b:
-            c_edge[i] = -1
-            continue
-        key = (min(a, b), max(a, b))
-        if key not in seen:
-            seen[key] = len(ei0)
-            ei0.append(key[0])
-            ei1.append(key[1])
-        c_edge[i] = seen[key]
-    return np.asarray(ei0, np.int32), np.asarray(ei1, np.int32), c_edge
+    return native.coarse_edges(c_node, src, dst)
 
 
 def mlgc(
@@ -123,13 +112,15 @@ def mlgc(
       (reference HL-HGAT-DEMO/lib/Hodge_Dataset.py:255-258).
     """
     src, dst, n = structure.src, structure.dst, structure.num_nodes
-    if edge_weight is None and visit is None and not directed_match:
-        # the symmetric edge list sorted row-major, walked as given: each
-        # node meets its neighbours in ascending index order
-        ss = np.concatenate([src, dst])
-        dd = np.concatenate([dst, src])
-        order = np.lexsort((dd, ss))
-        rep = graclus_cluster(ss[order], dd[order], None, n, directed=True)
+    if visit is None and not directed_match:
+        if edge_weight is None:
+            # the canonical list sorted row-major (coarse levels come out of
+            # the first-seen dedup unsorted): the symmetrizing matcher then
+            # meets each node's neighbours in ascending index order
+            order = np.lexsort((dst, src))
+            rep = native.graclus_match(src[order], dst[order], None, n)
+        else:
+            rep = native.graclus_match(src, dst, edge_weight, n)
     else:
         rep = graclus_cluster(src, dst, edge_weight, n, directed=directed_match, visit=visit)
     uniq, c_node = np.unique(rep, return_inverse=True)

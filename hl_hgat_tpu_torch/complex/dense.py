@@ -541,6 +541,90 @@ def collate_dense_packed(
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class DensePad:
+    """Rows of one level in the unpacked layout: nodes and edges a block."""
+
+    nodes: int
+    edges: int
+
+
+def dense_pad_spec(samples: list[GraphSample], *, multiple: int = 8) -> list[DensePad]:
+    """Per level, the batch's most nodes and most edges, rounded up to
+    ``multiple`` (at least ``multiple``)."""
+    def rnd(x: int) -> int:
+        return max(-(-x // multiple) * multiple, multiple)
+
+    return [DensePad(nodes=rnd(max(s.levels[lv].num_nodes for s in samples)),
+                     edges=rnd(max(s.levels[lv].num_edges for s in samples)))
+            for lv in range(len(samples[0].levels))]
+
+
+def collate_dense(
+    samples: list[GraphSample], pads: list[DensePad] | None = None, *,
+    multiple: int = 8, y_per_edge: bool = False,
+) -> DenseBatch:
+    """The unpacked dense layout (``hl_hgat_tpu/complex/dense.py::
+    collate_dense``): one graph a block, every level padded to ``pads``
+    (default ``dense_pad_spec(samples, multiple=multiple)``; ValueError when
+    a sample does not fit), per-graph operators [G, S, S], no graph ids
+    (the readouts take each block's masked mean) and per-graph averaging
+    pools.  ``y_per_edge``: y is [G, E, ...] on level 0's edge rows."""
+    if pads is None:
+        pads = dense_pad_spec(samples, multiple=multiple)
+    g = len(samples)
+    depth = len(samples[0].levels)
+    levels = []
+    for lv in range(depth):
+        s_pad, e_pad = pads[lv].nodes, pads[lv].edges
+        l0 = np.zeros((g, s_pad, s_pad), np.float32)
+        l1 = np.zeros((g, e_pad, e_pad), np.float32)
+        b1 = np.zeros((g, s_pad, e_pad), np.float32)
+        nm = np.zeros((g, s_pad), np.float32)
+        em = np.zeros((g, e_pad), np.float32)
+        deg = np.zeros((g, s_pad), np.float32)
+        for i, smp in enumerate(samples):
+            st = smp.levels[lv]
+            n, e = st.num_nodes, st.num_edges
+            if n > s_pad or e > e_pad:
+                raise ValueError(f"sample exceeds dense pad: {n}>{s_pad} or {e}>{e_pad}")
+            l0[i, st.l0_rows, st.l0_cols] = st.l0_vals
+            l1[i, st.l1_rows, st.l1_cols] = st.l1_vals
+            b1[i, :n, :e] = boundary_dense(st.src, st.dst, n)
+            nm[i, :n] = 1.0
+            em[i, :e] = 1.0
+            np.add.at(deg[i], st.src, 1.0)
+            np.add.at(deg[i], st.dst, 1.0)
+        levels.append(DenseLevel(l0=l0, l1=l1, b1=b1, node_mask=nm, edge_mask=em, deg=deg,
+                                 num_graphs=g))
+
+    pools = []
+    for lv in range(depth - 1):
+        shapes = ((pads[lv + 1].nodes, pads[lv].nodes), (pads[lv + 1].edges, pads[lv].edges))
+        mats = [np.zeros((g,) + shape, np.float32) for shape in shapes]
+        for i, smp in enumerate(samples):
+            for p, assign in zip(mats, smp.pools[lv]):
+                a = np.asarray(assign).reshape(-1)
+                idx = np.nonzero(a >= 0)[0]
+                p[i, a[idx], idx] = 1.0
+                p[i] /= np.maximum(p[i].sum(axis=1, keepdims=True), 1.0)
+        pools.append(DensePool(p_t=mats[0], p_s=mats[1]))
+
+    x_t = np.zeros((g, pads[0].nodes, samples[0].x_t.shape[1]), np.float32)
+    x_s = np.zeros((g, pads[0].edges, samples[0].x_s.shape[1]), np.float32)
+    for i, smp in enumerate(samples):
+        x_t[i, :smp.num_nodes] = smp.x_t
+        x_s[i, :smp.num_edges] = smp.x_s
+    if y_per_edge:
+        y = np.zeros((g, pads[0].edges) + samples[0].y.shape[1:], np.float32)
+        for i, smp in enumerate(samples):
+            y[i, :smp.num_edges] = smp.y
+    else:
+        y = np.stack([np.asarray(smp.y, np.float32).reshape(-1) for smp in samples])
+    return DenseBatch(x_t=x_t, x_s=x_s, y=y, levels=tuple(levels), num_graphs=g,
+                      pools=tuple(pools))
+
+
 def collate_dense_shared(samples: list[GraphSample]) -> DenseBatch:
     """Dense layout for shared-skeleton datasets
     (``hl_hgat_tpu/complex/dense.py::collate_dense_shared``): every sample

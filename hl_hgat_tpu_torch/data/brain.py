@@ -4,8 +4,10 @@
 The reference's DEMO directory holds the group data: ``Group_FC.mat``
 (group-mean FC ``fc_mean`` and ``sc_mean``), ``Group_FCMask.mat`` (the
 study's skeleton ``sf_mask``) and ``affiliations.mat`` (anatomical parcel
-memberships).  The loaders read them with scipy, from a directory the
-caller names.
+memberships).  The loaders read them with scipy, by default from
+``REFERENCE_BRAIN_DIR``: the DEMO's data directory of the reference
+repository checked out beside this one (the JAX package's constant names
+the same place).
 
 ``brain_pyramid`` is the structure pyramid of OHBM_DEMO.ipynb cell 46: the
 notebook seeds torch with 10086 right before its two ``MLGC_Weight``
@@ -30,12 +32,16 @@ from hl_hgat_tpu_torch.complex.coarsen import mlgc
 from hl_hgat_tpu_torch.complex.dense import collate_dense_shared
 from hl_hgat_tpu_torch.data.datasets import brain_sample
 
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REFERENCE_BRAIN_DIR = os.path.join(os.path.dirname(_REPO_ROOT), "reference", "HL-HGAT-DEMO",
+                                   "data")
+
 # plt_sort_anatomy's lobe display order (reference
 # HL-HGAT-DEMO/lib/Hodge_Dataset.py:64), 0-based lobe ids
 LOBE_ORDER = [1, 11, 5, 15, 0, 10, 3, 13, 2, 12, 4, 14, 6, 16, 8, 18, 9, 19, 7, 17]
 
 
-def load_group_fc(data_dir: str) -> dict[str, np.ndarray]:
+def load_group_fc(data_dir: str = REFERENCE_BRAIN_DIR) -> dict[str, np.ndarray]:
     """``Group_FC.mat`` and ``Group_FCMask.mat`` → fc_mean, sc_mean, sf_mask."""
     from scipy.io import loadmat
 
@@ -48,7 +54,7 @@ def load_group_fc(data_dir: str) -> dict[str, np.ndarray]:
     )
 
 
-def load_affiliations(data_dir: str) -> dict:
+def load_affiliations(data_dir: str = REFERENCE_BRAIN_DIR) -> dict:
     """``affiliations.mat`` → the [268, 6] 1-based membership table and the
     20 lobe names (reference HL-HGAT-DEMO/lib/Hodge_Dataset.py:55)."""
     from scipy.io import loadmat
@@ -94,7 +100,8 @@ def brain_pyramid(
     return levels, pools
 
 
-def build_real_brain_pyramid(data_dir: str, pool_num: int = 2, seed: int = 10086):
+def build_real_brain_pyramid(data_dir: str = REFERENCE_BRAIN_DIR, pool_num: int = 2,
+                             seed: int = 10086):
     """The real Shen-268 pyramid from the group data in ``data_dir``:
     (levels, pools, skeleton FC weights)."""
     g = load_group_fc(data_dir)

@@ -165,6 +165,35 @@ def contact_like_samples(
     ]
 
 
+def synthetic_tsp_batch(batch_size: int = 4, *, seed: int = 0) -> ComplexBatch:
+    """A flat batch of TSP-like graphs (``hl_hgat_tpu/data/synthetic.py::
+    synthetic_tsp_batch``, the same draws): 50–100 points in the unit
+    square, a random tour ring plus 3n random chords, x_t the coordinates,
+    x_s [distance, aug-mask column of ones], y 1 on the tour's edges."""
+    rng = np.random.default_rng(seed)
+    samples = []
+    for _ in range(batch_size):
+        n = int(rng.integers(50, 101))
+        pos = rng.random((n, 2)).astype(np.float32)
+        order = rng.permutation(n)
+        tour = {(min(int(order[i]), int(order[(i + 1) % n])),
+                 max(int(order[i]), int(order[(i + 1) % n]))) for i in range(n)}
+        pairs = set(tour)
+        for _ in range(3 * n):
+            a, b = rng.integers(0, n, 2)
+            if a != b:
+                pairs.add((int(min(a, b)), int(max(a, b))))
+        arr = np.array(sorted(pairs), np.int64)
+        src, dst = arr[:, 0], arr[:, 1]
+        dist = np.linalg.norm(pos[src] - pos[dst], axis=1, keepdims=True)
+        y = np.array([1.0 if (int(a), int(b)) in tour else 0.0 for a, b in zip(src, dst)],
+                     np.float32)
+        samples.append(build_complex(
+            np.stack([src, dst]), n, x_t=pos,
+            x_s=np.concatenate([dist, np.ones_like(dist)], axis=1).astype(np.float32), y=y))
+    return collate(samples, y_per_edge=True)
+
+
 def knn_graph(rng: np.random.Generator, n: int, k: int = 10):
     """Canonical undirected k-NN edge list of n uniform points in the unit
     square, and the points (``benchmarks/tsp_bench.py::knn_graph``)."""
@@ -224,6 +253,18 @@ def synthetic_brain_samples(
         s.levels, s.pools = levels, pools
         samples.append(s)
     return samples
+
+
+def synthetic_brain_batch(
+    batch_size: int = 4, *, seed: int = 0, n_rois: int = 32, t_len: int = 64,
+    density: float = 0.2, num_pool: int = 2,
+) -> tuple[ComplexBatch, int, int]:
+    """``synthetic_brain_samples`` collated flat with no row padding:
+    (batch, nodes and edges of the final level a graph)."""
+    samples = synthetic_brain_samples(batch_size, seed=seed, n_rois=n_rois, t_len=t_len,
+                                      density=density, num_pool=num_pool)
+    final = samples[0].levels[-1]
+    return collate(samples, multiple=1), final.num_nodes, final.num_edges
 
 
 def synthetic_fmri_series(

@@ -92,7 +92,10 @@ class DenseInt3Backbone(nn.Module):
     channels its layers, the block's gates and its pooling.  Returns the
     last layer's (x_t, x_s) on level ``level_idx`` (the number of pools
     taken); with ``return_atts`` also the float32 gates (a_t, a_s) of each
-    gated block, in block order."""
+    gated block, in block order; with ``return_snapshots`` (last) also the
+    list of every layer's conv output (x_t, x_s), taken after each
+    ``NEConv{i}{j}`` before any gate, on that layer's level (the feature
+    trends of ``utils.viz``; reference lib/Visualization.py:35-122)."""
 
     def __init__(self, cfg: BackboneConfig, c_t: int, c_s: int, generator=None):
         super().__init__()
@@ -125,7 +128,8 @@ class DenseInt3Backbone(nn.Module):
         self.out_features = cfg.filters[-1]
         self.level_idx = sum(1 for i in range(len(cfg.filters)) if i in cfg.pool_locs)
 
-    def forward(self, x_t, x_s, batch: Batch, *, return_atts: bool = False):
+    def forward(self, x_t, x_s, batch: Batch, *, return_atts: bool = False,
+                return_snapshots: bool = False):
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
         x_t = x_t.to(dtype)
@@ -138,7 +142,7 @@ class DenseInt3Backbone(nn.Module):
         x_s = self.init_edge(x_s, level.l1, level.edge_mask)
         pieces_t, pieces_s = (x_t,), (x_s,)
         k = 0  # pooling level index
-        atts = []
+        atts, snapshots = [], []
         for i in range(len(cfg.filters)):
             for j in range(cfg.channels[i]):
                 conv = self.get_submodule(f"NEConv{i}{j}")
@@ -150,6 +154,7 @@ class DenseInt3Backbone(nn.Module):
                                     level)
                 pieces_t += (x_t,)
                 pieces_s += (x_s,)
+                snapshots.append((x_t, x_s))
                 if cfg.stack_concat == "layer":
                     pieces_t = (torch.cat(pieces_t, dim=-1),)
                     pieces_s = (torch.cat(pieces_s, dim=-1),)
@@ -183,7 +188,17 @@ class DenseInt3Backbone(nn.Module):
                 k += 1
                 level = coarse
                 deg = level.deg + cfg.deg_eps
-        return (x_t, x_s, atts) if return_atts else (x_t, x_s)
+        return ((x_t, x_s) + ((atts,) if return_atts else ())
+                + ((snapshots,) if return_snapshots else ()))
+
+
+def make_backbone(cfg: BackboneConfig, c_t: int, c_s: int, generator=None) -> DenseInt3Backbone:
+    """The shared trunk on its own (``hl_hgat_tpu/models/backbone.py::
+    make_backbone``) for node and edge inputs of ``c_t`` and ``c_s``
+    columns: ``make_backbone(cfg, c_t, c_s)(x_t, x_s, batch,
+    return_snapshots=True)``.  Torch needs the input widths that flax
+    infers at init."""
+    return DenseInt3Backbone(cfg, c_t, c_s, generator)
 
 
 def head_cast(cfg: BackboneConfig, *tensors: torch.Tensor):
@@ -259,7 +274,11 @@ class HLHGCNNGraph(nn.Module):
             generator, act=cfg.act, leaky_slope=cfg.leaky_slope, dropout=dropout_mlp,
         )
 
-    def forward(self, batch: Batch) -> torch.Tensor:
+    def forward(self, batch: Batch, *, return_atts: bool = False, return_latent: bool = False):
+        """[num_graphs, classes]; with ``return_atts`` / ``return_latent``,
+        ``(out, extras)`` where ``extras["atts"]`` holds the backbone's
+        gates and ``extras["latent"]`` the pooled [edges ‖ nodes] features
+        (the JAX module's two flags)."""
         x_t, x_s = batch.x_t, batch.x_s
         level = batch.level0
         if self.embed_num:
@@ -270,7 +289,8 @@ class HLHGCNNGraph(nn.Module):
                 [embed_lookup(table, x_s[..., 0].long()), x_s[..., 1:]], dim=-1)
             x_t = apply_node_mask(level, x_t)
             x_s = apply_edge_mask(level, x_s)
-        f_t, f_s = head_cast(self.cfg, *self.backbone(x_t, x_s, batch))
+        f_t, f_s, atts = self.backbone(x_t, x_s, batch, return_atts=True)
+        f_t, f_s = head_cast(self.cfg, f_t, f_s)
         final = batch.levels[self.backbone.level_idx]
         pooled = torch.cat(
             [
@@ -279,7 +299,13 @@ class HLHGCNNGraph(nn.Module):
             ],
             dim=-1,
         )
-        return self.head(pooled)
+        out = self.head(pooled)
+        extras = {}
+        if return_atts:
+            extras["atts"] = atts
+        if return_latent:
+            extras["latent"] = pooled
+        return (out, extras) if extras else out
 
 
 class HLHGCNNNode(nn.Module):

@@ -11,8 +11,9 @@ that call them (``complex/build.py``), under names of their own, for the
 tests.
 
 Nine entry points, all with declared ``argtypes``/``restype``:
-``graclus_match``, ``coarse_edges``, ``coo_to_ell``, ``max_row_nnz``,
-``hodge_l1``, ``l1_pair_count`` and the three fills of the packed collate
+``graclus_match`` and ``coarse_edges`` (the MLGC matcher of
+``complex/coarsen.py``), ``coo_to_ell``, ``max_row_nnz``, ``hodge_l1``,
+``l1_pair_count`` and the three fills of the packed collate
 (``packed_fill_level``, ``packed_fill_rows``, ``packed_fill_pool``, driven by
 ``data/fast_collate.py``).  ctypes releases the interpreter lock during a
 call, so a collate on a prefetch thread overlaps the training step.
@@ -122,6 +123,47 @@ def load() -> ctypes.CDLL:
             build()
             _lib = _declare(ctypes.CDLL(str(library_path())))
         return _lib
+
+
+def available() -> bool:
+    """Whether the library builds and loads here (False where g++ or the
+    build fails; ``load`` raises with the reason)."""
+    try:
+        load()
+    except (RuntimeError, OSError, subprocess.CalledProcessError):
+        return False
+    return True
+
+
+def graclus_match(src: np.ndarray, dst: np.ndarray, weight: np.ndarray | None,
+                  num_nodes: int) -> np.ndarray:
+    """Greedy heavy-edge matching on the symmetrized edge list: nodes in
+    index order, each node's neighbours by descending float32 weight (input
+    order among ties; every weight 1 when ``weight`` is None).  The
+    representative (smaller) node id per node, int64."""
+    lib = load()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    out = np.empty(num_nodes, np.int64)
+    w = None if weight is None else np.ascontiguousarray(weight, np.float32)
+    lib.graclus_match(num_nodes, src.shape[0], src, dst,
+                      None if w is None else w.ctypes.data_as(ctypes.c_void_p), out)
+    return out
+
+
+def coarse_edges(c_node: np.ndarray, src: np.ndarray, dst: np.ndarray):
+    """First-seen dedup of the (min, max) cluster pairs of the fine edges:
+    (coarse src, coarse dst, fine→coarse edge id with −1 where both ends
+    fall into one cluster)."""
+    lib = load()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    c_node = np.ascontiguousarray(c_node, np.int64)
+    e = src.shape[0]
+    out_src, out_dst = np.empty(e, np.int32), np.empty(e, np.int32)
+    c_edge = np.empty(e, np.int64)
+    n = int(lib.coarse_edges(e, src, dst, c_node, out_src, out_dst, c_edge))
+    return out_src[:n].copy(), out_dst[:n].copy(), c_edge
 
 
 def hodge_l1(src: np.ndarray, dst: np.ndarray, num_nodes: int, scale: float):

@@ -72,6 +72,15 @@ class _ValueHead(nn.Module):
         return torch.relu(self.MaskedBatchNorm_1(x, mask))
 
 
+def cross_simplex(x_t: torch.Tensor, x_s: torch.Tensor, level, deg: torch.Tensor):
+    """The boundary couplings (x_s2t, x_t2s) = (D⁻¹·|B1|·x_s, |B1|ᵀ·x_t / 2)
+    on either layout; ``deg`` already carries any epsilon, and a node of
+    degree 0 (the zinc models add none) divides by 1 (its sum is 0)."""
+    s2t = abs_b1_s2t(level, x_s)
+    safe_deg = torch.where(deg > 0, deg, torch.ones_like(deg))
+    return s2t / safe_deg[..., None].to(s2t.dtype), abs_b1_t2s(level, x_t) / 2.0
+
+
 _SIGMA = {"sigmoid": torch.sigmoid, "relu": torch.relu}
 
 
@@ -150,3 +159,8 @@ class NodeEdgeInt(nn.Module):
             return act(logit.float() * scale.to(logit.device))
 
         return gate(q_e2t, q_n, k_n), gate(q_n2s, q_e, k_e)
+
+
+# The reference ships the same module under two names
+# (lib/Hodge_Cheb_Conv.py:61 `MSI`, :255 `NodeEdgeInt`).
+MSI = NodeEdgeInt

@@ -32,6 +32,8 @@ import ctypes
 
 import torch
 
+from hl_hgat_tpu_torch.utils.profiling import check_kernel_outputs
+
 LAUNCHES = {"spmm_ell": 0, "spmm_ell_bwd": 0}
 
 _lib: ctypes.CDLL | None = None
@@ -134,6 +136,7 @@ def _launch(ell_cols, ell_vals, x, counter: str) -> torch.Tensor:
         msg = lib.hlhgat_cuda_error_string(code).decode()
         raise RuntimeError(f"{counter} launch failed: {msg} (cudaError {code})")
     LAUNCHES[counter] += 1
+    check_kernel_outputs(counter, out)
     return out.reshape(x.shape)
 
 

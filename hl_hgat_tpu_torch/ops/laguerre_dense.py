@@ -59,7 +59,7 @@ hand-derived adjoints written step by step, not autograd through the
 plain forward.  ``emulated_products`` lets a test run the plain versions
 with the float32 kernels' split products.  ``LAUNCHES`` counts kernel
 launches per wrapper (a backward that needs several CUDA kernels counts
-once).
+once), ``BAND_LAUNCHES`` those of them that took the band kernels.
 """
 
 from __future__ import annotations
@@ -69,12 +69,15 @@ import ctypes
 
 import torch
 
+from hl_hgat_tpu_torch.utils.profiling import check_kernel_outputs
+
 LAUNCHES = {
     "laguerre_dense_fused": 0,
     "laguerre_terms_dense": 0,
     "laguerre_dense_fused_bwd": 0,
     "laguerre_terms_dense_bwd": 0,
 }
+BAND_LAUNCHES = dict.fromkeys(LAUNCHES, 0)  # the launches above that took the band kernels
 RESIDENT_ROWS = 128  # blocks the kernels that hold L in shared memory take
 _SMEM_LIMIT = 232448  # bytes a block may opt into on sm_90
 
@@ -84,6 +87,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 def reset_launch_counts() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+        BAND_LAUNCHES[key] = 0
 
 
 def _library(name: str = "laguerre_dense") -> ctypes.CDLL:
@@ -348,6 +352,8 @@ def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
             )
     _check_launch(lib, code, "laguerre_dense_fused")
     LAUNCHES["laguerre_dense_fused"] += 1
+    BAND_LAUNCHES["laguerre_dense_fused"] += band
+    check_kernel_outputs("laguerre_dense_fused", out)
     return out
 
 
@@ -373,6 +379,8 @@ def _terms_fwd_cuda(l, x, k: int) -> torch.Tensor:
                                                  s, c, k, _bf16(x), _stream())
     _check_launch(lib, code, "laguerre_terms_dense")
     LAUNCHES["laguerre_terms_dense"] += 1
+    BAND_LAUNCHES["laguerre_terms_dense"] += band
+    check_kernel_outputs("laguerre_terms_dense", out)
     return out
 
 
@@ -433,6 +441,8 @@ def laguerre_dense_fused_bwd(
                 )
         _check_launch(lib, code, "laguerre_dense_fused_bwd")
         LAUNCHES["laguerre_dense_fused_bwd"] += 1
+        BAND_LAUNCHES["laguerre_dense_fused_bwd"] += band
+        check_kernel_outputs("laguerre_dense_fused_bwd", dx, dwdb)
     elif x.numel():
         dx.zero_()
     return dx, dwdb[:n_w].view(k, c, f), dwdb[n_w:]
@@ -469,6 +479,8 @@ def laguerre_terms_dense_bwd(l: torch.Tensor, dt: torch.Tensor, k: int) -> torch
             )
     _check_launch(lib, code, "laguerre_terms_dense_bwd")
     LAUNCHES["laguerre_terms_dense_bwd"] += 1
+    BAND_LAUNCHES["laguerre_terms_dense_bwd"] += band
+    check_kernel_outputs("laguerre_terms_dense_bwd", dx)
     return dx
 
 

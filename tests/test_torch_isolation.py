@@ -1,7 +1,8 @@
 """The port stands alone: it imports no jax, flax, optax, ml_dtypes or
-hl_hgat_tpu module, loads its own build of the host library (never
-native/'s), and its entry points refuse to fall back to the CPU without
-being asked."""
+hl_hgat_tpu module (nor matplotlib, which only the figures' render
+functions import when they run), loads its own build of the host library
+(never native/'s), and its entry points refuse to fall back to the CPU
+without being asked."""
 
 import os
 import pathlib
@@ -20,7 +21,7 @@ _PROBE = textwrap.dedent("""
         importlib.import_module(name)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                        "ml_dtypes", "hl_hgat_tpu"))
+                                        "ml_dtypes", "hl_hgat_tpu", "matplotlib"))
     print("MODULES", len(names), "BAD", bad)
     want = ("train.losses", "train.metrics", "train.optim", "train.trainer",
             "profile_training", "profile_serving", "complex.batch", "ops.boundary",
@@ -30,7 +31,9 @@ _PROBE = textwrap.dedent("""
             "complex.compact", "data.loader", "data.prefetch", "data.ingest", "data.lrgb",
             "train.checkpoint", "utils.torch_import", "run", "parallel.mesh",
             "parallel.distributed", "parallel.data_parallel", "parallel.dp_trainer",
-            "parallel.graph_parallel", "parallel.sharded_layer", "parallel.gp_model")
+            "parallel.graph_parallel", "parallel.sharded_layer", "parallel.gp_model",
+            "utils.viz", "utils.profiling", "examples.brain_demo", "examples.figures",
+            "examples.gp_brain")
     print("WALKED", all(pkg.__name__ + "." + w in names for w in want))
 
     # the host library the port loads is its own build, never native/'s
@@ -45,6 +48,7 @@ _PROBE = textwrap.dedent("""
     from hl_hgat_tpu_torch import run
     from hl_hgat_tpu_torch.models import presets
     from hl_hgat_tpu_torch.serving import BrainPredictor, Predictor
+    from hl_hgat_tpu_torch.examples import brain_demo, figures, gp_brain
     from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
     assert not torch.cuda.is_available()
     model, _ = presets.zinc_pyr(channels=(1,), filters=(8,), k=2, keig=4,
@@ -60,7 +64,10 @@ _PROBE = textwrap.dedent("""
                  lambda: presets.abcd_attpool(), lambda: presets.hgat_attpool(),
                  lambda: BrainPredictor(model, [], []),
                  lambda: run.main(["--benchmark", "zinc", "--synthetic", "--n_synthetic", "4",
-                                   "--fold", "0", "--epochs", "1"])):
+                                   "--fold", "0", "--epochs", "1"]),
+                 lambda: brain_demo.main(["--real", "off", "--rois", "16", "--subjects", "8"]),
+                 lambda: figures.main(["--out_dir", "unused"]),
+                 lambda: gp_brain.main(["--parts", "2"])):
         try:
             call()
         except RuntimeError as err:
@@ -77,11 +84,11 @@ def test_port_imports_no_jax_and_refuses_silent_cpu():
     assert res.returncode == 0, res.stderr
     lines = res.stdout.splitlines()
     modules = [ln for ln in lines if ln.startswith("MODULES")][0].split()
-    assert int(modules[1]) >= 46
+    assert int(modules[1]) >= 52
     assert modules[2:] == ["BAD", "[]"], res.stdout
     assert "WALKED True" in lines, res.stdout
     assert "NATIVE True True" in lines, res.stdout
-    assert lines.count("RAISED True") == 17, res.stdout
+    assert lines.count("RAISED True") == 20, res.stdout
 
 
 def test_a_spawned_rank_imports_no_jax():
