@@ -4,10 +4,10 @@
 The reference's DEMO directory holds the group data: ``Group_FC.mat``
 (group-mean FC ``fc_mean`` and ``sc_mean``), ``Group_FCMask.mat`` (the
 study's skeleton ``sf_mask``) and ``affiliations.mat`` (anatomical parcel
-memberships).  The loaders read them with scipy, by default from
-``REFERENCE_BRAIN_DIR``: the DEMO's data directory of the reference
-repository checked out beside this one (the JAX package's constant names
-the same place).
+memberships).  The repository does not ship them.  The loaders read them
+with scipy from ``data_dir``, by default from ``REFERENCE_BRAIN_DIR``: the
+directory that ``$HLHGAT_BRAIN_DIR`` names when the module is imported,
+None when it is unset (the JAX package's constant is a fixed path).
 
 ``brain_pyramid`` is the structure pyramid of OHBM_DEMO.ipynb cell 46: the
 notebook seeds torch with 10086 right before its two ``MLGC_Weight``
@@ -32,19 +32,31 @@ from hl_hgat_tpu_torch.complex.coarsen import mlgc
 from hl_hgat_tpu_torch.complex.dense import collate_dense_shared
 from hl_hgat_tpu_torch.data.datasets import brain_sample
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-REFERENCE_BRAIN_DIR = os.path.join(os.path.dirname(_REPO_ROOT), "reference", "HL-HGAT-DEMO",
-                                   "data")
+BRAIN_DIR_ENV = "HLHGAT_BRAIN_DIR"
+REFERENCE_BRAIN_DIR: str | None = os.environ.get(BRAIN_DIR_ENV) or None
 
 # plt_sort_anatomy's lobe display order (reference
 # HL-HGAT-DEMO/lib/Hodge_Dataset.py:64), 0-based lobe ids
 LOBE_ORDER = [1, 11, 5, 15, 0, 10, 3, 13, 2, 12, 4, 14, 6, 16, 8, 18, 9, 19, 7, 17]
 
 
-def load_group_fc(data_dir: str = REFERENCE_BRAIN_DIR) -> dict[str, np.ndarray]:
+def reference_data_available() -> bool:
+    """Whether ``REFERENCE_BRAIN_DIR`` is set and is a directory."""
+    return REFERENCE_BRAIN_DIR is not None and os.path.isdir(REFERENCE_BRAIN_DIR)
+
+
+def _data_dir(data_dir: str | None) -> str:
+    data_dir = data_dir or REFERENCE_BRAIN_DIR
+    if data_dir is None:
+        raise FileNotFoundError(f"no group data directory: pass data_dir or set ${BRAIN_DIR_ENV}")
+    return data_dir
+
+
+def load_group_fc(data_dir: str | None = None) -> dict[str, np.ndarray]:
     """``Group_FC.mat`` and ``Group_FCMask.mat`` → fc_mean, sc_mean, sf_mask."""
     from scipy.io import loadmat
 
+    data_dir = _data_dir(data_dir)
     fc = loadmat(os.path.join(data_dir, "Group_FC.mat"))
     m = loadmat(os.path.join(data_dir, "Group_FCMask.mat"))
     return dict(
@@ -54,12 +66,12 @@ def load_group_fc(data_dir: str = REFERENCE_BRAIN_DIR) -> dict[str, np.ndarray]:
     )
 
 
-def load_affiliations(data_dir: str = REFERENCE_BRAIN_DIR) -> dict:
+def load_affiliations(data_dir: str | None = None) -> dict:
     """``affiliations.mat`` → the [268, 6] 1-based membership table and the
     20 lobe names (reference HL-HGAT-DEMO/lib/Hodge_Dataset.py:55)."""
     from scipy.io import loadmat
 
-    data = loadmat(os.path.join(data_dir, "affiliations.mat"))
+    data = loadmat(os.path.join(_data_dir(data_dir), "affiliations.mat"))
     labels = data["labels"][0]
     return dict(affiliation=np.asarray(data["affiliation"], np.int64),
                 lobe_names=[str(cell[0][0]) for cell in labels["Lobes_20Ns"][0]])
@@ -100,7 +112,7 @@ def brain_pyramid(
     return levels, pools
 
 
-def build_real_brain_pyramid(data_dir: str = REFERENCE_BRAIN_DIR, pool_num: int = 2,
+def build_real_brain_pyramid(data_dir: str | None = None, pool_num: int = 2,
                              seed: int = 10086):
     """The real Shen-268 pyramid from the group data in ``data_dir``:
     (levels, pools, skeleton FC weights)."""

@@ -14,8 +14,9 @@ printed lines).
    matrix, sorted by parcel (the real lobes with ``--real``).
 
 ``--real auto`` takes the reference's group data (``Group_FC.mat``,
-``Group_FCMask.mat``, ``affiliations.mat``) when
-``data.brain.REFERENCE_BRAIN_DIR`` exists and no ``--data`` is given; the
+``Group_FCMask.mat``, ``affiliations.mat``) when ``$HLHGAT_BRAIN_DIR``
+names a directory (``data.brain.REFERENCE_BRAIN_DIR``) and no ``--data``
+is given; the
 per-subject series are synthetic unless ``--data`` names an npz with
 ``timeseries`` and ``scores``.  Every conv on the shared layout runs the
 Laguerre terms kernel on the folded features (``nn.conv.folded_terms``).
@@ -29,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 
 import numpy as np
 import torch
@@ -65,7 +65,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--real", default="auto", choices=["auto", "on", "off"],
         help="use the reference's real Group_FC/FCMask/affiliations "
-             "(auto: when the reference data dir exists)")
+             "from $HLHGAT_BRAIN_DIR (auto: when it names a directory)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     return ap
 
@@ -91,8 +91,7 @@ def init_stage(args: argparse.Namespace, log=print) -> DemoInit:
     """Skeleton, pyramid and samples, with the JAX demo's draws from one
     ``default_rng(0)``."""
     use_real = args.real == "on" or (
-        args.real == "auto" and os.path.isdir(brain_data.REFERENCE_BRAIN_DIR)
-        and args.data is None)
+        args.real == "auto" and brain_data.reference_data_available() and args.data is None)
     rng = np.random.default_rng(0)
     rois = args.rois
     if use_real:

@@ -8,8 +8,8 @@ their arrays computed on the card by the port.
    small ``cifar10sp_attpool`` (``return_atts``; OHBM_DEMO.ipynb cell 56);
 3. ``brain_fc_attention.png``: a lobe-sorted ROI × ROI matrix (reference
    ``plt_sort_anatomy``), on the real Shen-268 skeleton and affiliations
-   when ``data.brain.REFERENCE_BRAIN_DIR`` exists, synthetic parcels
-   otherwise.
+   when ``$HLHGAT_BRAIN_DIR`` names the reference's group data
+   (``data.brain.REFERENCE_BRAIN_DIR``), synthetic parcels otherwise.
 
 ``*_arrays`` compute what a figure shows (on ``--device``, the card unless
 ``cpu`` is given; weights from ``--seed`` on the CPU, so both devices get
@@ -208,7 +208,7 @@ def brain_fc_arrays(seed: int = 0) -> dict:
     directory exists, else random scores on a random 100-ROI skeleton
     sorted by 10 random parcels."""
     rng = np.random.default_rng(seed)
-    if os.path.isdir(brain_data.REFERENCE_BRAIN_DIR):
+    if brain_data.reference_data_available():
         g = brain_data.load_group_fc()
         aff = brain_data.load_affiliations()
         src, dst, w = brain_data.real_skeleton(g["fc_mean"], g["sf_mask"])

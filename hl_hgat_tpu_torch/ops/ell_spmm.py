@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from hl_hgat_tpu_torch.utils.profiling import check_kernel_outputs
+from hl_hgat_tpu_torch.ops.nan_checks import check_kernel_outputs
 
 LAUNCHES = {"spmm_ell": 0, "spmm_ell_bwd": 0}
 

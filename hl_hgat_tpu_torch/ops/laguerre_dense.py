@@ -69,7 +69,7 @@ import ctypes
 
 import torch
 
-from hl_hgat_tpu_torch.utils.profiling import check_kernel_outputs
+from hl_hgat_tpu_torch.ops.nan_checks import check_kernel_outputs
 
 LAUNCHES = {
     "laguerre_dense_fused": 0,

@@ -370,8 +370,7 @@ def run_brain(args, device) -> list[dict]:
     from hl_hgat_tpu_torch.train.metrics import pearson_corr
 
     rng = np.random.default_rng(0)
-    brain_dir = os.environ.get("HLHGAT_BRAIN_DIR", "")
-    real_dir_ok = bool(brain_dir) and os.path.isdir(brain_dir)
+    real_dir_ok = brain_data.reference_data_available()
     if args.data_root:
         path = args.data_root
         if os.path.isdir(path):
@@ -384,8 +383,7 @@ def run_brain(args, device) -> list[dict]:
         ts_all, scores = synthetic_fmri_series(rng, args.n_synthetic, rois, args.t)
     use_real = args.rois == 0 and real_dir_ok and rois == 268
     if use_real:
-        levels, pools, _ = brain_data.build_real_brain_pyramid(brain_dir,
-                                                                pool_num=args.pool_num)
+        levels, pools, _ = brain_data.build_real_brain_pyramid(pool_num=args.pool_num)
         print(f"REAL skeleton: {rois} ROIs, {levels[0].num_edges} edges "
               f"(level-1 n+e = {levels[1].num_nodes + levels[1].num_edges})")
     else:

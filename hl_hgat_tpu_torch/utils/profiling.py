@@ -17,7 +17,8 @@ import time
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
+
+from hl_hgat_tpu_torch.ops import nan_checks
 
 TRACE_FILE = "trace.json"  # what trace_context writes into its logdir
 
@@ -103,23 +104,16 @@ def trace_context(logdir: str):
 # Ops whose output is memory not yet written (a kernel wrapper allocates its
 # output, then the kernel fills it), or a view of another op's output: a NaN
 # bit pattern there is no result.  The wrappers check what their kernels
-# wrote through ``check_kernel_outputs``.
+# wrote through ``ops.nan_checks.check_kernel_outputs``.
 _UNWRITTEN = {torch.ops.aten.empty, torch.ops.aten.empty_like, torch.ops.aten.empty_strided,
               torch.ops.aten.new_empty, torch.ops.aten.new_empty_strided}
-
-
-def _raise_on_nan(what, out) -> None:
-    for t in tree_leaves(out):
-        if (isinstance(t, torch.Tensor) and t.is_floating_point() and t.numel()
-                and bool(torch.isnan(t).any())):
-            raise FloatingPointError(f"NaN in the output of {what}")
 
 
 class _NanCheckMode(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         if func.overloadpacket not in _UNWRITTEN and not func.is_view:
-            _raise_on_nan(func, out)
+            nan_checks.raise_on_nan(func, _tensors(out))
         return out
 
 
@@ -130,8 +124,9 @@ def enable_nan_checks(enable: bool = True) -> None:
     """While on, every op run in this thread that outputs a NaN raises
     ``FloatingPointError`` (its output is read back, so each op waits for
     the card: a debugging switch).  A hand kernel is not a torch op: its
-    wrapper checks its outputs after the launch."""
+    wrapper checks its outputs after the launch (``ops.nan_checks``)."""
     global _nan_mode
+    nan_checks.enabled = enable
     if enable and _nan_mode is None:
         _nan_mode = _NanCheckMode()
         _nan_mode.__enter__()
@@ -139,9 +134,3 @@ def enable_nan_checks(enable: bool = True) -> None:
         _nan_mode.__exit__(None, None, None)
         _nan_mode = None
 
-
-def check_kernel_outputs(name: str, *outputs: torch.Tensor) -> None:
-    """Raise ``FloatingPointError`` if NaN checks are on and a hand
-    kernel's output holds a NaN (called by the wrappers after a launch)."""
-    if _nan_mode is not None:
-        _raise_on_nan(name, outputs)

@@ -16,7 +16,6 @@ tolerances are stated at each test with their reason.
 import dataclasses
 import json
 import os
-import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +27,6 @@ from hl_hgat_tpu import native as jnative
 from hl_hgat_tpu.complex import build as jbuild
 from hl_hgat_tpu.complex import coarsen as jcoarsen
 from hl_hgat_tpu.complex import dense as jdense
-from hl_hgat_tpu.data import brain as jbrain
 from hl_hgat_tpu.data import synthetic as jsynthetic
 from hl_hgat_tpu.models import presets as jpresets
 from hl_hgat_tpu.models.backbone import BackboneConfig as JBackboneConfig
@@ -41,6 +39,7 @@ from hl_hgat_tpu_torch.data import brain, synthetic
 from hl_hgat_tpu_torch.models import presets
 from hl_hgat_tpu_torch.models.backbone import BackboneConfig, make_backbone
 from hl_hgat_tpu_torch.nn import interaction
+from hl_hgat_tpu_torch.ops import nan_checks
 from hl_hgat_tpu_torch.utils import profiling, viz
 from hl_hgat_tpu_torch.weights import from_flax_variables, to_flax_paths
 
@@ -266,18 +265,28 @@ def test_synthetic_tsp_and_brain_batches_equal_jax():
     _assert_same_arrays(a, b)
 
 
-def test_reference_brain_dir_names_the_jax_packages_place():
-    """The DEMO data directory of the reference checked out beside the
-    repository, which is where the JAX constant points in this layout."""
-    root = pathlib.Path(__file__).resolve().parents[1]
-    assert pathlib.Path(brain.REFERENCE_BRAIN_DIR) == (
-        root.parent / "reference" / "HL-HGAT-DEMO" / "data")
-    assert pathlib.Path(brain.REFERENCE_BRAIN_DIR).parts[-3:] == \
-        pathlib.Path(jbrain.REFERENCE_BRAIN_DIR).parts[-3:]
-    for fn in (brain.load_group_fc, brain.load_affiliations, brain.build_real_brain_pyramid):
-        import inspect
+def test_reference_brain_dir_comes_from_the_environment(monkeypatch, tmp_path):
+    """The group data directory is $HLHGAT_BRAIN_DIR's, never a path
+    derived from where the package lies; the loaders default to it and
+    raise when it is unset."""
+    import importlib
+    import inspect
 
-        assert inspect.signature(fn).parameters["data_dir"].default == brain.REFERENCE_BRAIN_DIR
+    monkeypatch.delenv(brain.BRAIN_DIR_ENV, raising=False)
+    try:
+        unset = importlib.reload(brain)
+        assert unset.REFERENCE_BRAIN_DIR is None and not unset.reference_data_available()
+        for fn in (unset.load_group_fc, unset.load_affiliations,
+                   unset.build_real_brain_pyramid):
+            assert inspect.signature(fn).parameters["data_dir"].default is None
+        with pytest.raises(FileNotFoundError, match=brain.BRAIN_DIR_ENV):
+            unset.load_group_fc()
+        monkeypatch.setenv(brain.BRAIN_DIR_ENV, str(tmp_path))
+        assert importlib.reload(brain).REFERENCE_BRAIN_DIR == str(tmp_path)
+        assert brain.reference_data_available()
+    finally:
+        monkeypatch.undo()
+        importlib.reload(brain)
 
 
 # ---------------------------------------------------------------------------
@@ -449,8 +458,8 @@ def test_nan_checks_raise_then_return_nan_when_off():
         buf = torch.empty(1 << 12)  # allocation and views are not results
         buf[:4].fill_(1.0)
         with pytest.raises(FloatingPointError, match="laguerre_terms_dense"):
-            profiling.check_kernel_outputs("laguerre_terms_dense", torch.tensor([float("nan")]))
+            nan_checks.check_kernel_outputs("laguerre_terms_dense", torch.tensor([float("nan")]))
     finally:
         profiling.enable_nan_checks(False)
     assert torch.isnan(torch.zeros(2) / torch.zeros(2)).all()
-    profiling.check_kernel_outputs("laguerre_terms_dense", torch.tensor([float("nan")]))
+    nan_checks.check_kernel_outputs("laguerre_terms_dense", torch.tensor([float("nan")]))

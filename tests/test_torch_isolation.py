@@ -25,7 +25,7 @@ _PROBE = textwrap.dedent("""
     print("MODULES", len(names), "BAD", bad)
     want = ("train.losses", "train.metrics", "train.optim", "train.trainer",
             "profile_training", "profile_serving", "complex.batch", "ops.boundary",
-            "ops.spmm", "ops.ell_spmm", "complex.coarsen", "nn.pool", "complex.augment",
+            "ops.spmm", "ops.ell_spmm", "ops.nan_checks", "complex.coarsen", "nn.pool", "complex.augment",
             "complex.dense", "data.synthetic", "serving", "data.brain", "data.datasets",
             "models.abcd", "models.hgat", "nn.inception", "native", "data.fast_collate",
             "complex.compact", "data.loader", "data.prefetch", "data.ingest", "data.lrgb",
