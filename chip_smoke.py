@@ -31,7 +31,15 @@
    bit-equal: every distinct conv shape over 128 rows of the pooled path
    below (its 256-row L1 blocks; coarse-level blocks too where they exceed
    128 rows), counted per pass, and off the path the same graphs' 512-row
-   L1 blocks at K = 4, C = F = 64 and 128.
+   L1 blocks at K = 4, C = F = 64 and 128; then the terms kernels (2 and
+   4) at brain scale, held as phase 10 holds them: every conv on phase
+   10's folded level-0 L1 (the Shen-268 pyramid, S = 8997, among them C =
+   512, K = 4) and on the brain demo's (S = 7047, K = 3).  Each shape
+   prints the band step kernel's launch (``[band]`` lines: grid, tile,
+   threads, shared memory, registers, CTAs an SM, waves) and, beside each
+   terms case, a yardstick that the port never calls: one step's
+   ``torch.matmul(L, T)`` in the same dtype (cuBLAS, default precision)
+   times K - 1, the product alone.
 3. Serves 384 synthetic ZINC-like graphs through ``Predictor`` (loader-fed:
    ``BucketedLoader``, derived transfer, inflated on the card; the [serve]
    line gives the loader's block count beside the packing's) with a
@@ -131,8 +139,10 @@
    ``Trainer(task="brain")`` steps per dtype (14 terms + 13 terms-backward
    launches a step); forward and step ms with the busy share, peak device
    memory and the top device operations, beside the same forward and steps
-   on the plain route; ``abcd_attpool`` at its preset widths served once
-   per dtype.
+   on the plain route; forwards and steps on a batch already seen prepare
+   no band operator in either dtype; ``abcd_attpool`` at its preset widths
+   served once per dtype; a ``[band]`` line for every band shape the phase
+   launched (phase 14 prints its own).
 11. The data pipeline at the JAX CLI's zinc recipe (``[data]`` lines):
    ZINC-format raw splits of ZINC_SPLITS seeded molecules of 9-38 atoms
    written to a temporary directory, ``load_samples("zinc", ...)``: the
@@ -199,8 +209,11 @@
    within ANALYSIS_PHASE_S): ``examples.brain_demo`` at ANALYSIS_DEMO (268
    ROIs, the real Shen-268 parcellation's size; 24 subjects, T = 96, 5
    epochs, batch 8, a 20 % mask): the pyramid's sizes, the host ms of the
-   native MLGC matcher against the pure-Python walk, the level-0 L1's row
-   padding per band launch; trained from one seeded model on the
+   native MLGC matcher against the pure-Python walk, what a band launch
+   pays for its operator (the level-0 L1 with padded rows and float32's
+   TF32 halves, prepared once for the batch, then a cache lookup; the
+   terms route's preparations over its steps, at most one per band
+   operator of the train batches); trained from one seeded model on the
    terms-kernel route and on the plain route (per-epoch losses, step ms by
    ``utils.profiling.StepTimer`` synchronized, launches of kernels 2 and 4
    a step with the band ones, none fused; falling epoch losses); at every
@@ -530,13 +543,19 @@ def check_fused_pair(torch, lg, dtype, label, lb, x, w, b, cot, count, summary):
         count, summary[("laguerre_dense_fused_bwd", dtype)], same_bits=True)
 
 
-def check_terms_pair(torch, lg, dtype, label, lb, x, dt, count, summary):
-    """The terms forward and backward against their plain versions."""
+def check_terms_pair(torch, lg, dtype, label, lb, x, dt, count, summary, yardstick=False):
+    """The terms forward and backward against their plain versions;
+    ``yardstick``: also time one step's product alone as cuBLAS forms it."""
     g, sb, c = x.shape
     k = dt.shape[0]
     nbytes = (g * sb * sb + g * sb * c + k * g * sb * c) * x.element_size()
     flops = 2 * g * sb * sb * c * (k - 1)
     shape = f"{dtype} {label}G={g} S={sb} C={c} K={k}"
+    if yardstick and k > 1:
+        ms = graph_ms(torch, lambda: torch.matmul(lb, x), KERNEL_CALLS) * (k - 1)
+        print(f"[kernel] yardstick {shape}: torch.matmul(L, T) in {dtype} (cuBLAS, default "
+              f"precision), K - 1 = {k - 1} products alone, no combine, not called by the "
+              f"port: {ms:.4f} ms", flush=True)
     check_one(
         torch, f"laguerre_terms_dense {shape}", dtype,
         lambda: lg.laguerre_terms_dense(lb, x, k),
@@ -1160,11 +1179,63 @@ def check_band_kernels(torch, np, lg, cases, seed):
                                   ).astype(np.float32)).cuda()
             b = torch.from_numpy(rng.standard_normal(f).astype(np.float32)).cuda()
             cot = feats(f)
+            print_band_plan(torch, lg, dtype, tag, g, sb, c)
             check_fused_pair(torch, lg, dtype, f"{tag} ", lb, x, w, b, cot, count, summary)
             if k > 1:
                 dt = torch.stack([feats(c) for _ in range(k)])
-                check_terms_pair(torch, lg, dtype, f"{tag} ", lb, x, dt, count, summary)
+                check_terms_pair(torch, lg, dtype, f"{tag} ", lb, x, dt, count, summary,
+                                 yardstick=True)
     return summary
+
+
+def print_band_plan(torch, lg, dtype, tag, g, s, c):
+    """How the band step kernel launches at this shape (a tree without the
+    plan prints nothing)."""
+    if not hasattr(lg, "band_step_plan"):
+        return
+    p = lg.band_step_plan(g, s, c, getattr(torch, dtype))
+    print(f"[band] {dtype} {tag} G={g} S={s} C={c}: band_step_kernel grid {p['grid']}, tile "
+          f"{p['tile'][0]} rows x {p['tile'][1]} channels, {p['threads']} threads, "
+          f"{p['smem']} B shared, {p['regs']} registers, {p['ctas_per_sm']} CTAs an SM, "
+          f"{p['waves']:.2f} waves", flush=True)
+
+
+def print_band_shapes(torch, lg, phase):
+    """The band step kernel's launch at every band shape the phase ran
+    (``lg.BAND_SHAPES``, gathered since the phase cleared it)."""
+    for g, s, c, td in sorted(lg.BAND_SHAPES, key=lambda t: (str(t[3]), t[1], t[2], t[0])):
+        print_band_plan(torch, lg, str(td).removeprefix("torch."), f"{phase} launched", g, s, c)
+
+
+def brain_band_cases(torch, np, conv):
+    """The terms kernels' band cases at brain scale: ``(tag, L1 [1, S, S]
+    float32 on the card, K, folded C, launches a forward)`` for every conv
+    on the level-0 L1 of phase 10 (the Shen-268 pyramid, hgat_attpool at
+    BRAIN_MODEL, BRAIN_BATCH subjects) and of phase 14's brain demo (its
+    recipe at ANALYSIS_DEMO, a train batch)."""
+    from hl_hgat_tpu_torch.examples import brain_demo
+    from hl_hgat_tpu_torch.models import presets
+
+    levels, _, _, host, _ = brain_data(np, with_flat=False)
+    batch = host.to("cuda")
+    final, fine = levels[2], levels[0]
+    model, _ = presets.hgat_attpool(
+        **BRAIN_MODEL, nodes_per_graph=final.num_nodes, edges_per_graph=final.num_edges,
+        fine_nodes_per_graph=fine.num_nodes, fine_edges_per_graph=fine.num_edges, seed=0)
+    cases = [("brain level 0 L1 folded", batch.levels[0].l1.float(), k, c, n)
+             for lv, op, _, k, c, n in brain_conv_cases(torch, conv, model, batch)
+             if lv == 0 and op == "L1"]
+    args = brain_demo.build_argparser().parse_args(ANALYSIS_DEMO)
+    init = brain_demo.init_stage(args, log=lambda m: None)
+    demo_batch = brain_demo.batches(init.train, args.batch_size, "cuda")[0]
+    demo_model, _ = brain_demo.build_model(init, "cuda")
+    cases += [("brain demo level 0 L1 folded", demo_batch.levels[0].l1.float(), k, c, n)
+              for lv, op, _, k, c, n in brain_conv_cases(torch, conv, demo_model, demo_batch)
+              if lv == 0 and op == "L1"]
+    if not any(lap.shape[1] == 8997 and c == 512 for _, lap, _, c, _ in cases):
+        fail(f"phase 2b: no brain case at S = 8997, C = 512: "
+             f"{[(t, lap.shape[1], k, c) for t, lap, k, c, _ in cases]}")
+    return cases
 
 
 def conv_calls(torch, conv, model, batch):
@@ -1210,8 +1281,9 @@ def band_cases(torch, np, conv, model, batch, wide_l1):
 
 def band_phase(torch, np, lg, conv, model32, pooled_batch, wide_l1, card):
     """Phase 2b: the band kernels at the pooled path's shapes and at 512
-    rows; returns the summary over one pooled forward's (backward's)
-    launches over 128 rows."""
+    rows, then the terms kernels at brain scale (phase 10's and the brain
+    demo's folded level-0 L1); returns the summary over one pooled
+    forward's (backward's) launches over 128 rows."""
     cases = band_cases(torch, np, conv, model32, pooled_batch, wide_l1)
     summary = check_band_kernels(torch, np, lg, cases, 2)
     for name in lg.LAUNCHES:
@@ -1220,6 +1292,21 @@ def band_phase(torch, np, lg, conv, model32, pooled_batch, wide_l1, card):
             print(f"[kernel] {name} {dtype} blocks over 128 rows, per pooled pass: kernel "
                   f"{agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, bound "
                   f"{agg['bound']:.4f} ms, max|err| {agg['err']:.3e} [{card}]", flush=True)
+    brain = empty_summary(lg)
+    for tag, lap, k, c, count in brain_band_cases(torch, np, conv):
+        s = lap.shape[1]
+        for dtype in ("float32", "bfloat16"):
+            td = getattr(torch, dtype)
+            rng = np.random.default_rng([3, s, k, c])
+            x = torch.from_numpy(rng.standard_normal((1, s, c)).astype(np.float32)).cuda().to(td)
+            dt = torch.from_numpy(rng.standard_normal((k, 1, s, c)).astype(np.float32)
+                                  ).cuda().to(td)
+            print_band_plan(torch, lg, dtype, tag, 1, s, c)
+            check_terms_pair(torch, lg, dtype, f"{tag} ", lap.to(td), x, dt, count, brain,
+                             yardstick=True)
+            del x, dt
+        del lap
+        torch.cuda.empty_cache()
     return summary
 
 
@@ -1754,6 +1841,7 @@ def brain_phase(torch, np, lg, ell, card):
     from hl_hgat_tpu_torch.serving import BrainPredictor
     from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
 
+    lg.BAND_SHAPES.clear()
     levels, pools, series, host, flat_host = brain_data(np)
     batch, flat = host.to("cuda"), flat_host.to("cuda")
     final, fine = levels[2], levels[0]
@@ -1821,14 +1909,22 @@ def brain_phase(torch, np, lg, ell, card):
         pred.forward(sbatch)
         torch.cuda.synchronize()
         fwd_gb = torch.cuda.max_memory_allocated() / 1e9
+        prep0 = lg.PREPARATIONS["band_operator"]
         fwd_ms = median_ms(torch, lambda: pred.forward(sbatch), 5)
+        # the batch's operators (in bfloat16 their casts) were prepared by
+        # the forward above: the timed ones find them all in the caches
+        fwd_prep = lg.PREPARATIONS["band_operator"] - prep0
+        if fwd_prep:
+            fail(f"hgat_attpool {dtype}: forwards on a batch already seen prepared {fwd_prep} "
+                 "band operators again")
         fwd_dev, fwd_busy, fwd_top = device_profile(torch, lambda: pred.forward(sbatch), 2,
                                                     top=6)
         print(f"[brain] hgat_attpool {dtype} served {BRAIN_SUBJECTS} subjects in batches of "
               f"{BRAIN_BATCH}: forward {fwd_ms:.3f} ms (median of 5; device {fwd_dev:.3f} ms, "
               f"busy {100 * fwd_busy:.1f}%; peak device memory {fwd_gb:.2f} GB), "
               f"{BRAIN_BATCH / fwd_ms * 1e3:.1f} subjects/s; "
-              f"{per_fwd} terms launches a forward, 0 fused; terms vs plain route max|err| "
+              f"{per_fwd} terms launches a forward, 0 fused, band operators prepared again "
+              f"{fwd_prep}; terms vs plain route max|err| "
               f"{'; '.join(errs)} (bound {tol} of max|ref|) [{card}]", flush=True)
         print(f"[brain] hgat_attpool {dtype} forward, top device operations: " + "; ".join(
             f"{name[:60]} {ms:.3f} ms x{n:g}" for name, ms, n in fwd_top), flush=True)
@@ -1879,6 +1975,10 @@ def brain_phase(torch, np, lg, ell, card):
         step_ms = (time.perf_counter() - t0) * 1e3 / BRAIN_STEPS
         step_gb = torch.cuda.max_memory_allocated() / 1e9
         counts = dict(lg.LAUNCHES)
+        step_prep = lg.PREPARATIONS["band_operator"]
+        if step_prep:
+            fail(f"hgat_attpool {dtype}: {BRAIN_STEPS} steps on the warm-up's batch prepared "
+                 f"{step_prep} band operators again")
         # the edge init conv reads the raw FC input, which needs no gradient
         want = {**none, "laguerre_terms_dense": per_fwd * BRAIN_STEPS,
                 "laguerre_terms_dense_bwd": (per_fwd - 1) * BRAIN_STEPS}
@@ -1900,7 +2000,8 @@ def brain_phase(torch, np, lg, ell, card):
               f"device {step_dev:.3f} ms, busy {100 * step_busy:.1f}%; peak device memory "
               f"{step_gb:.2f} GB, {warm_gb:.2f} GB in the warm-up); loss {values[0]:.5f} -> "
               f"{values[-1]:.5f}, eval loss {val_loss:.5f}, Pearson r {r:.4f}; launches a "
-              f"step {per_fwd} terms + {per_fwd - 1} terms backward, 0 fused [{card}]",
+              f"step {per_fwd} terms + {per_fwd - 1} terms backward, 0 fused; band operators "
+              f"prepared again {step_prep} [{card}]",
               flush=True)
         print(f"[brain] hgat_attpool {dtype} step, top device operations: " + "; ".join(
             f"{name[:60]} {ms:.3f} ms x{n:g}" for name, ms, n in step_top), flush=True)
@@ -1961,6 +2062,7 @@ def brain_phase(torch, np, lg, ell, card):
         print(f"[brain] abcd_attpool {dtype} ((2,2,2), (64,128,256), K = 2, one pool) served "
               f"{BRAIN_BATCH} subjects: forward {fwd_ms:.3f} ms, {n_abcd} terms launches, 0 "
               f"fused [{card}]", flush=True)
+    print_band_shapes(torch, lg, "phase 10")
     return total, ell_total, summary
 
 
@@ -3033,6 +3135,7 @@ def analysis_phase(torch, np, lg, ell, card):
         print(f"[analysis] {msg}", flush=True)
 
     t_phase = time.perf_counter()
+    lg.BAND_SHAPES.clear()
     args = brain_demo.build_argparser().parse_args(ANALYSIS_DEMO)
     t0 = time.perf_counter()
     init = brain_demo.init_stage(args, log=lambda m: log(m.strip()))
@@ -3053,11 +3156,21 @@ def analysis_phase(torch, np, lg, ell, card):
     log(f"{len(train)} train batches and {len(val)} val batch(es) of shared operators (L1 "
         f"{[tuple(lvl.l1.shape) for lvl in train[0].levels]}) collated and moved in "
         f"{time.perf_counter() - t0:.2f} s")
+    # the band operators (padded rows, float32's TF32 halves) are prepared
+    # at a batch's first band launch and read from the cache after it
     l1 = train[0].levels[0].l1
-    pad_ms = median_ms(torch, lambda: lg._band_operator(l1, torch.float32), 5)
-    log(f"the level-0 L1's {l1.shape[-1]}-element rows padded to "
-        f"{lg._band_operator(l1, torch.float32)[1]} on every band launch: {pad_ms:.4f} ms a "
-        f"launch [{card}]")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op = lg.band_operator(l1, torch.float32)
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    hit_ms = median_ms(torch, lambda: lg.band_operator(l1, torch.float32), 5)
+    log(f"the level-0 L1 ({l1.shape[-1]} rows) as the band kernels read it, rows padded to "
+        f"{op.ld}, TF32 halves: prepared once for the batch in {prep_ms:.4f} ms host "
+        f"(synchronized); every later band launch pays the cache lookup, {hit_ms:.4f} ms "
+        f"[{card}]")
+    band_ops = {id(t) for b in train for lvl in b.levels for t in (lvl.l0, lvl.l1)
+                if t.shape[-1] > lg.RESIDENT_ROWS}
     model, meta = brain_demo.build_model(init, "cuda")
     state = copy.deepcopy(model.state_dict())
     steps = len(train) * args.epochs
@@ -3073,6 +3186,7 @@ def analysis_phase(torch, np, lg, ell, card):
         losses = brain_demo.train_stage(model, train, args.epochs, log=lambda m: None,
                                         timer=timer)
         counts, band = dict(lg.LAUNCHES), dict(lg.BAND_LAUNCHES)
+        prepared = lg.PREPARATIONS["band_operator"]
         ev = brain_demo.evaluate_stage(model, val, meta, log=lambda m: None)
         eval_counts = {k: lg.LAUNCHES[k] - counts[k] for k in counts}
         an = brain_demo.analyze_stage(dc.replace(init, rng=copy.deepcopy(init.rng)),
@@ -3093,6 +3207,15 @@ def analysis_phase(torch, np, lg, ell, card):
         if not np.isfinite(losses).all() or not np.isfinite(ev["pred"]).all():
             fail(f"[analysis] {route} route: non-finite losses or predictions")
         if route == "terms":
+            # the level-0 L1 above is already prepared; every other band
+            # operator of the train batches at most once, whatever the steps
+            log(f"terms route: {sum(band.values())} band launches over {steps} steps prepared "
+                f"{prepared} band operators (the train batches hold {len(band_ops)} over "
+                f"{lg.RESIDENT_ROWS} rows, the level-0 L1 of the first prepared before): no "
+                f"band launch after a batch's first copies or casts its operators")
+            if prepared > len(band_ops) - 1:
+                fail(f"[analysis] {prepared} band operator preparations for {len(band_ops)} "
+                     "operators, one already prepared: a band launch prepared one again")
             if min(per.values()) <= 0 or min(per_band.values()) <= 0:
                 fail(f"[analysis] the kernel route launched {counts} (band {band})")
             if counts["laguerre_dense_fused"] or counts["laguerre_dense_fused_bwd"]:
@@ -3257,6 +3380,7 @@ def analysis_phase(torch, np, lg, ell, card):
     if not np.isfinite(losses).all() or losses != gp_results[1]["losses"]:
         fail("[analysis] gp_brain's losses are not finite or differ across ranks")
 
+    print_band_shapes(torch, lg, "phase 14")
     took = time.perf_counter() - t_phase
     log(f"phase 14 took {took:.1f} s; Laguerre launches on its main path (the kernel route's "
         f"demo run) {main_path} [{card}]")

@@ -39,6 +39,7 @@ from hl_hgat_tpu_torch.ops import boundary as B
 from hl_hgat_tpu_torch.ops.ell_spmm import spmm_ell_symmetric
 from hl_hgat_tpu_torch.ops.segment import segment_mean, segment_mean_onehot
 from hl_hgat_tpu_torch.ops.spmm import spmm_coo
+from hl_hgat_tpu_torch.ops.tensor_cache import TensorCache, tensor_version
 from hl_hgat_tpu_torch.parallel.graph_parallel import (
     HaloShard,
     ShardedLevel,
@@ -227,6 +228,27 @@ def pool_to_coarse(pool, fine, coarse, x_t: torch.Tensor, x_s: torch.Tensor):
             _spill_add(_bmm(pool.p_s, x_s), pool.p_s_sp, x_s) * coarse.edge_mask[..., None])
 
 
+_casts = TensorCache()  # (operator tensor, (dtype, inference mode)) -> (cast, its version)
+
+
+def _cast_tensor(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in ``dtype``, made once while t lives unedited: a model casts its
+    batch's operators on every forward, and the band kernels prepare their
+    operator once per tensor (``laguerre_dense.band_operator``), so a batch
+    must hand them one bfloat16 L, not a new one a forward.  The cast lives
+    as long as t, and is made anew if it was edited in place.  A tensor that
+    needs a gradient, or is already in ``dtype``, is cast as it comes."""
+    if t.dtype == dtype or t.requires_grad:
+        return t.to(dtype)
+    tag = (dtype, torch.is_inference_mode_enabled())
+    hit = _casts.lookup(t, tag)
+    if hit is not None and tensor_version(hit[0]) == hit[1]:
+        return hit[0]
+    out = t.to(dtype)
+    _casts.put(t, tag, (out, tensor_version(out)))
+    return out
+
+
 def _cast(m, dtype: torch.dtype):
     """An operator part in ``dtype``: a tensor, a `CooMatrix`'s COO and ELL
     values, every part of a `BlockDiagMatrix`; None stays None."""
@@ -234,11 +256,13 @@ def _cast(m, dtype: torch.dtype):
         return None
     if isinstance(m, CooMatrix):
         return dataclasses.replace(
-            m, vals=m.vals.to(dtype),
-            ell_vals=None if m.ell_vals is None else m.ell_vals.to(dtype))
+            m, vals=_cast_tensor(m.vals, dtype),
+            ell_vals=None if m.ell_vals is None else _cast_tensor(m.ell_vals, dtype))
     if isinstance(m, BlockDiagMatrix):
         return BlockDiagMatrix(*(_cast(getattr(m, f.name), dtype)
                                  for f in dataclasses.fields(m)))
+    if isinstance(m, torch.Tensor):
+        return _cast_tensor(m, dtype)
     return m.to(dtype)
 
 

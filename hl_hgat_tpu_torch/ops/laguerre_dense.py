@@ -45,11 +45,35 @@ shared memory, checked against ``_SMEM_LIMIT``, the terms kernels 106 KB
 (float32) or 54 KB (bfloat16) at S = 128, whatever K is.
 
 Blocks of more rows go, for the same four functions, to the kernels of
-``csrc/laguerre_band.cu``: L streamed in row bands, one launch a
-recurrence step, the terms (and in the fused backward the cotangents
-``g W_kᵀ``) in a scratch buffer the wrapper allocates, with the same
-rounding points.  Every S, K, C and F runs on the card; no block size
-reaches the plain versions there.
+``csrc/laguerre_band.cu``: L streamed from device memory by TMA, one
+launch a recurrence step (``band_step_kernel``: wgmma fed by a ring of TMA
+stages, the tile chosen from S and C, ``band_step_plan``), the terms (and
+in the fused backward the cotangents ``g W_kᵀ``) in a scratch buffer the
+wrapper allocates, with the same rounding points.  Every S, K, C and F
+runs on the card; no block size reaches the plain versions there.
+
+The band kernels read L as a prepared operator (``band_operator``): in
+bfloat16 L cast to bfloat16, in float32 its TF32 halves ``hi = tf32(L)``
+and ``lo = L − hi`` (exact, so ``hi + lo`` is L bit for bit), rows padded
+to a multiple of 16 bytes (TMA's stride rule; S = 8997, the brain's
+level-0 L1, is not).  It is made once per operator and dtype and cached
+against the tensor's identity and ``_version`` (``ops/tensor_cache.py``),
+not made where a batch moves to the card: an operator reaches the
+wrappers from every layout (packed blocks, the shared brain operator, the
+spill layout's blocks, a user's own tensor), and the cache serves them all
+without threading a prepared object through the model; an in-place edit
+of L bumps its version and so prepares it anew, and the entry goes when L
+does.  A bfloat16 L whose rows are already 16-byte multiples (S = 256) is
+read as it is and nothing is cached: an entry holding L would keep it
+alive.  On the bfloat16 route the model casts its float32 operators on
+every forward; ``dispatch.cast_operators`` keeps each cast while its
+float32 source lives, so a batch's bfloat16 L is one tensor and is
+prepared once too.  Two convs on one level's L read one preparation, and
+neither L nor what the plain route and the CPU see changes.
+``PREPARATIONS`` counts them.  A channel count whose rows are not a
+multiple of 16 bytes (C = 45 in float32) is padded with zero channels
+around the launch; the recurrence keeps each channel to itself, so the
+real channels are unchanged.
 
 The public functions are ``torch.autograd.Function``s: forward and
 backward each launch their kernel for CUDA tensors and raise on anything
@@ -59,17 +83,21 @@ hand-derived adjoints written step by step, not autograd through the
 plain forward.  ``emulated_products`` lets a test run the plain versions
 with the float32 kernels' split products.  ``LAUNCHES`` counts kernel
 launches per wrapper (a backward that needs several CUDA kernels counts
-once), ``BAND_LAUNCHES`` those of them that took the band kernels.
+once), ``BAND_LAUNCHES`` those of them that took the band kernels;
+``BAND_SHAPES`` gathers the (G, S, C, dtype) of every band launch that
+runs a recurrence step, so that a caller can print how each launched.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 
 import torch
 
 from hl_hgat_tpu_torch.ops.nan_checks import check_kernel_outputs
+from hl_hgat_tpu_torch.ops.tensor_cache import TensorCache
 
 LAUNCHES = {
     "laguerre_dense_fused": 0,
@@ -78,6 +106,8 @@ LAUNCHES = {
     "laguerre_terms_dense_bwd": 0,
 }
 BAND_LAUNCHES = dict.fromkeys(LAUNCHES, 0)  # the launches above that took the band kernels
+PREPARATIONS = {"band_operator": 0}  # band operators prepared (cache misses)
+BAND_SHAPES: set[tuple[int, int, int, torch.dtype]] = set()  # (G, S, C, dtype) of band steps
 RESIDENT_ROWS = 128  # blocks the kernels that hold L in shared memory take
 _SMEM_LIMIT = 232448  # bytes a block may opt into on sm_90
 
@@ -88,6 +118,7 @@ def reset_launch_counts() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
         BAND_LAUNCHES[key] = 0
+    PREPARATIONS["band_operator"] = 0
 
 
 def _library(name: str = "laguerre_dense") -> ctypes.CDLL:
@@ -117,6 +148,7 @@ def _library(name: str = "laguerre_dense") -> ctypes.CDLL:
                 "hlhgat_band_fused_bwd": ([p] * 10 + [i] * 8 + [p], i),
                 "hlhgat_band_terms_bwd": ([p] * 4 + [i] * 6 + [p], i),
                 "hlhgat_band_fused_bwd_splits": ([i, i, i, i], i),
+                "hlhgat_band_step_plan": ([i, i, i, i, p], i),
             }
         sigs["hlhgat_cuda_error_string"] = ([i], ctypes.c_char_p)
         for fn, (argtypes, restype) in sigs.items():
@@ -303,21 +335,181 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def band_row_stride(s: int, dtype: torch.dtype) -> int:
+    """The elements a row of S takes when rows must start on 16 bytes."""
+    per = 16 // dtype.itemsize
+    return -(-s // per) * per
+
+
 def _band_operator(l: torch.Tensor, dtype: torch.dtype) -> tuple[torch.Tensor, int]:
-    """L in ``dtype`` for the band kernels and its row stride.  The kernels
-    load L in 16-byte chunks only from rows that start on 16-byte
-    boundaries and element by element elsewhere, so rows of another length
-    (S = 8997, the brain's level-0 L1) are copied into rows padded to 16
-    bytes; the kernels never read the padding."""
+    """L in ``dtype`` and its row stride: L itself where it is contiguous in
+    ``dtype`` on 16 bytes with rows of a multiple of 16 bytes, else a copy
+    with rows padded with zeros to one (the kernels never read the
+    padding)."""
     l = l.to(dtype)
     s = l.shape[-1]
-    per = 16 // l.element_size()
-    if s % per == 0:
-        return l.contiguous(), s
-    ld = -(-s // per) * per
+    ld = band_row_stride(s, dtype)
+    if ld == s and l.is_contiguous() and l.data_ptr() % 16 == 0:
+        return l, s
     padded = torch.empty((*l.shape[:-1], ld), dtype=dtype, device=l.device)
     padded[..., :s].copy_(l)
+    padded[..., s:].zero_()
     return padded, ld
+
+
+@dataclasses.dataclass(frozen=True)
+class BandOperator:
+    """L as the band kernels read it: ``data`` [G, S, ld] in bfloat16, or
+    in float32 [2, G, S, ld] holding ``hi = tf32(L)`` (rounded to nearest,
+    as ``_tf32``) then ``lo = L − hi`` (exact); ``ld`` the row stride in
+    elements (rows start on 16 bytes)."""
+
+    data: torch.Tensor
+    ld: int
+
+
+_prepared = TensorCache()  # (L, dtype) -> BandOperator
+
+
+def _prepare_band_operator(l: torch.Tensor, dtype: torch.dtype) -> BandOperator:
+    if dtype == torch.bfloat16:
+        return BandOperator(*_band_operator(l, dtype))
+    s = l.shape[-1]
+    ld = band_row_stride(s, torch.float32)
+    src = l.to(torch.float32)
+    data = torch.empty((2, *l.shape[:-1], ld), dtype=torch.float32, device=l.device)
+    hi = _tf32(src)
+    data[0, ..., :s].copy_(hi)
+    torch.sub(src, hi, out=data[1, ..., :s])
+    data[..., s:].zero_()
+    return BandOperator(data, ld)
+
+
+def band_operator(l: torch.Tensor, dtype: torch.dtype) -> BandOperator:
+    """The band kernels' operator for L in ``dtype``, prepared on the first
+    request and then served from the cache while L is the same tensor at the
+    same version; the entry goes when L is freed.  A bfloat16 L the kernels
+    can read as it is comes back as it is, uncached."""
+    op = _prepared.lookup(l, dtype)
+    if op is not None:
+        return op
+    op = _prepare_band_operator(l, dtype)
+    if op.data is l:
+        return op
+    _prepared.put(l, dtype, op)
+    PREPARATIONS["band_operator"] += 1
+    return op
+
+
+def band_step_plan(g: int, s: int, c: int, dtype: torch.dtype) -> dict:
+    """How ``band_step_kernel`` launches for G blocks of S rows and C
+    channels in ``dtype`` (the kernel's channels: C rounded up to 16
+    bytes): grid, threads, dynamic shared bytes, registers a thread, CTAs
+    an SM holds at once, waves (CTAs over what the SMs hold at once), the
+    tile's rows and channels.  Needs the card."""
+    lib = _library("laguerre_band")
+    out = (ctypes.c_int * 10)()
+    cp = band_row_stride(c, dtype)
+    code = lib.hlhgat_band_step_plan(g, s, cp, int(dtype == torch.bfloat16), out)
+    _check_launch(lib, code, "band_step_kernel plan")
+    gx, gy, gz, threads, smem, regs, per_sm, sms, rows, cols = list(out)
+    return dict(grid=(gx, gy, gz), threads=threads, smem=smem, regs=regs, ctas_per_sm=per_sm,
+                waves=gx * gy * gz / max(per_sm * sms, 1), tile=(rows, cols), channels=cp)
+
+
+def _aligned(t: torch.Tensor, c: int) -> torch.Tensor:
+    """t [..., C] contiguous, starting on 16 bytes, with c ≥ C channels (the
+    extra ones zero): what the band kernels' TMA loads take."""
+    t = t.contiguous()
+    if t.shape[-1] == c and t.data_ptr() % 16 == 0:
+        return t
+    out = torch.zeros((*t.shape[:-1], c), dtype=t.dtype, device=t.device)
+    out[..., :t.shape[-1]].copy_(t)
+    return out
+
+
+def _pad_rows(w: torch.Tensor, c: int) -> torch.Tensor:
+    """W [K, C, F] with c ≥ C rows, the extra ones zero."""
+    if w.shape[1] == c:
+        return w
+    out = torch.zeros((w.shape[0], c, w.shape[2]), dtype=w.dtype, device=w.device)
+    out[:, :w.shape[1]].copy_(w)
+    return out
+
+
+# The band entry points on the prepared operator, C padded to 16 bytes
+# (``_aligned``) where it is not; each returns the launch's cudaError_t.
+# With K = 1 no recurrence step runs: L is not read and C stays as it is.
+
+def _band_layout(l, x, k: int) -> tuple[int, int, int]:
+    """(operator pointer, its row stride, the kernels' channel count)."""
+    g, s, c = x.shape
+    if k == 1:
+        return 0, s, c
+    BAND_SHAPES.add((g, s, c, x.dtype))
+    op = band_operator(l, x.dtype)
+    return op.data.data_ptr(), op.ld, band_row_stride(c, x.dtype)
+
+
+def _band_fused_fwd(lib, l, x, w, b, out) -> int:
+    g, s, c = x.shape
+    k, _, f = w.shape
+    lp, ld, cp = _band_layout(l, x, k)
+    xp, wp = _aligned(x, cp), _pad_rows(w, cp)
+    wt, ts = _w_scratch(wp, x), _term_scratch(xp, k - 1)
+    return lib.hlhgat_band_fused_fwd(
+        lp, xp.data_ptr(), wp.data_ptr(), b.data_ptr(), out.data_ptr(),
+        _ptr(wt), _ptr(ts), g, s, ld, cp, f, k, _bf16(x), _stream(),
+    )
+
+
+def _band_terms_fwd(lib, l, x, k, out) -> int:
+    g, s, c = x.shape
+    lp, ld, cp = _band_layout(l, x, k)
+    xp = _aligned(x, cp)
+    tp = out if cp == c else torch.empty((k, g, s, cp), dtype=x.dtype, device=x.device)
+    code = lib.hlhgat_band_terms_fwd(lp, xp.data_ptr(), tp.data_ptr(), g, s, ld, cp, k,
+                                     _bf16(x), _stream())
+    if cp != c and code == 0:
+        out.copy_(tp[..., :c])
+    return code
+
+
+def _band_fused_bwd(lib, l, x, w, g, dx, dwdb) -> int:
+    n_g, s, c = x.shape
+    k, _, f = w.shape
+    lp, ld, cp = _band_layout(l, x, k)
+    xp, wp = _aligned(x, cp), _pad_rows(w, cp)
+    n_w = k * cp * f
+    n_split = lib.hlhgat_band_fused_bwd_splits(n_g, cp, f, k)
+    partial = torch.empty((n_split, n_w + f), dtype=torch.float32, device=x.device)
+    dwdb_p = dwdb if cp == c else torch.zeros(n_w + f, dtype=torch.float32, device=x.device)
+    dxp = dx if cp == c else torch.empty((n_g, s, cp), dtype=x.dtype, device=x.device)
+    wt = _w_scratch(wp, x)
+    ts, bars = _term_scratch(xp, k - 1), _term_scratch(xp, k if k > 1 else 0)
+    code = lib.hlhgat_band_fused_bwd(
+        lp, xp.data_ptr(), wp.data_ptr(), g.data_ptr(), dxp.data_ptr(),
+        dwdb_p.data_ptr(), partial.data_ptr(), _ptr(wt), _ptr(ts), _ptr(bars),
+        n_g, s, ld, cp, f, k, n_split, _bf16(x), _stream(),
+    )
+    if cp != c and code == 0:
+        dx.copy_(dxp[..., :c])
+        dwdb[:k * c * f].view(k, c, f).copy_(dwdb_p[:n_w].view(k, cp, f)[:, :c])
+        dwdb[k * c * f:].copy_(dwdb_p[n_w:])
+    return code
+
+
+def _band_terms_bwd(lib, l, dt, k, dx) -> int:
+    _, g, s, c = dt.shape
+    lp, ld, cp = _band_layout(l, dt[0], k)
+    dtp = _aligned(dt, cp)
+    dxp = dx if cp == c else torch.empty((g, s, cp), dtype=dt.dtype, device=dt.device)
+    bars = _term_scratch(dxp, k - 1)
+    code = lib.hlhgat_band_terms_bwd(lp, dtp.data_ptr(), dxp.data_ptr(), _ptr(bars), g, s, ld,
+                                     cp, k, _bf16(dt), _stream())
+    if cp != c and code == 0:
+        dx.copy_(dxp[..., :c])
+    return code
 
 
 def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
@@ -333,19 +525,14 @@ def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
     lib = _library("laguerre_band" if band else "laguerre_dense")
     if not band and lib.hlhgat_laguerre_fused_smem(s, f, _bf16(x)) > _SMEM_LIMIT:
         raise ValueError(f"S={s}, F={f} need more shared memory than a block has")
-    l, ld = _band_operator(l, x.dtype) if band else (l.to(x.dtype).contiguous(), s)
-    x = x.contiguous()
     w = w.to(device=x.device, dtype=torch.float32).contiguous()
     b = b.to(device=x.device, dtype=torch.float32).contiguous()
-    wt = _w_scratch(w, x)
     with torch.cuda.device(x.device):
         if band:
-            ts = _term_scratch(x, k - 1)
-            code = lib.hlhgat_band_fused_fwd(
-                l.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                _ptr(wt), _ptr(ts), g, s, ld, c, f, k, _bf16(x), _stream(),
-            )
+            code = _band_fused_fwd(lib, l, x, w, b, out)
         else:
+            l, x = l.to(x.dtype).contiguous(), x.contiguous()
+            wt = _w_scratch(w, x)
             code = lib.hlhgat_laguerre_fused_fwd(
                 l.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
                 out.data_ptr(), _ptr(wt), g, s, c, f, k, _bf16(x), _stream(),
@@ -367,14 +554,11 @@ def _terms_fwd_cuda(l, x, k: int) -> torch.Tensor:
         return out
     band = s > RESIDENT_ROWS
     lib = _library("laguerre_band" if band else "laguerre_dense")
-    x = x.contiguous()
     with torch.cuda.device(x.device):
         if band:
-            l, ld = _band_operator(l, x.dtype)
-            code = lib.hlhgat_band_terms_fwd(l.data_ptr(), x.data_ptr(), out.data_ptr(), g, s,
-                                             ld, c, k, _bf16(x), _stream())
+            code = _band_terms_fwd(lib, l, x, k, out)
         else:
-            l = l.to(x.dtype).contiguous()
+            l, x = l.to(x.dtype).contiguous(), x.contiguous()
             code = lib.hlhgat_laguerre_terms_fwd(l.data_ptr(), x.data_ptr(), out.data_ptr(), g,
                                                  s, c, k, _bf16(x), _stream())
     _check_launch(lib, code, "laguerre_terms_dense")
@@ -413,27 +597,18 @@ def laguerre_dense_fused_bwd(
     if x.numel() and g.numel():
         band = s > RESIDENT_ROWS
         lib = _library("laguerre_band" if band else "laguerre_dense_bwd")
-        if band:
-            n_split = lib.hlhgat_band_fused_bwd_splits(n_g, c, f, k)
-        else:
-            if lib.hlhgat_laguerre_fused_bwd_smem(s, k, _bf16(x)) > _SMEM_LIMIT:
-                raise ValueError(f"S={s} needs more shared memory than a block has")
-            n_split = lib.hlhgat_laguerre_fused_bwd_splits(n_g, c, f)
-        partial = torch.empty((n_split, n_w + f), dtype=torch.float32, device=x.device)
-        l, ld = _band_operator(l, x.dtype) if band else (l.to(x.dtype).contiguous(), s)
-        x = x.contiguous()
         g = g.to(x.dtype).contiguous()
         w = w.to(device=x.device, dtype=torch.float32).contiguous()
-        wt = _w_scratch(w, x)
         with torch.cuda.device(x.device):
             if band:
-                ts, bars = _term_scratch(x, k - 1), _term_scratch(x, k if k > 1 else 0)
-                code = lib.hlhgat_band_fused_bwd(
-                    l.data_ptr(), x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                    dwdb.data_ptr(), partial.data_ptr(), _ptr(wt), _ptr(ts), _ptr(bars),
-                    n_g, s, ld, c, f, k, n_split, _bf16(x), _stream(),
-                )
+                code = _band_fused_bwd(lib, l, x, w, g, dx, dwdb)
             else:
+                if lib.hlhgat_laguerre_fused_bwd_smem(s, k, _bf16(x)) > _SMEM_LIMIT:
+                    raise ValueError(f"S={s} needs more shared memory than a block has")
+                n_split = lib.hlhgat_laguerre_fused_bwd_splits(n_g, c, f)
+                partial = torch.empty((n_split, n_w + f), dtype=torch.float32, device=x.device)
+                l, x = l.to(x.dtype).contiguous(), x.contiguous()
+                wt = _w_scratch(w, x)
                 code = lib.hlhgat_laguerre_fused_bwd(
                     l.data_ptr(), x.data_ptr(), w.data_ptr(), g.data_ptr(),
                     dx.data_ptr(), dwdb.data_ptr(), partial.data_ptr(), _ptr(wt),
@@ -462,17 +637,11 @@ def laguerre_terms_dense_bwd(l: torch.Tensor, dt: torch.Tensor, k: int) -> torch
         return dx
     band = s > RESIDENT_ROWS
     lib = _library("laguerre_band" if band else "laguerre_dense_bwd")
-    dt = dt.contiguous()
     with torch.cuda.device(dt.device):
         if band:
-            l, ld = _band_operator(l, dt.dtype)
-            bars = _term_scratch(dx, k - 1)
-            code = lib.hlhgat_band_terms_bwd(
-                l.data_ptr(), dt.data_ptr(), dx.data_ptr(), _ptr(bars), n_g, s, ld, c, k,
-                _bf16(dt), _stream(),
-            )
+            code = _band_terms_bwd(lib, l, dt, k, dx)
         else:
-            l = l.to(dt.dtype).contiguous()
+            l, dt = l.to(dt.dtype).contiguous(), dt.contiguous()
             code = lib.hlhgat_laguerre_terms_bwd(
                 l.data_ptr(), dt.data_ptr(), dx.data_ptr(), n_g, s, c, k,
                 _bf16(dt), _stream(),

@@ -6,11 +6,11 @@
 
 ``stride``: the band terms kernels (forward and backward) on the folded
 level-0 L1 of the Shen-268 pyramid (S = 8997 rows, K = 4, C = 16 x each
-conv's input width), launched on L as stored (rows 8997 elements apart,
-not 16-byte aligned) and on L copied into rows of 9000 elements, and the
-wrapper, which makes that copy in each call.  All three must give the
-same bits; each is timed as ``chip_smoke.py`` times a kernel (ten calls
-replayed as a CUDA graph, the wrapper's copy included).
+conv's input width) through the wrappers, with the band operator (rows
+padded to 16 bytes, float32's TF32 halves) from the cache and prepared
+anew in every call; both must give the same bits; each is timed as
+``chip_smoke.py`` times a kernel (ten calls replayed as a CUDA graph).  A
+parent tree's copy of this script times that tree's kernels the same way.
 
 ``cudnn``: the float32 ``hgat_attpool`` training step at batch 16 under
 four cuDNN settings, each in a process of its own (PyTorch caches a
@@ -74,7 +74,6 @@ def stride(torch, np, card):
     from hl_hgat_tpu_torch.nn import conv
     from hl_hgat_tpu_torch.ops import laguerre_dense as lg
 
-    lib = lg._library("laguerre_band")
     model, batch = brain_model(torch, np, cs.BRAIN_BATCH)
     cases = [c for c in cs.brain_conv_cases(torch, conv, model, batch)
              if c[0] == 0 and c[1] == "L1"]
@@ -82,46 +81,30 @@ def stride(torch, np, card):
         td = getattr(torch, dtype)
         lb = batch.levels[0].l1.to(td).contiguous()
         s = lb.shape[1]
-        lp, ld = lg._band_operator(lb, td)
         for _, _, _, k, c, count in cases:
             rng = np.random.default_rng([3, s, k, c])
             x = torch.from_numpy(rng.standard_normal((1, s, c)).astype(np.float32)).cuda().to(td)
             dt = torch.from_numpy(rng.standard_normal((k, 1, s, c)).astype(np.float32)
                                   ).cuda().to(td)
-            t = torch.empty((k, 1, s, c), dtype=td, device="cuda")
-            dx = torch.empty((1, s, c), dtype=td, device="cuda")
-            bars = torch.empty((k - 1, 1, s, c), dtype=td, device="cuda")
-
-            def raw_fwd(l, row):
-                code = lib.hlhgat_band_terms_fwd(l.data_ptr(), x.data_ptr(), t.data_ptr(), 1, s,
-                                                 row, c, k, lg._bf16(x), lg._stream())
-                lg._check_launch(lib, code, "hlhgat_band_terms_fwd")
-                return t.clone()
-
-            def raw_bwd(l, row):
-                code = lib.hlhgat_band_terms_bwd(l.data_ptr(), dt.data_ptr(), dx.data_ptr(),
-                                                 bars.data_ptr(), 1, s, row, c, k,
-                                                 lg._bf16(dt), lg._stream())
-                lg._check_launch(lib, code, "hlhgat_band_terms_bwd")
-                return dx.clone()
-
             runs = {
-                "laguerre_terms_dense": (lambda: lg.laguerre_terms_dense(lb, x, k), raw_fwd),
-                "laguerre_terms_dense_bwd": (lambda: lg.laguerre_terms_dense_bwd(lb, dt, k),
-                                             raw_bwd),
+                "laguerre_terms_dense": lambda: lg.laguerre_terms_dense(lb, x, k),
+                "laguerre_terms_dense_bwd": lambda: lg.laguerre_terms_dense_bwd(lb, dt, k),
             }
-            for name, (wrapper, raw) in runs.items():
-                got = [wrapper(), raw(lb, s), raw(lp, ld)]
-                if not all(torch.equal(got[0], g) for g in got[1:]):
-                    cs.fail(f"{name} {dtype} C={c}: rows {s} and {ld} apart give other bits")
-                ms = [cs.graph_ms(torch, fn, cs.KERNEL_CALLS) for fn in (
-                    wrapper, lambda: raw(lb, s), lambda: raw(lp, ld))]
-                print(f"[stride] {name} {dtype} G=1 S={s} C={c} K={k} (x{count} a forward): "
-                      f"L's rows {s} elements apart (not 16-byte aligned) {ms[1]:.4f} ms, "
-                      f"{ld} apart (16-byte aligned) {ms[2]:.4f} ms, ratio "
-                      f"{ms[1] / ms[2]:.2f}; the wrapper (copies L into {ld}-element rows, "
-                      f"then the aligned launch) {ms[0]:.4f} ms; same bits [{card}]",
-                      flush=True)
+            for name, wrapper in runs.items():
+
+                def fresh(wrapper=wrapper):
+                    lg._prepared.clear()  # the operator prepared anew, as every launch once did
+                    return wrapper()
+
+                got = [wrapper(), fresh()]
+                if not torch.equal(got[0], got[1]):
+                    cs.fail(f"{name} {dtype} C={c}: cached and fresh operators give other bits")
+                ms = [cs.graph_ms(torch, fn, cs.KERNEL_CALLS) for fn in (wrapper, fresh)]
+                op = lg.band_operator(lb, td)
+                print(f"[stride] {name} {dtype} G=1 S={s} C={c} K={k} (x{count} a forward), "
+                      f"L's rows padded to {op.ld}: the operator from the cache (prepared "
+                      f"once a batch) {ms[0]:.4f} ms, prepared in the call {ms[1]:.4f} ms, "
+                      f"ratio {ms[1] / ms[0]:.2f}; same bits [{card}]", flush=True)
 
 
 def cudnn_one(torch, np, card, setting: str, batch_size: int):
