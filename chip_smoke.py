@@ -11,9 +11,9 @@
    a ``[native]`` line with its build seconds), prints the card's name and
    power limit, and reads the three Laguerre
    libraries with ``cuobjdump -sass``: every Laguerre kernel, fused and
-   terms, forward and backward, and every product kernel of the band
-   library, must hold tensor-core opcodes (HMMA / HGMMA), in float32
-   (3xTF32) and in bfloat16.
+   terms, forward and backward, must hold tensor-core opcodes (HMMA /
+   HGMMA), and every kernel of the band library, step and products, wgmma
+   (HGMMA), in float32 (3xTF32) and in bfloat16.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the zinc_pyr forward gives it (the batch's real L0 blocks, random
    x/W/b) and, off the path, at a ragged shape, at K = 8, at S = 96 and at
@@ -31,15 +31,19 @@
    bit-equal: every distinct conv shape over 128 rows of the pooled path
    below (its 256-row L1 blocks; coarse-level blocks too where they exceed
    128 rows), counted per pass, and off the path the same graphs' 512-row
-   L1 blocks at K = 4, C = F = 64 and 128; then the terms kernels (2 and
-   4) at brain scale, held as phase 10 holds them: every conv on phase
-   10's folded level-0 L1 (the Shen-268 pyramid, S = 8997, among them C =
-   512, K = 4) and on the brain demo's (S = 7047, K = 3).  Each shape
-   prints the band step kernel's launch (``[band]`` lines: grid, tile,
-   threads, shared memory, registers, CTAs an SM, waves) and, beside each
-   terms case, a yardstick that the port never calls: one step's
-   ``torch.matmul(L, T)`` in the same dtype (cuBLAS, default precision)
-   times K - 1, the product alone.
+   L1 blocks at K = 4, C = F = 64 and 128, and a ragged case (G = 3, S =
+   129, C = 45, F = 37, K = 4); then the terms kernels (2 and 4) at brain
+   scale, held as phase 10 holds them: every conv on phase 10's folded
+   level-0 L1 (the Shen-268 pyramid, S = 8997, among them C = 512, K = 4)
+   and on the brain demo's (S = 7047, K = 3).  Each shape prints the band
+   step kernel's launch (``[band]`` lines: grid, tile, threads, shared
+   memory, registers, CTAs an SM, waves) and, beside each terms case, a
+   yardstick that the port never calls: one step's ``torch.matmul(L, T)``
+   in the same dtype (cuBLAS, default precision) times K - 1, the product
+   alone.  Each fused case also prints the device time of every kernel
+   that one forward and one backward call launch (steps, products,
+   reduce), each product beside its bound and one ``torch.matmul`` of the
+   same product, and the product kernels' launches.
 3. Serves 384 synthetic ZINC-like graphs through ``Predictor`` (loader-fed:
    ``BucketedLoader``, derived transfer, inflated on the card; the [serve]
    line gives the loader's block count beside the packing's) with a
@@ -262,12 +266,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # three TF32 passes (the fused kernels' 3xTF32): 495 / 3 TFLOP/s, above the
 # 67 TFLOP/s of the CUDA cores, so no float32 row can read under its bound
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
-# the kernels that must hold tensor-core opcodes, in both dtypes
-MMA_KERNELS = {"laguerre_dense": ("fused_fwd_mma_kernel", "terms_fwd_mma_kernel"),
-               "laguerre_dense_bwd": ("fused_bwd_dx_mma_kernel", "fused_bwd_dw_mma_kernel",
-                                      "terms_bwd_mma_kernel"),
-               "laguerre_band": ("band_step_kernel", "band_out_kernel", "band_bar_kernel",
-                                 "band_dw_kernel")}
+# the kernels that must hold tensor-core opcodes, in both dtypes, and which
+# opcodes count: the band library's are wgmma (HGMMA) kernels
+MMA_KERNELS = {"laguerre_dense": (("HMMA", "HGMMA"), ("fused_fwd_mma_kernel",
+                                                      "terms_fwd_mma_kernel")),
+               "laguerre_dense_bwd": (("HMMA", "HGMMA"), ("fused_bwd_dx_mma_kernel",
+                                                          "fused_bwd_dw_mma_kernel",
+                                                          "terms_bwd_mma_kernel")),
+               "laguerre_band": (("HGMMA",), ("band_step_kernel", "band_out_kernel",
+                                              "band_bar_kernel", "band_dw_kernel"))}
 KERNEL_CALLS = 10  # calls per CUDA graph when a Laguerre kernel is timed
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # relative to max|ref|
 # Whole-model gradients, one computation against another: the worst leaf's
@@ -1163,6 +1170,7 @@ def check_band_kernels(torch, np, lg, cases, seed):
     case draws its inputs from its own generator.  Returns per-kernel,
     per-dtype sums over one pass's launches, as ``check_kernels`` does."""
     summary = empty_summary(lg)
+    breakdown = []
     for dtype in ("float32", "bfloat16"):
         td = getattr(torch, dtype)
         for tag, l32, k, c, f, count in cases:
@@ -1181,11 +1189,120 @@ def check_band_kernels(torch, np, lg, cases, seed):
             cot = feats(f)
             print_band_plan(torch, lg, dtype, tag, g, sb, c)
             check_fused_pair(torch, lg, dtype, f"{tag} ", lb, x, w, b, cot, count, summary)
+            breakdown.append((dtype, tag, lb, x, w, b, cot))
             if k > 1:
                 dt = torch.stack([feats(c) for _ in range(k)])
                 check_terms_pair(torch, lg, dtype, f"{tag} ", lb, x, dt, count, summary,
                                  yardstick=True)
+    band_breakdowns(torch, breakdown)
     return summary
+
+
+def band_breakdowns(torch, cases):
+    """``band_call_kernels`` for every fused case ``(dtype, tag, l, x, w, b,
+    cot)``, in one child process: a process that has opened a few dozen
+    ``torch.profiler`` sessions loses the device events of later ones (on
+    an H100 the full script's later device-time checks then found none)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "band_cases.pt")
+        torch.save([(d, t, *(a.cpu() for a in arrays)) for d, t, *arrays in cases], path)
+        child = "import sys, chip_smoke; chip_smoke.band_breakdown_child(sys.argv[1])"
+        proc = subprocess.run([sys.executable, "-c", child, path],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    if proc.returncode != 0:
+        fail(f"phase 2b's kernel breakdown exited with {proc.returncode}")
+
+
+def band_breakdown_child(path: str) -> None:
+    import torch
+
+    from hl_hgat_tpu_torch.ops import laguerre_dense as lg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for dtype, tag, *arrays in torch.load(path):
+        band_call_kernels(torch, lg, dtype, tag, *(a.cuda() for a in arrays))
+
+
+def kernel_times(torch, fn, calls: int) -> dict[str, float]:
+    """Device ms per call of each kernel that ``fn`` launches, by name (the
+    name without namespace, template arguments and parameters), from a
+    ``torch.profiler`` window over ``calls`` calls."""
+    import re
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without its device events
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = {}
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total", None) or getattr(
+                evt, "self_cuda_time_total", 0.0)
+            found = re.match(r"(?:void\s+)?(?:[\w:]*::)?(\w+)",
+                             evt.key.replace("(anonymous namespace)::", ""))
+            name = found.group(1) if found else evt.key[:48]
+            times[name] = times.get(name, 0.0) + us / 1e3 / calls
+        if times:
+            return times
+    fail("the profiler recorded no device time in three traces")
+
+
+def band_call_kernels(torch, lg, dtype, tag, lb, x, w, b, cot):
+    """Phase 2b's breakdown of one fused band call each way: every kernel a
+    forward and a backward launch, by name and device time (steps, products,
+    reduce); beside each product its bound and a yardstick that the port
+    never calls, the same product as one ``torch.matmul`` in the same dtype
+    (cuBLAS, default precision): Σ_k T_k W_k as [R, K·C] x [K·C, F] (no
+    bias), g W_kᵀ as [R, F] x [F, K·C], T_kᵀ g as [K·C, R] x [R, F] (no db).
+    Then the product kernels' launches (``[band]`` plan lines, where the
+    tree has them)."""
+    g, sb, c = x.shape
+    k, _, f = w.shape
+    r, es = g * sb, x.element_size()
+    shape = f"{dtype} {tag} G={g} S={sb} C={c} F={f} K={k}"
+    tcat = lg.laguerre_terms_dense(lb, x, k).permute(1, 2, 0, 3).reshape(r, k * c).contiguous()
+    wcat = w.to(x.dtype).reshape(k * c, f)
+    g2 = cot.reshape(r, f)
+
+    def bound(nbytes, flops):
+        by_bytes = nbytes * es / HBM_BYTES_PER_S * 1e3
+        by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        return max(by_bytes, by_ops), "operations" if by_ops >= by_bytes else "bytes"
+
+    flops = 2 * r * k * c * f
+    products = {
+        "band_out_kernel": (bound(k * r * c + r * f, flops), lambda: torch.matmul(tcat, wcat)),
+        "band_bar_kernel": (bound(r * f + k * r * c, flops), lambda: torch.matmul(g2, wcat.t())),
+        "band_dw_kernel": (bound(k * r * c + r * f + k * c * f * 4 // es, flops),
+                           lambda: torch.matmul(tcat.t(), g2)),
+    }
+    yard = {name: graph_ms(torch, mm, KERNEL_CALLS) for name, (_, mm) in products.items()}
+    for way, fn in (("forward", lambda: lg.laguerre_dense_fused(lb, x, w, b)),
+                    ("backward", lambda: lg.laguerre_dense_fused_bwd(lb, x, w, cot))):
+        times = kernel_times(torch, fn, KERNEL_CALLS)
+        parts = []
+        for name, ms in sorted(times.items(), key=lambda kv: -kv[1]):
+            line = f"{name} {ms:.4f} ms"
+            if name in products:
+                (b_ms, by), _ = products[name]
+                line += (f" (bound {b_ms:.4f} ms, {by}; one torch.matmul {yard[name]:.4f} ms, "
+                         f"not called by the port)")
+            parts.append(line)
+        print(f"[band] {shape} {way} kernels: {'; '.join(parts)}; all "
+              f"{sum(times.values()):.4f} ms", flush=True)
+    for name in getattr(lg, "BAND_PRODUCTS", ()):
+        p = lg.band_product_plan(name, g, sb, c, f, k, x.dtype)
+        print(f"[band] {shape}: {name} grid {p['grid']}, tile {p['tile'][0]} rows x "
+              f"{p['tile'][1]} columns, {p['threads']} threads, {p['smem']} B shared, "
+              f"{p['regs']} registers, {p['ctas_per_sm']} CTAs an SM, {p['waves']:.2f} waves",
+              flush=True)
 
 
 def print_band_plan(torch, lg, dtype, tag, g, s, c):
@@ -1264,7 +1381,8 @@ def conv_calls(torch, conv, model, batch):
 def band_cases(torch, np, conv, model, batch, wide_l1):
     """Kernel cases over 128 rows: every distinct (operator, K, C, F) of the
     pooled model's forward with S > 128, counted per pass, then off the
-    path the 512-row L1 blocks ``wide_l1`` at K = 4, C = F = 64 and 128."""
+    path the 512-row L1 blocks ``wide_l1`` at K = 4, C = F = 64 and 128, and
+    their leading 129 x 129 in 3 blocks at C = 45, F = 37, K = 4."""
     counted = {}
     for lap, k, c, f in conv_calls(torch, conv, model, batch):
         if lap.shape[1] > 128:
@@ -1276,6 +1394,8 @@ def band_cases(torch, np, conv, model, batch, wide_l1):
     cases = [("pooled", lap.float(), k, c, f, n)
              for (_, k, c, f), (lap, n) in sorted(counted.items(), key=lambda kv: kv[0][1:])]
     cases += [("wide", wide_l1, 4, w, w, 0) for w in (64, 128)]
+    # ragged: rows, channels and columns none of which is a tile's multiple
+    cases.append(("ragged", wide_l1[:3, :129, :129].contiguous(), 4, 45, 37, 0))
     return cases
 
 
@@ -3463,19 +3583,24 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
-    for lib, wanted in MMA_KERNELS.items():
+    for lib, (opcodes, wanted) in MMA_KERNELS.items():
         if lib not in cuda_build.SOURCES:  # an older tree, run for comparison
             continue
-        counts = cuda_build.tensor_core_opcodes(lib)
-        for kernel, n in sorted(counts.items()):
-            print(f"[build] {lib}: {n} tensor-core opcodes in {kernel}", flush=True)
+        counts = {}
+        for kernel, n in cuda_build.tensor_core_opcodes(lib).items():
+            # an older tree's reader counts HMMA and HGMMA together, and its
+            # kernels are held to that count
+            counts[kernel] = n if isinstance(n, dict) else {"HMMA or HGMMA": n}
+            print(f"[build] {lib}: {kernel}: "
+                  + ", ".join(f"{v} {op}" for op, v in counts[kernel].items()), flush=True)
         for name in wanted:
             for bf16 in (False, True):
-                found = [n for kernel, n in counts.items()
+                found = [sum(v for op, v in n.items() if op in opcodes or " or " in op)
+                         for kernel, n in counts.items()
                          if name in kernel and ("bfloat16" in kernel) == bf16]
                 if not found or min(found) == 0:
                     fail(f"{name} ({'bfloat16' if bf16 else 'float32'}) holds no "
-                         f"tensor-core opcode: {found}")
+                         f"{' or '.join(opcodes)}: {found}")
 
     # ---- data -------------------------------------------------------------
     t0 = time.perf_counter()

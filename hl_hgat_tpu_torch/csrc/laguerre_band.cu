@@ -89,23 +89,66 @@
 //   the depth is summed in a fixed order, so a second launch gives the same
 //   bits.
 
-// The other kernels (one launch each) keep the file's first design: a 128 x 64 output
-// tile a block of 8 warps, 32 x 32 a warp, A and B streamed through shared
-// memory in depth chunks of 32 by a two-stage cp.async ring, the fragments
-// and the 3xTF32 / bf16 mma.sync of laguerre_common.cuh.
-// * band_out_kernel (fused forward): out = Σ_k T_k W_k + b, one product of
-//   depth K·C over the terms, summed in f32 and rounded once with the bias.
-// * band_bar_kernel (fused backward): b̄_k = g W_kᵀ for every k, rounded to
-//   x's type; the adjoint walk then runs as in the terms backward.
-// * band_dw_kernel / band_db_kernel (fused backward): per-slice partial sums
-//   of dW_k = T_kᵀ g and db = Σ g over contiguous runs of graph blocks, in
-//   f32; reduce_partials_kernel adds the slices in slice order.
+// The products of the fused entry points, one launch each, on the step
+// kernel's machinery: a ring of TMA stages (128-byte swizzle, zeros past
+// the arrays) filled by one producer warp and drained by one consumer
+// warpgroup that runs wgmma, 64 output rows a CTA:
+// * band_out_kernel (fused forward) <- the products of _fwd_kernel
+//   (:97-105): out [R, F] = Σ_k T_k W_k + b over the R = G·S rows, one
+//   product of depth K·C whose ring runs across the terms (A from x for k =
+//   0, from the scratch ts after: two tensor maps), summed in f32, the f32
+//   bias added and rounded once.  N = 64 columns for F <= 64, else 128, so
+//   F = 256 takes two CTAs a row tile: a 64 x 256 float32 tile would need
+//   128 accumulator registers and 128 more for the chunk's fresh
+//   accumulator, and a bfloat16 stage of W 256 wide would leave one CTA an
+//   SM.
+// * band_bar_kernel (fused backward) <- b_list of _bwd_kernel (:149-155):
+//   b̄_k = g W_kᵀ for every k, rounded to x's type.  The CTA's 64 rows of g
+//   stay in shared memory while it walks k, so g is read once, not K times;
+//   N = 64 channels, the depth F.  The adjoint walk then runs as in the
+//   terms backward.
+// * band_dw_kernel (fused backward) <- dW and db of _bwd_kernel (:134-146):
+//   partial sums of dW_k = T_kᵀ g (M = 64 channels, so C = 64 fills the
+//   tile; N = 64 columns of g; the depth the rows) for two terms a CTA over
+//   a fixed slice of row chunks, and db = Σ g in the CTAs of channel tile 0
+//   and terms 0-1, summed from g's tile in shared memory in a fixed order;
+//   band_reduce_kernel adds the slices in a fixed order.
+// What bounds them.  At G = 41, S = 256, C = F = 64, K = 4 (the pooled
+// path's band shape, R = 10496) band_out moves K·R·C + R·F elements: 13.4
+// MB in float32, 4.0 µs at 3.35 TB/s, and 2.0 µs in bfloat16, against 0.34
+// GFLOP (2.1 µs as three TF32 products at 165 TFLOP/s, 0.35 µs in
+// bfloat16).  The backward's products move R·F + 2·K·R·C elements (7.2 /
+// 3.6 µs) for 0.69 GFLOP (4.2 / 0.7 µs).  At S = 512 all of it doubles.
+// Bytes bound them, so each term tile and each row of g comes from device
+// memory once a CTA (W, at most a few hundred KB, from L2), the ring runs
+// across the terms instead of draining at each, and every CTA keeps its
+// loads in flight while the tensor cores stay far from their limit.  The
+// out and b̄ tiles are staged in shared memory and leave by TMA stores:
+// stored from the accumulators' registers, four bytes a thread, b̄ (K
+// outputs a row of g) ran 2.5x slower in bfloat16 on an H100.  dW runs
+// about one CTA an SM (kDwTarget), each over a slice of row chunks, with
+// a deep ring; more slices or more terms a CTA measured no faster there.
+// * bfloat16: both operands from shared memory, A K-major (out: T's rows;
+//   bar: g's rows) or M-major (dW: T_kᵀ as T's tile lies), B K-major (bar:
+//   W_k as stored) or N-major by wgmma's transpose bit (out: W_k; dW: g),
+//   each N-major piece one 128-byte swizzle atom (64 columns) wide.
+// * float32: TF32 wgmma takes B only K-major, A K-major from registers.
+//   The caller prepares W's TF32 halves once (hi = tf32(W), lo = W − hi;
+//   Wᵀ [K, F, C] for out, W [K, C, F] for bar), A is split once an element
+//   in registers, and dW's B (g) is written by the consumers transposed
+//   into a K-major buffer as TF32 halves once a stage, shared by the CTA's
+//   terms.  Each chunk's 12 wgmma go to a fresh accumulator that is added
+//   to the running sum with a float add.
+// * No atomics: every output element is written once by one thread and the
+//   depth is summed in a fixed order, so a second launch gives the same bits.
 // The terms of a fused call go to a scratch buffer [K−1, G, S, C] in x's
 // type that the caller allocates (b̄ likewise, [K, G, S, C]).  TMA needs
 // 16-byte strides: L's rows lie ldl >= S elements apart with ldl·size a
-// multiple of 16 (graph blocks S·ldl apart), C·size is a multiple of 16,
-// and x, the scratch buffers and L start on 16 bytes; the caller pads (with
-// K = 1 no step runs and none of this applies).
+// multiple of 16 (graph blocks S·ldl apart), C·size and ldf·size (the row
+// stride of g, W and out, ldf >= F) are multiples of 16, and every array
+// TMA reads or writes starts on 16 bytes.  The caller pads: a ragged C
+// with zero channels, a ragged F with zero columns of W and g and an out
+// buffer of ldf columns, F of which are written.
 //
 // Rounding follows the S <= 128 kernels: L and W in x's type; each L·V and
 // each g W_kᵀ accumulated in f32 and rounded to x's type; the combine in
@@ -128,82 +171,6 @@ struct alignas(64) TensorMap {
 constexpr int kMapFloat32 = 7, kMapBfloat16 = 9;  // CU_TENSOR_MAP_DATA_TYPE_*
 constexpr int kMapInterleaveNone = 0, kMapSwizzle128B = 3, kMapL2Promote256B = 3,
               kMapOobFillZeros = 0;
-
-constexpr int kBM = 128, kBN = 64, kBD = 32;  // block tile: rows, columns, depth chunk
-constexpr int kBandThreads = 256;  // 8 warps: 4 along the rows x 2 along the columns
-constexpr int kBandTargetBlocks = 132;  // dW slices: about one block an SM
-
-// The two stages of A and B tiles in shared memory.  kAK: A is stored along
-// the depth ([M][D]), else [D][M]; kBK: B is stored [N][D], else [D][N].
-// Paddings as laguerre_common.cuh gives them for a tile read along its rows
-// (kPadK) or down its columns (kPadN).
-template <typename T, bool kAK, bool kBK>
-struct BandTiles {
-  using M = Mma<T>;
-  static constexpr int ldA = kAK ? kBD + M::kPadK : kBM + M::kPadN;
-  static constexpr int szA = kAK ? kBM * ldA : kBD * ldA;
-  static constexpr int ldB = kBK ? kBD + M::kPadK : kBN + M::kPadN;
-  static constexpr int szB = kBK ? kBN * ldB : kBD * ldB;
-  static constexpr size_t kBytes = 2 * (size_t)(szA + szB) * sizeof(T);
-};
-
-// acc += A B over `depth` for the block's kBM x kBN tile.  a points at A's
-// element (the tile's first row, depth 0), b at B's (depth 0, the tile's
-// first column); lda and ldb are the row strides of the arrays as stored;
-// m_valid and n_valid the rows and columns of the tile inside them.  Warp w
-// owns rows 32 (w / 2) .. and columns 32 (w % 2) .. of the tile.  Ends with a
-// barrier, so the caller may start another product on the same memory.
-template <typename T, bool kAK, bool kBK>
-__device__ inline void block_gemm(float (&acc)[2][4][4], const T* a, size_t lda,
-                                  int m_valid, const T* b, size_t ldb, int n_valid,
-                                  int depth, T* smem) {
-  using Tl = BandTiles<T, kAK, kBK>;
-  T* as = smem;
-  T* bs = smem + 2 * Tl::szA;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  auto load = [&](int i, int buf) {
-    const int d0 = i * kBD, dv = depth - d0;
-    if (kAK)
-      load_tile_async<T>(as + buf * Tl::szA, Tl::ldA, a + d0, lda, kBM, kBD, m_valid, dv);
-    else
-      load_tile_async<T>(as + buf * Tl::szA, Tl::ldA, a + (size_t)d0 * lda, lda, kBD, kBM,
-                         dv, m_valid);
-    if (kBK)
-      load_tile_async<T>(bs + buf * Tl::szB, Tl::ldB, b + d0, ldb, kBN, kBD, n_valid, dv);
-    else
-      load_tile_async<T>(bs + buf * Tl::szB, Tl::ldB, b + (size_t)d0 * ldb, ldb, kBD, kBN,
-                         dv, n_valid);
-  };
-  const int chunks = (depth + kBD - 1) / kBD;
-  if (chunks > 0) load(0, 0);
-  for (int i = 0; i < chunks; ++i) {
-    cp_async_wait_all();
-    __syncthreads();  // chunk i is whole; the reads of chunk i - 1 are done
-    if (i + 1 < chunks) load(i + 1, (i + 1) & 1);
-    const T* at = as + (i & 1) * Tl::szA + (kAK ? wm * 32 * Tl::ldA : wm * 32);
-    const T* bt = bs + (i & 1) * Tl::szB + (kBK ? wn * 32 * Tl::ldB : wn * 32);
-    warp_gemm<T, 2, 4, kAK, kBK>(acc, at, Tl::ldA, bt, Tl::ldB, kBD);
-  }
-  __syncthreads();
-}
-
-// Calls f(row, col, v0, v1) for each column pair (col, col + 1) of the
-// warp's accumulators, rows and columns relative to the block tile.
-template <typename F>
-__device__ inline void for_each_pair(const float (&acc)[2][4][4], F f) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int r0 = (warp >> 1) * 32, c0 = (warp & 1) * 32;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f(r0 + 16 * mi + gid + 8 * h, c0 + 8 * ni + 2 * tig, acc[mi][ni][2 * h],
-          acc[mi][ni][2 * h + 1]);
-}
 
 // ---------------------------------------------------------------------------
 // the recurrence step: TMA, mbarriers, wgmma
@@ -339,8 +306,11 @@ __device__ inline void wgmma_tf32_n128(float (&d)[64], const unsigned (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// d[m64 x N] (+)= A(desc)[m64 x k16] · B(desc)[k16 x N] in bfloat16, A
-// M-major (the T tile as TMA stores it), B K-major; scale_d = 0 overwrites d.
+// d[m64 x N] (+)= A(desc)[m64 x k16] · B(desc)[k16 x N] in bfloat16; kTA /
+// kTB: A M-major / B N-major (wgmma's transpose bits), else K-major; the
+// step kernel's A is M-major (the T tile as TMA stores it), its B K-major;
+// scale_d = 0 overwrites d.
+template <int kTA, int kTB>
 __device__ inline void wgmma_bf16_ss_n64(float (&d)[32], u64 a, u64 b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -350,16 +320,17 @@ __device__ inline void wgmma_bf16_ss_n64(float (&d)[32], u64 a, u64 b, int scale
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTA), "n"(kTB));
 }
 
+template <int kTA, int kTB>
 __device__ inline void wgmma_bf16_ss_n128(float (&d)[64], u64 a, u64 b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -373,7 +344,7 @@ __device__ inline void wgmma_bf16_ss_n128(float (&d)[64], u64 a, u64 b, int scal
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -385,7 +356,7 @@ __device__ inline void wgmma_bf16_ss_n128(float (&d)[64], u64 a, u64 b, int scal
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTA), "n"(kTB));
 }
 
 __device__ inline void wgmma_tf32_n96(float (&d)[48], const unsigned (&a)[4], u64 desc,
@@ -412,6 +383,7 @@ __device__ inline void wgmma_tf32_n96(float (&d)[48], const unsigned (&a)[4], u6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+template <int kTA, int kTB>
 __device__ inline void wgmma_bf16_ss_n96(float (&d)[48], u64 a, u64 b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
@@ -423,7 +395,7 @@ __device__ inline void wgmma_bf16_ss_n96(float (&d)[48], u64 a, u64 b, int scale
       "%24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, "
       "%40, %41, %42, %43, %44, %45, %46, %47"
-      "}, %48, %49, p, 1, 1, 1, 0;\n}\n"
+      "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -432,7 +404,7 @@ __device__ inline void wgmma_bf16_ss_n96(float (&d)[48], u64 a, u64 b, int scale
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
         "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
         "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTA), "n"(kTB));
 }
 
 template <int kN>
@@ -442,8 +414,9 @@ struct Wgmma<64> {
   __device__ static void tf32(float (&d)[32], const unsigned (&a)[4], u64 b, int sc) {
     wgmma_tf32_n64(d, a, b, sc);
   }
+  template <int kTA = 1, int kTB = 0>
   __device__ static void bf16(float (&d)[32], u64 a, u64 b, int sc) {
-    wgmma_bf16_ss_n64(d, a, b, sc);
+    wgmma_bf16_ss_n64<kTA, kTB>(d, a, b, sc);
   }
 };
 template <>
@@ -451,8 +424,9 @@ struct Wgmma<96> {
   __device__ static void tf32(float (&d)[48], const unsigned (&a)[4], u64 b, int sc) {
     wgmma_tf32_n96(d, a, b, sc);
   }
+  template <int kTA = 1, int kTB = 0>
   __device__ static void bf16(float (&d)[48], u64 a, u64 b, int sc) {
-    wgmma_bf16_ss_n96(d, a, b, sc);
+    wgmma_bf16_ss_n96<kTA, kTB>(d, a, b, sc);
   }
 };
 template <>
@@ -460,8 +434,9 @@ struct Wgmma<128> {
   __device__ static void tf32(float (&d)[64], const unsigned (&a)[4], u64 b, int sc) {
     wgmma_tf32_n128(d, a, b, sc);
   }
+  template <int kTA = 1, int kTB = 0>
   __device__ static void bf16(float (&d)[64], u64 a, u64 b, int sc) {
-    wgmma_bf16_ss_n128(d, a, b, sc);
+    wgmma_bf16_ss_n128<kTA, kTB>(d, a, b, sc);
   }
 };
 // The step kernel's tiles.  kWr x kWc consumer warpgroups: warpgroup (wr,
@@ -684,92 +659,560 @@ __device__ __host__ inline const T* term_of(const T* x, const T* ts, size_t gsc,
   return k == 0 ? x : ts + (size_t)(k - 1) * gsc;
 }
 
-// out [R, F] = Σ_k T_k [R, C] · W_k [C, F] + b over the R = G·S rows.
-template <typename T>
-__global__ void __launch_bounds__(kBandThreads)
-    band_out_kernel(const T* __restrict__ x, const T* __restrict__ ts,
-                    const T* __restrict__ w, const float* __restrict__ b,
-                    T* __restrict__ out, int R, int C, int F, int K) {
+// ---------------------------------------------------------------------------
+// the products of the fused entry points: TMA ring, mbarriers, wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kBox = 64 * 128;          // a TMA box of 64 rows of 128 bytes
+constexpr int kRing = 4;                // stages of band_out_kernel and band_bar_kernel
+constexpr int kProdThreads = 128 + 32;  // one consumer warpgroup, then the producer warp
+constexpr int kDwTarget = 132;          // dW slices: about one CTA an SM
+// dynamic shared memory a block may opt into, less room for its static barriers
+constexpr size_t kSmemMax = 232448 - 1024;
+
+__device__ inline unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+// Generic-proxy stores to shared memory before wgmma reads them.
+__device__ inline void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The ring's barriers: full[s] completes on the producer's arrival and its
+// TMA bytes, empty[s] once each of the 4 consumer warps released stage s.
+__device__ inline void ring_init(u64* full, u64* empty, int stages) {
+  for (int s = 0; s < stages; ++s) {
+    mbar_init(&full[s], 1);
+    mbar_init(&empty[s], 4);
+  }
+}
+
+__device__ inline void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Producer: waits until stage it % stages is free, then arms it for `bytes`.
+__device__ inline u64* ring_fill(u64* full, u64* empty, int stages, int it, unsigned bytes) {
+  const int st = it % stages;
+  mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
+  mbar_expect_tx(&full[st], bytes);
+  return &full[st];
+}
+
+__device__ inline void ring_wait(u64* full, int stages, int it) {
+  mbar_wait(&full[it % stages], (it / stages) & 1);
+}
+
+__device__ inline void ring_release(u64* empty, int stages, int it) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[it % stages]);
+}
+
+// The tile at src into the box of `map` at (c0, c1, c2): a TMA store, which
+// the hardware clips to the array.
+__device__ inline void tma_store(const TensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n" ::"l"(
+          reinterpret_cast<u64>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(src))
+      : "memory");
+}
+
+__device__ inline void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Until this thread's TMA stores have read their shared memory.
+__device__ inline void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// The consumer warpgroup's accumulator (element (row 16 warp + gid + 8h,
+// column 8j + 2tig + e) of a 64 x kCols tile is acc[4j + 2h + e]) rounded to
+// T into `tile`, laid out as TMA reads it for a store: boxes of [64 rows][128
+// B] with 128-byte swizzle, box b holding columns b·128/size on.
+template <typename T, int kCols>
+__device__ inline void stage_tile(unsigned char* tile, const float (&acc)[kCols / 2]) {
+  using P = Pair<T>;
+  constexpr int kBoxCols = 128 / sizeof(T);
+  const int warp = threadIdx.x >> 5, gid = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * warp + gid + 8 * h, col = 8 * j + 2 * tig;
+      const int byte = (col % kBoxCols) * (int)sizeof(T);
+      unsigned char* at = tile + (col / kBoxCols) * kBox + row * 128 +
+                          ((((byte >> 4) ^ (row & 7)) << 4) | (byte & 15));
+      P::st(reinterpret_cast<T*>(at), P::of(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+    }
+}
+
+// Element (row, col) of a tile of 128-byte rows of floats, 128-byte swizzle
+// (the 16-byte chunk j of row r lies at j ^ (r % 8)).
+__device__ inline float swz_f32(const unsigned char* tile, int row, int col) {
+  return *reinterpret_cast<const float*>(
+      tile + row * 128 + ((((col >> 2) ^ (row & 7)) << 4) | ((col & 3) << 2)));
+}
+
+// The A fragments of a k32 chunk for consumer warp q (m64 x k8 a step ks, as
+// mma.sync's A: rows 16q + gid (+8), depth 8ks + tig (+4)), split into TF32
+// halves.  a_rows_tf32: A's rows are the tile's rows (K-major, [64][32]
+// floats).  a_cols_tf32: A's rows are the tile's columns, its depth the
+// tile's rows, in boxes of [32 rows][32 columns] box_bytes apart.
+__device__ inline void a_rows_tf32(const unsigned char* tile, unsigned (&ah)[4][4],
+                                   unsigned (&al)[4][4]) {
+  const int q = (threadIdx.x >> 5) & 3, gid = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_tf32(swz_f32(tile, 16 * q + gid + 8 * (r & 1), 8 * ks + tig + 4 * (r >> 1)),
+                 ah[ks][r], al[ks][r]);
+}
+
+__device__ inline void a_cols_tf32(const unsigned char* boxes, int box_bytes, unsigned (&ah)[4][4],
+                                   unsigned (&al)[4][4]) {
+  const int q = (threadIdx.x >> 5) & 3, gid = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int m = 16 * q + gid + 8 * (r & 1);
+      split_tf32(swz_f32(boxes + (m >> 5) * box_bytes, 8 * ks + tig + 4 * (r >> 1), m & 31),
+                 ah[ks][r], al[ks][r]);
+    }
+}
+
+// acc += one k32 chunk of A·B as three TF32 products, lo·hi + hi·lo + hi·hi,
+// in a fresh accumulator (12 wgmma) added with a float add; B K-major in
+// shared memory, its halves at b_hi and b_lo (rows of 128 bytes).
+template <int kN>
+__device__ inline void tf32x3_chunk(float (&acc)[kN / 2], const unsigned (&ah)[4][4],
+                                    const unsigned (&al)[4][4], unsigned b_hi, unsigned b_lo) {
+  float part[kN / 2];
+  fence_regs(part);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const u64 hi = sw128_desc(b_hi + 32 * ks), lo = sw128_desc(b_lo + 32 * ks);
+    Wgmma<kN>::tf32(part, al[ks], hi, ks > 0);
+    Wgmma<kN>::tf32(part, ah[ks], lo, 1);
+    Wgmma<kN>::tf32(part, ah[ks], hi, 1);
+  }
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(part);
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] += part[i];
+}
+
+// 32 of a flat accumulator: n-block nb of 64 columns
+__device__ inline float (&block32(float* acc, int nb))[32] {
+  return *reinterpret_cast<float(*)[32]>(acc + 32 * nb);
+}
+
+// band_out_kernel's tile: 64 rows x kN = 64·kNb output columns; a stage holds
+// the term tile [64 rows][128 B] and W's chunk: float32 Wᵀ's hi and lo
+// halves [kN][128 B] each, bfloat16 kNb boxes of W_k [64 channels][64 columns].
+template <typename T, int kNb>
+struct OutTile {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kDepth = 128 / sizeof(T);  // channels a stage
+  static constexpr int kN = 64 * kNb;
+  static constexpr int kStageBytes = kBox + kN * 128 * (kF32 ? 2 : 1);
+  static constexpr size_t kSmem = (size_t)kRing * kStageBytes + 1024;  // + alignment
+};
+
+// out [R, F] = Σ_k T_k [R, C] · W_k [C, F] + b on rows [blockIdx.y·64, +64)
+// x columns [blockIdx.x·kN, +kN): x_map over x [R, C], ts_map over ts [K-1,
+// R, C]; w_map over Wᵀ's halves [2K, F', C] (float32: hi at k, lo at K + k)
+// or W [K, C, F'] (bfloat16), F' >= F; out_map over out [R, F].  The tile
+// leaves through shared memory by a TMA store.
+template <typename T, int kNb>
+__global__ void __launch_bounds__(kProdThreads)
+    band_out_kernel(const __grid_constant__ TensorMap x_map,
+                    const __grid_constant__ TensorMap ts_map,
+                    const __grid_constant__ TensorMap w_map,
+                    const __grid_constant__ TensorMap out_map, const float* __restrict__ b,
+                    int C, int F, int K) {
+  using Tl = OutTile<T, kNb>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const size_t gsc = (size_t)R * C;
-  float acc[2][4][4] = {};
-  for (int k = 0; k < K; ++k)
-    block_gemm<T, true, false>(acc, term_of(x, ts, gsc, k) + (size_t)m0 * C, C, R - m0,
-                               w + (size_t)k * C * F + n0, F, F - n0, C,
-                               reinterpret_cast<T*>(smem_raw));
-  for_each_pair(acc, [&](int r, int c, float v0, float v1) {
-    const int row = m0 + r, col = n0 + c;
-    if (row >= R || col >= F) return;
-    T* orow = out + (size_t)row * F;
-    Io<T>::store(orow, col, v0 + b[col]);
-    if (col + 1 < F) Io<T>::store(orow, col + 1, v1 + b[col + 1]);
-  });
+  __shared__ __align__(8) u64 full[kRing], empty[kRing];
+  unsigned char* smem = align1024(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.y * 64, col0 = blockIdx.x * Tl::kN;
+  const int chunks = (C + Tl::kDepth - 1) / Tl::kDepth, total = K * chunks;
+  if (threadIdx.x == 0) {
+    ring_init(full, empty, kRing);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer: the stages run across the terms, one ring for the whole depth
+    if (lane == 0)
+      for (int it = 0; it < total; ++it) {
+        u64* bar = ring_fill(full, empty, kRing, it, Tl::kStageBytes);
+        unsigned char* stage = smem + (it % kRing) * Tl::kStageBytes;
+        const int k = it / chunks, c0 = (it % chunks) * Tl::kDepth;
+        if (k == 0) tma_load(stage, &x_map, bar, c0, row0, 0);
+        else tma_load(stage, &ts_map, bar, c0, row0, k - 1);
+        if constexpr (Tl::kF32) {
+          tma_load(stage + kBox, &w_map, bar, c0, col0, k);
+          tma_load(stage + kBox + Tl::kN * 128, &w_map, bar, c0, col0, K + k);
+        } else {
+          for (int nb = 0; nb < kNb; ++nb)
+            tma_load(stage + kBox + nb * kBox, &w_map, bar, col0 + 64 * nb, c0, k);
+        }
+      }
+    return;
+  }
+  // consumers: accumulator element (row 16 warp + gid + 8h, column 8j + 2tig
+  // + e) is acc[4j + 2h + e]
+  float acc[Tl::kN / 2];
+#pragma unroll
+  for (int i = 0; i < Tl::kN / 2; ++i) acc[i] = 0.f;
+  for (int it = 0; it < total; ++it) {
+    ring_wait(full, kRing, it);
+    const unsigned char* stage = smem + (it % kRing) * Tl::kStageBytes;
+    const unsigned a = smem_addr(stage), w = a + kBox;
+    if constexpr (Tl::kF32) {
+      unsigned ah[4][4], al[4][4];
+      a_rows_tf32(stage, ah, al);
+      tf32x3_chunk<Tl::kN>(acc, ah, al, w, w + Tl::kN * 128);
+    } else {
+      // A K-major (T's rows), B = W_k N-major: a k-step is 16 channels, 32
+      // bytes along A's rows and 16 rows (2048 bytes) down W's box
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int nb = 0; nb < kNb; ++nb)
+          Wgmma<64>::bf16<0, 1>(block32(acc, nb), sw128_desc(a + 32 * ks),
+                                sw128_desc(w + nb * kBox + 2048 * ks), 1);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+    }
+    ring_release(empty, kRing, it);
+  }
+  // the f32 bias, then one rounding as the tile is staged in the first stage
+  const int tig = lane & 3;
+#pragma unroll
+  for (int j = 0; j < Tl::kN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = col0 + 8 * j + 2 * tig + e;
+      const float bc = c < F ? b[c] : 0.f;
+      acc[4 * j + e] += bc;
+      acc[4 * j + 2 + e] += bc;
+    }
+  consumers_sync_n<128>();  // every warp is done with the stages
+  stage_tile<T, Tl::kN>(smem, acc);
+  fence_async_smem();
+  consumers_sync_n<128>();
+  if (threadIdx.x == 0) {
+    for (int bx = 0; bx < Tl::kN * (int)sizeof(T) / 128; ++bx)
+      tma_store(&out_map, smem + bx * kBox, col0 + bx * 128 / (int)sizeof(T), row0, 0);
+    bulk_commit();
+    bulk_wait_read();
+  }
 }
 
-// bars[k] [R, C] = g [R, F] · W_kᵀ, rounded to T; k = blockIdx.z.
+// band_bar_kernel's shared memory: the ring of W_k chunks [64 channels][128
+// B] (float32: hi, lo), the output tile [64][64] staged for its TMA store,
+// then the CTA's rows of g, fchunks boxes [64][128 B].
 template <typename T>
-__global__ void __launch_bounds__(kBandThreads)
-    band_bar_kernel(const T* __restrict__ g, const T* __restrict__ w,
-                    T* __restrict__ bars, int R, int C, int F) {
+struct BarTile {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kDepth = 128 / sizeof(T);  // columns of g a chunk
+  static constexpr int kStageBytes = kBox * (kF32 ? 2 : 1);
+  static constexpr int kOutBytes = 64 * 64 * sizeof(T);
+  static size_t smem(int fchunks) {
+    return (size_t)kRing * kStageBytes + kOutBytes + (size_t)fchunks * kBox + 1024;
+  }
+};
+
+// bars[k] [R, C] = g [R, F] · W_kᵀ rounded to T, for every k, on rows
+// [blockIdx.y·64, +64) x channels [blockIdx.x·64, +64): g_map over g [R,
+// F'], w_map over W's halves [2K, C, F'] (float32) or W [K, C, F'], bar_map
+// over bars [K, R, C]; the g rows stay in shared memory while the CTA walks
+// k, each term's tile leaves by a TMA store.
+template <typename T>
+__global__ void __launch_bounds__(kProdThreads)
+    band_bar_kernel(const __grid_constant__ TensorMap g_map,
+                    const __grid_constant__ TensorMap w_map,
+                    const __grid_constant__ TensorMap bar_map, int K, int fchunks) {
+  using Tl = BarTile<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN, k = blockIdx.z;
-  float acc[2][4][4] = {};
-  block_gemm<T, true, true>(acc, g + (size_t)m0 * F, F, R - m0,
-                            w + (size_t)k * C * F + (size_t)n0 * F, F, C - n0, F,
-                            reinterpret_cast<T*>(smem_raw));
-  T* dst = bars + (size_t)k * R * C;
-  for_each_pair(acc, [&](int r, int c, float v0, float v1) {
-    const int row = m0 + r, col = n0 + c;
-    if (row >= R || col >= C) return;
-    Io<T>::store(dst, (size_t)row * C + col, v0);
-    if (col + 1 < C) Io<T>::store(dst, (size_t)row * C + col + 1, v1);
-  });
+  __shared__ __align__(8) u64 full[kRing], empty[kRing], g_full;
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* staged = smem + kRing * Tl::kStageBytes;
+  unsigned char* g_tile = staged + Tl::kOutBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.y * 64, c0 = blockIdx.x * 64, total = K * fchunks;
+  if (threadIdx.x == 0) {
+    ring_init(full, empty, kRing);
+    mbar_init(&g_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    if (lane == 0) {
+      mbar_expect_tx(&g_full, fchunks * kBox);
+      for (int fc = 0; fc < fchunks; ++fc)
+        tma_load(g_tile + fc * kBox, &g_map, &g_full, fc * Tl::kDepth, row0, 0);
+      for (int it = 0; it < total; ++it) {
+        u64* bar = ring_fill(full, empty, kRing, it, Tl::kStageBytes);
+        unsigned char* stage = smem + (it % kRing) * Tl::kStageBytes;
+        const int k = it / fchunks, f0 = (it % fchunks) * Tl::kDepth;
+        tma_load(stage, &w_map, bar, f0, c0, k);
+        if constexpr (Tl::kF32) tma_load(stage + kBox, &w_map, bar, f0, c0, K + k);
+      }
+    }
+    return;
+  }
+  mbar_wait(&g_full, 0);
+  for (int k = 0; k < K; ++k) {
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int fc = 0; fc < fchunks; ++fc) {
+      const int it = k * fchunks + fc;
+      ring_wait(full, kRing, it);
+      const unsigned char* a = g_tile + fc * kBox;
+      const unsigned w = smem_addr(smem + (it % kRing) * Tl::kStageBytes);
+      if constexpr (Tl::kF32) {
+        unsigned ah[4][4], al[4][4];
+        a_rows_tf32(a, ah, al);
+        tf32x3_chunk<64>(acc, ah, al, w, w + kBox);
+      } else {
+        // both K-major: a k-step is 16 columns of g, 32 bytes along the rows
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          Wgmma<64>::bf16<0, 0>(acc, sw128_desc(smem_addr(a) + 32 * ks), sw128_desc(w + 32 * ks),
+                                1);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(acc);
+      }
+      ring_release(empty, kRing, it);
+    }
+    // the tile out through shared memory, once the last one's store has read it
+    if (threadIdx.x == 0) bulk_wait_read();
+    consumers_sync_n<128>();
+    stage_tile<T, 64>(staged, acc);
+    fence_async_smem();
+    consumers_sync_n<128>();
+    if (threadIdx.x == 0) {
+      for (int bx = 0; bx < 64 * (int)sizeof(T) / 128; ++bx)
+        tma_store(&bar_map, staged + bx * kBox, c0 + bx * Tl::kDepth, row0, k);
+      bulk_commit();
+    }
+  }
+  if (threadIdx.x == 0) bulk_wait_read();
 }
 
-// The rows of slice `split` of n_split: whole graph blocks, contiguous.
-__device__ inline void slice_rows(int G, int S, int split, int n_split, int& r0, int& r1) {
-  r0 = (int)((long long)G * split / n_split) * S;
-  r1 = (int)((long long)G * (split + 1) / n_split) * S;
-}
-
-// partial[split][k·C·F + c·F + f] = Σ over the slice's rows of T_k[r, c] g[r, f];
-// blockIdx.z = split · K + k.
+// band_dw_kernel's tile: kRows rows (the depth) a stage; a piece is 64
+// channels (or columns of g) of those rows, 8 KB, as boxes of [kRows][128
+// B]; a stage holds kTerms term pieces, then g's.  float32 adds two
+// buffers of g's piece transposed, [64 columns][32 rows] as TF32 hi and lo.
 template <typename T>
-__global__ void __launch_bounds__(kBandThreads)
-    band_dw_kernel(const T* __restrict__ x, const T* __restrict__ ts,
-                   const T* __restrict__ g, float* __restrict__ partial, int G, int S,
-                   int C, int F, int K, int n_split) {
+struct DwTile {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kTerms = 2;  // terms a CTA carries
+  static constexpr int kRows = kF32 ? 32 : 64;  // one k32 chunk, or four k16 steps
+  static constexpr int kBoxCols = 128 / sizeof(T);
+  static constexpr int kBoxBytes = kRows * 128;
+  static constexpr int kPiece = 64 / kBoxCols * kBoxBytes;
+  static constexpr int kStageBytes = (kTerms + 1) * kPiece;
+  // a CTA an SM (kDwTarget), so a deep ring keeps the SM's loads in flight
+  static constexpr int kStages = kF32 ? 5 : 6;
+  static constexpr int kHalf = kF32 ? 64 * 128 : 0;
+  static constexpr size_t kSmem = (size_t)kStages * kStageBytes + 4 * (size_t)kHalf + 1024;
+};
+
+// partial[split][k·C·F + c·F + f] = Σ over the slice's rows of T_k[r, c]
+// g[r, f] for the CTA's terms k0, k0 + 1, its 64 channels and 64 columns;
+// the slice is chunks [q0, q1) of the G·ceil(S / kRows) row chunks (chunk q:
+// block q / cps, rows from (q % cps)·kRows; TMA gives zeros past S).  The
+// CTAs of channel tile 0 and terms 0-1 also write partial[split][K·C·F + f] =
+// Σ g[r, f].  x_map over x [G, S, C], ts_map over ts [(K-1)·G, S, C], g_map
+// over g [G, S, F'].
+template <typename T>
+__global__ void __launch_bounds__(kProdThreads)
+    band_dw_kernel(const __grid_constant__ TensorMap x_map,
+                   const __grid_constant__ TensorMap ts_map,
+                   const __grid_constant__ TensorMap g_map, float* __restrict__ partial, int G,
+                   int S, int C, int F, int K, int n_split) {
+  using Tl = DwTile<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int k = blockIdx.z % K, split = blockIdx.z / K;
-  int r0, r1;
-  slice_rows(G, S, split, n_split, r0, r1);
-  const size_t gsc = (size_t)G * S * C;
-  float acc[2][4][4] = {};
-  block_gemm<T, false, false>(acc, term_of(x, ts, gsc, k) + (size_t)r0 * C + m0, C,
-                              C - m0, g + (size_t)r0 * F + n0, F, F - n0, r1 - r0,
-                              reinterpret_cast<T*>(smem_raw));
-  float* dst = partial + (size_t)split * ((size_t)K * C * F + F) + (size_t)k * C * F;
-  for_each_pair(acc, [&](int r, int c, float v0, float v1) {
-    const int ch = m0 + r, f = n0 + c;
-    if (ch >= C || f >= F) return;
-    dst[(size_t)ch * F + f] = v0;
-    if (f + 1 < F) dst[(size_t)ch * F + f + 1] = v1;
-  });
+  __shared__ __align__(8) u64 full[Tl::kStages], empty[Tl::kStages];
+  __shared__ float db_half[64];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* gt = smem + Tl::kStages * Tl::kStageBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ctiles = (C + 63) / 64, ftiles = (F + 63) / 64;
+  const int ft = blockIdx.x % ftiles, ct = blockIdx.x / ftiles % ctiles;
+  const int grp = blockIdx.x / (ftiles * ctiles);
+  const int c0 = 64 * ct, f0 = 64 * ft, k0 = Tl::kTerms * grp;
+  const int nk = K - k0 < Tl::kTerms ? K - k0 : Tl::kTerms;
+  const int split = blockIdx.y, cps = (S + Tl::kRows - 1) / Tl::kRows;
+  const long long n = (long long)G * cps;
+  const int q0 = (int)(n * split / n_split), chunks = (int)(n * (split + 1) / n_split) - q0;
+  const bool with_db = ct == 0 && grp == 0;
+  if (threadIdx.x == 0) {
+    ring_init(full, empty, Tl::kStages);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    if (lane == 0)
+      for (int it = 0; it < chunks; ++it) {
+        const int q = q0 + it, blk = q / cps, s0 = (q % cps) * Tl::kRows;
+        u64* bar = ring_fill(full, empty, Tl::kStages, it, (nk + 1) * Tl::kPiece);
+        unsigned char* stage = smem + (it % Tl::kStages) * Tl::kStageBytes;
+        for (int bx = 0; bx < 64 / Tl::kBoxCols; ++bx) {
+          const int off = bx * Tl::kBoxBytes, col = bx * Tl::kBoxCols;
+          for (int j = 0; j < nk; ++j) {
+            const int k = k0 + j;
+            if (k == 0) tma_load(stage + j * Tl::kPiece + off, &x_map, bar, c0 + col, s0, blk);
+            else tma_load(stage + j * Tl::kPiece + off, &ts_map, bar, c0 + col, s0,
+                          (k - 1) * G + blk);
+          }
+          tma_load(stage + Tl::kTerms * Tl::kPiece + off, &g_map, bar, f0 + col, s0, blk);
+        }
+      }
+    return;
+  }
+  // consumers: accumulator element (channel 16 warp + gid + 8h, column 8j +
+  // 2tig + e) of term j is acc[j][4j' + 2h + e]; thread t sums db's column
+  // t % 64 over half t / 64 of each chunk's rows
+  const int gid = lane >> 2, tig = lane & 3;
+  const int col = threadIdx.x & 63, half = threadIdx.x >> 6;
+  float acc[Tl::kTerms][32];
+#pragma unroll
+  for (int j = 0; j < Tl::kTerms; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  float db = 0.f;
+  for (int it = 0; it < chunks; ++it) {
+    ring_wait(full, Tl::kStages, it);
+    const unsigned char* stage = smem + (it % Tl::kStages) * Tl::kStageBytes;
+    const unsigned char* g_piece = stage + Tl::kTerms * Tl::kPiece;
+    if constexpr (Tl::kF32) {
+      // g's piece transposed into [64 columns][32 rows] TF32 halves (K-major,
+      // 128-byte swizzle): this thread's column, rows 4rq .. 4rq + 3 for rq =
+      // half, half + 2, ..., one 16-byte store a half and quad
+      unsigned char* hi = gt + (it & 1) * 2 * Tl::kHalf;
+      unsigned char* lo = hi + Tl::kHalf;
+      const unsigned char* box = g_piece + (col >> 5) * Tl::kBoxBytes;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rq = half + 2 * i;
+        unsigned h4[4], l4[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = swz_f32(box, 4 * rq + e, col & 31);
+          db += v;
+          split_tf32(v, h4[e], l4[e]);
+        }
+        const int at = col * 128 + ((rq ^ (col & 7)) << 4);
+        *reinterpret_cast<uint4*>(hi + at) = make_uint4(h4[0], h4[1], h4[2], h4[3]);
+        *reinterpret_cast<uint4*>(lo + at) = make_uint4(l4[0], l4[1], l4[2], l4[3]);
+      }
+      // every warp's piece is written; the buffer written two chunks ago
+      // was read by wgmma that every warp has waited for before this barrier
+      fence_async_smem();
+      consumers_sync_n<128>();
+#pragma unroll
+      for (int j = 0; j < Tl::kTerms; ++j)
+        if (j < nk) {
+          unsigned ah[4][4], al[4][4];
+          a_cols_tf32(stage + j * Tl::kPiece, Tl::kBoxBytes, ah, al);
+          tf32x3_chunk<64>(acc[j], ah, al, smem_addr(hi), smem_addr(lo));
+        }
+    } else {
+      // A = T_kᵀ M-major and B = g N-major, both as TMA stores the rows: a
+      // k-step is 16 rows, 2048 bytes down each piece.  Every term slot is
+      // multiplied, a slot past K on whatever its piece holds: no branch
+      // between the wgmma, and its sums are never stored
+#pragma unroll
+      for (int j = 0; j < Tl::kTerms; ++j) fence_regs(acc[j]);
+      wgmma_fence();
+      const unsigned g_addr = smem_addr(g_piece), t_addr = smem_addr(stage);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int j = 0; j < Tl::kTerms; ++j)
+          Wgmma<64>::bf16<1, 1>(acc[j], sw128_desc(t_addr + j * Tl::kPiece + 2048 * ks),
+                                sw128_desc(g_addr + 2048 * ks), 1);
+      wgmma_commit();
+      if (with_db) {  // while the tensor cores run
+#pragma unroll 8
+        for (int r = 32 * half; r < 32 * half + 32; ++r)
+          db += __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+              g_piece + r * 128 + ((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) << 1))));
+      }
+      wgmma_wait0();
+#pragma unroll
+      for (int j = 0; j < Tl::kTerms; ++j) fence_regs(acc[j]);
+    }
+    ring_release(empty, Tl::kStages, it);
+  }
+  float* dst = partial + (size_t)split * ((size_t)K * C * F + F);
+#pragma unroll
+  for (int j = 0; j < Tl::kTerms; ++j) {
+    if (j >= nk) continue;
+    float* dk = dst + (size_t)(k0 + j) * C * F;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + 16 * warp + gid + 8 * h, f = f0 + 8 * jj + 2 * tig;
+        if (c >= C || f >= F) continue;
+        float* d = dk + (size_t)c * F + f;
+        if ((F & 1) == 0) {
+          *reinterpret_cast<float2*>(d) = make_float2(acc[j][4 * jj + 2 * h], acc[j][4 * jj + 2 * h + 1]);
+        } else {
+          d[0] = acc[j][4 * jj + 2 * h];
+          if (f + 1 < F) d[1] = acc[j][4 * jj + 2 * h + 1];
+        }
+      }
+  }
+  if (with_db) {
+    if (half == 1) db_half[col] = db;
+    consumers_sync_n<128>();
+    if (half == 0 && f0 + col < F) dst[(size_t)K * C * F + f0 + col] = db + db_half[col];
+  }
 }
 
-// partial[split][K·C·F + f] = Σ over the slice's rows of g[r, f], in row order.
-template <typename T>
-__global__ void band_db_kernel(const T* __restrict__ g, float* __restrict__ partial,
-                               int G, int S, int F, size_t n_w, int n_split) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x, split = blockIdx.y;
-  if (f >= F) return;
-  int r0, r1;
-  slice_rows(G, S, split, n_split, r0, r1);
+// out[i] = Σ_p partial[p][i] over the n_split slices: warp w of the block
+// sums slices w, w + 8, ... in order for 32 neighbouring i, then the eight
+// sums are added in warp order.  A fixed order: a second launch gives the
+// same bits.
+__global__ void __launch_bounds__(256)
+    band_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out, size_t n,
+                       int n_split) {
+  __shared__ float sums[8][32];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t i = (size_t)blockIdx.x * 32 + lane;
   float s = 0.f;
-  for (int r = r0; r < r1; ++r) s += Io<T>::load(g, (size_t)r * F + f);
-  partial[(size_t)split * (n_w + F) + n_w + f] = s;
+  if (i < n)
+    for (int p = w; p < n_split; p += 8) s += partial[(size_t)p * n + i];
+  sums[w][lane] = s;
+  __syncthreads();
+  if (w == 0 && i < n) {
+    float t = sums[0][lane];
+#pragma unroll
+    for (int v = 1; v < 8; ++v) t += sums[v][lane];
+    out[i] = t;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -984,36 +1427,170 @@ int step_plan_of(int G, int S, int C, int* out) {
   return 0;
 }
 
-template <typename T>
-const T* weights_in(const void* w_, void* wt_, size_t n, cudaStream_t stream, cudaError_t& err) {
-  err = cudaSuccess;
-  if (sizeof(T) == sizeof(float)) return static_cast<const T*>(w_);
-  cast_w_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(w_), static_cast<T*>(wt_), n);
-  err = cudaGetLastError();
-  return static_cast<const T*>(wt_);
+template <int N>
+struct Nb {
+  static constexpr int value = N;
+};
+
+// A product kernel's launch, and what the [band] plan lines print of it.
+struct ProductLaunch {
+  dim3 grid;
+  size_t smem = 0;
+  int cols = 64;  // the tile's columns (rows: 64)
+};
+
+// out[0..9] as hlhgat_band_step_plan gives them, for a product kernel.
+template <typename Kernel>
+cudaError_t product_plan(Kernel kernel, const ProductLaunch& p, int* out) {
+  int per_sm = 0, dev = 0, sms = 0;
+  STEP_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kProdThreads, p.smem));
+  cudaFuncAttributes fa;
+  STEP_TRY(cudaFuncGetAttributes(&fa, kernel));
+  STEP_TRY(cudaGetDevice(&dev));
+  STEP_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  const int v[10] = {(int)p.grid.x, (int)p.grid.y, (int)p.grid.z, kProdThreads, (int)p.smem,
+                     fa.numRegs, per_sm, sms, 64, p.cols};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  return cudaSuccess;
 }
 
 template <typename T>
-int band_fused_fwd(const void* l_, const void* x_, const void* w_, const void* b_,
-                   void* out_, void* wt_, void* ts_, int G, int S, int ldl, int C, int F,
-                   int K, cudaStream_t stream) {
+bool rows16(int n) {
+  return ((size_t)n * sizeof(T)) % 16 == 0;
+}
+
+inline bool on16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
+
+// out = Σ_k T_k W_k + b (band_out_kernel) over R rows; w as band_out_kernel
+// reads it, ldf its row stride (bfloat16) or its rows (float32), and out's
+// row stride.  With plan != nullptr only the launch's plan is written.
+template <typename T>
+cudaError_t launch_out(const T* x, const T* ts, const T* w, const float* b, T* out, int R, int C,
+                       int F, int ldf, int K, cudaStream_t stream, int* plan = nullptr) {
+  constexpr bool bf16 = sizeof(T) == 2;
+  const u64 es = sizeof(T);
+  auto run = [&](auto nb) -> cudaError_t {
+    constexpr int kNb = decltype(nb)::value;
+    using Tl = OutTile<T, kNb>;
+    const auto kernel = band_out_kernel<T, kNb>;
+    ProductLaunch p;
+    p.grid = dim3((F + Tl::kN - 1) / Tl::kN, (R + 63) / 64);
+    p.smem = Tl::kSmem;
+    p.cols = Tl::kN;
+    STEP_TRY(allow_smem(kernel, p.smem));
+    if (plan != nullptr) return product_plan(kernel, p, plan);
+    TensorMap xm, tm, wm;
+    STEP_TRY(make_map(&xm, x, bf16, C, R, 1, C * es, (u64)R * C * es, Tl::kDepth, 64));
+    STEP_TRY(make_map(&tm, K > 1 ? ts : x, bf16, C, R, K > 1 ? K - 1 : 1, C * es,
+                      (u64)R * C * es, Tl::kDepth, 64));
+    if (bf16)
+      STEP_TRY(make_map(&wm, w, bf16, ldf, C, K, ldf * es, (u64)C * ldf * es, 64, 64));
+    else
+      STEP_TRY(make_map(&wm, w, bf16, C, ldf, 2 * K, C * es, (u64)ldf * C * es, 32, Tl::kN));
+    TensorMap om;
+    STEP_TRY(make_map(&om, out, bf16, F, R, 1, ldf * es, (u64)R * ldf * es, Tl::kDepth, 64));
+    kernel<<<p.grid, kProdThreads, p.smem, stream>>>(xm, tm, wm, om, b, C, F, K);
+    return cudaGetLastError();
+  };
+  return F > 64 ? run(Nb<2>{}) : run(Nb<1>{});
+}
+
+// Dynamic shared bytes of band_bar_kernel for g's row stride ldf.
+template <typename T>
+size_t bar_smem(int ldf) {
+  return BarTile<T>::smem((ldf + BarTile<T>::kDepth - 1) / BarTile<T>::kDepth);
+}
+
+// bars[k] = g W_kᵀ for every k (band_bar_kernel); g [R, ldf], w W's halves
+// [2K, C, ldf] (float32) or W [K, C, ldf].
+template <typename T>
+cudaError_t launch_bar(const T* g, const T* w, T* bars, int R, int C, int ldf, int K,
+                       cudaStream_t stream, int* plan = nullptr) {
+  constexpr bool bf16 = sizeof(T) == 2;
+  using Tl = BarTile<T>;
+  const u64 es = sizeof(T);
+  const int fchunks = (ldf + Tl::kDepth - 1) / Tl::kDepth;
+  ProductLaunch p;
+  p.grid = dim3((C + 63) / 64, (R + 63) / 64);
+  p.smem = bar_smem<T>(ldf);
+  if (p.smem > kSmemMax) return cudaErrorInvalidValue;
+  const auto kernel = band_bar_kernel<T>;
+  STEP_TRY(allow_smem(kernel, p.smem));
+  if (plan != nullptr) return product_plan(kernel, p, plan);
+  TensorMap gm, wm, bm;
+  STEP_TRY(make_map(&gm, g, bf16, ldf, R, 1, ldf * es, (u64)R * ldf * es, Tl::kDepth, 64));
+  STEP_TRY(make_map(&wm, w, bf16, ldf, C, bf16 ? K : 2 * K, ldf * es, (u64)C * ldf * es,
+                    Tl::kDepth, 64));
+  STEP_TRY(make_map(&bm, bars, bf16, C, R, K, C * es, (u64)R * C * es, Tl::kDepth, 64));
+  kernel<<<p.grid, kProdThreads, p.smem, stream>>>(gm, wm, bm, K, fchunks);
+  return cudaGetLastError();
+}
+
+// The CTAs of band_dw_kernel a slice: term groups x channel tiles x column tiles.
+template <typename T>
+int dw_tiles(int C, int F, int K) {
+  constexpr int kTerms = DwTile<T>::kTerms;
+  return (K + kTerms - 1) / kTerms * ((C + 63) / 64) * ((F + 63) / 64);
+}
+
+// The row chunks of the dW sums (G blocks of ceil(S / rows) chunks).
+template <typename T>
+long long dw_chunks(int G, int S) {
+  return (long long)G * ((S + DwTile<T>::kRows - 1) / DwTile<T>::kRows);
+}
+
+// Slices of the dW and db sums: about kDwTarget CTAs in all, each slice at
+// least one chunk.
+template <typename T>
+int band_splits(int G, int S, int C, int F, int K) {
+  long long n = kDwTarget / dw_tiles<T>(C, F, K);  // rounded down: one wave
+  const long long chunks = dw_chunks<T>(G, S);
+  if (n > chunks) n = chunks;
+  return n < 1 ? 1 : (int)n;
+}
+
+// partial [n_split, K·C·F + F] (band_dw_kernel): dW and db by slices.
+template <typename T>
+cudaError_t launch_dw(const T* x, const T* ts, const T* g, float* partial, int G, int S, int C,
+                      int F, int ldf, int K, int n_split, cudaStream_t stream,
+                      int* plan = nullptr) {
+  constexpr bool bf16 = sizeof(T) == 2;
+  using Tl = DwTile<T>;
+  const u64 es = sizeof(T);
+  if (n_split < 1 || n_split > dw_chunks<T>(G, S)) return cudaErrorInvalidValue;
+  ProductLaunch p;
+  p.grid = dim3(dw_tiles<T>(C, F, K), n_split);
+  p.smem = Tl::kSmem;
+  const auto kernel = band_dw_kernel<T>;
+  STEP_TRY(allow_smem(kernel, p.smem));
+  if (plan != nullptr) return product_plan(kernel, p, plan);
+  TensorMap xm, tm, gm;
+  const u64 row = C * es, blk = (u64)S * C * es;
+  STEP_TRY(make_map(&xm, x, bf16, C, S, G, row, blk, Tl::kBoxCols, Tl::kRows));
+  STEP_TRY(make_map(&tm, K > 1 ? ts : x, bf16, C, S, (u64)G * (K > 1 ? K - 1 : 1), row, blk,
+                    Tl::kBoxCols, Tl::kRows));
+  STEP_TRY(make_map(&gm, g, bf16, ldf, S, G, ldf * es, (u64)S * ldf * es, Tl::kBoxCols,
+                    Tl::kRows));
+  kernel<<<p.grid, kProdThreads, p.smem, stream>>>(xm, tm, gm, partial, G, S, C, F, K, n_split);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int band_fused_fwd(const void* l_, const void* x_, const void* w_, const void* b_, void* out_,
+                   void* ts_, int G, int S, int ldl, int C, int F, int ldf, int K,
+                   cudaStream_t stream) {
   const T* l = static_cast<const T*>(l_);
   const T* x = static_cast<const T*>(x_);
+  const T* w = static_cast<const T*>(w_);
   T* ts = static_cast<T*>(ts_);
+  if (K < 1 || ldf < F || !rows16<T>(C) || !rows16<T>(ldf) || !on16(x) || !on16(w) ||
+      !on16(out_) || (K > 1 && !on16(ts)))
+    return (int)cudaErrorInvalidValue;
   const size_t gsc = (size_t)G * S * C;
-  cudaError_t err;
-  const T* w = weights_in<T>(w_, wt_, (size_t)K * C * F, stream, err);
-  BAND_TRY(err);
   BAND_TRY(run_recurrence<T>(l, [&](int k) { return term_of<T>(x, ts, gsc, k); }, G, S, ldl, C, K,
                              stream));
-  constexpr size_t smem = BandTiles<T, true, false>::kBytes;
-  BAND_TRY(allow_smem(band_out_kernel<T>, smem));
-  const int R = G * S;
-  band_out_kernel<T><<<dim3((R + kBM - 1) / kBM, (F + kBN - 1) / kBN), kBandThreads, smem,
-                       stream>>>(x, ts, w, static_cast<const float*>(b_),
-                                 static_cast<T*>(out_), R, C, F, K);
-  return (int)cudaGetLastError();
+  return (int)launch_out<T>(x, ts, w, static_cast<const float*>(b_), static_cast<T*>(out_), G * S,
+                            C, F, ldf, K, stream);
 }
 
 template <typename T>
@@ -1027,56 +1604,52 @@ int band_terms_fwd(const void* l_, const void* x_, void* t_, int G, int S, int l
                                 stream);
 }
 
-int band_splits(int G, int C, int F, int K) {
-  const int tiles = K * ((C + kBM - 1) / kBM) * ((F + kBN - 1) / kBN);
-  int n = kBandTargetBlocks / tiles;  // rounded down: one wave
-  if (n > G) n = G;
-  return n < 1 ? 1 : n;
-}
-
 template <typename T>
 int band_fused_bwd(const void* l_, const void* x_, const void* w_, const void* g_, void* dx_,
-                   void* dwdb_, void* partial_, void* wt_, void* ts_, void* bars_, int G, int S,
-                   int ldl, int C, int F, int K, int n_split, cudaStream_t stream) {
+                   void* dwdb_, void* partial_, void* ts_, void* bars_, int G, int S, int ldl,
+                   int C, int F, int ldf, int K, int n_split, cudaStream_t stream) {
   const T* l = static_cast<const T*>(l_);
   const T* x = static_cast<const T*>(x_);
+  const T* w = static_cast<const T*>(w_);
   const T* g = static_cast<const T*>(g_);
   T* ts = static_cast<T*>(ts_);
   T* dx = static_cast<T*>(dx_);
   float* partial = static_cast<float*>(partial_);
-  if (K < 1 || n_split < 1 || n_split > G) return (int)cudaErrorInvalidValue;
-  const size_t gsc = (size_t)G * S * C, n_w = (size_t)K * C * F;
+  if (K < 1 || ldf < F || !rows16<T>(C) || !rows16<T>(ldf) || !on16(x) || !on16(w) ||
+      !on16(g) || !on16(dx) || (K > 1 && (!on16(ts) || !on16(bars_))))
+    return (int)cudaErrorInvalidValue;
+  const size_t gsc = (size_t)G * S * C;
   const int R = G * S;
-  cudaError_t err;
-  const T* w = weights_in<T>(w_, wt_, n_w, stream, err);
-  BAND_TRY(err);
   // the terms, recomputed from x
   BAND_TRY(run_recurrence<T>(l, [&](int k) { return term_of<T>(x, ts, gsc, k); }, G, S, ldl, C, K,
                              stream));
-  // b̄_k = g W_kᵀ (with one term, b̄_0 is dx)
+  // b̄_k = g W_kᵀ (with one term, b̄_0 is dx), then the adjoint walk
   T* bars = K > 1 ? static_cast<T*>(bars_) : dx;
-  constexpr size_t smem_bar = BandTiles<T, true, true>::kBytes;
-  BAND_TRY(allow_smem(band_bar_kernel<T>, smem_bar));
-  band_bar_kernel<T><<<dim3((R + kBM - 1) / kBM, (C + kBN - 1) / kBN, K), kBandThreads,
-                       smem_bar, stream>>>(g, w, bars, R, C, F);
-  BAND_TRY(cudaGetLastError());
+  BAND_TRY(launch_bar<T>(g, w, bars, R, C, ldf, K, stream));
   if (K > 1)
     BAND_TRY(run_walk<T>(l, [&](int k) { return bars + (size_t)k * gsc; }, dx, G, S, ldl, C, K,
                          stream));
   // dW and db: per-slice partials, then the fixed-order sum
-  constexpr size_t smem_dw = BandTiles<T, false, false>::kBytes;
-  BAND_TRY(allow_smem(band_dw_kernel<T>, smem_dw));
-  band_dw_kernel<T><<<dim3((C + kBM - 1) / kBM, (F + kBN - 1) / kBN, K * n_split),
-                      kBandThreads, smem_dw, stream>>>(x, ts, g, partial, G, S, C, F, K,
-                                                       n_split);
-  BAND_TRY(cudaGetLastError());
-  band_db_kernel<T><<<dim3((F + kThreads - 1) / kThreads, n_split), kThreads, 0, stream>>>(
-      g, partial, G, S, F, n_w, n_split);
-  BAND_TRY(cudaGetLastError());
-  const size_t n = n_w + F;
-  reduce_partials_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+  BAND_TRY(launch_dw<T>(x, ts, g, partial, G, S, C, F, ldf, K, n_split, stream));
+  const size_t n = (size_t)K * C * F + F;
+  band_reduce_kernel<<<(unsigned)((n + 31) / 32), 256, 0, stream>>>(
       partial, static_cast<float*>(dwdb_), n, n_split);
   return (int)cudaGetLastError();
+}
+
+// The plan of product kernel `kind` (0 band_out_kernel, 1 band_bar_kernel,
+// 2 band_dw_kernel) at G blocks of S rows, C channels, F columns, K terms.
+template <typename T>
+int product_plan_of(int kind, int G, int S, int C, int F, int K, int* out) {
+  const int ldf = (int)((F * sizeof(T) + 15) / 16 * 16 / sizeof(T));
+  const int R = G * S;
+  if (kind == 0)
+    return (int)launch_out<T>(nullptr, nullptr, nullptr, nullptr, nullptr, R, C, F, ldf, K,
+                              nullptr, out);
+  if (kind == 1)
+    return (int)launch_bar<T>(nullptr, nullptr, nullptr, R, C, ldf, K, nullptr, out);
+  return (int)launch_dw<T>(nullptr, nullptr, nullptr, nullptr, G, S, C, F, ldf, K,
+                           band_splits<T>(G, S, C, F, K), nullptr, out);
 }
 
 template <typename T>
@@ -1108,16 +1681,20 @@ extern "C" {
 // C·size is a multiple of 16 bytes and x, dt, the scratch buffers and L
 // start on 16 bytes (cudaErrorInvalidValue otherwise).
 //
-// l (row stride ldl), x [G,S,C], out [G,S,F] in x's dtype (bf16 !=
-// 0: bfloat16, else float32); w [K,C,F] and b [F] float32; wt: scratch of K·C·F elements of
-// x's type when bf16 != 0, else unused; ts: scratch [K-1,G,S,C] in x's type
-// (unused when K = 1).  Returns a cudaError_t.
+// l (row stride ldl), x [G,S,C], out [G,S,ldf] (columns past F untouched)
+// in x's dtype (bf16 != 0: bfloat16, else float32), 16-byte aligned; b [F]
+// float32; w: W [K,C,F] as the products read
+// it, prepared by the caller in x's type with ldf >= F columns (ldf·size a
+// multiple of 16 bytes), zero past C and F: bfloat16 W [K,C,ldf], float32
+// the TF32 halves of Wᵀ [2,K,ldf,C] (hi = tf32(Wᵀ), then lo = Wᵀ − hi); ts:
+// scratch [K-1,G,S,C] in x's type (unused when K = 1).  Returns a
+// cudaError_t.
 int hlhgat_band_fused_fwd(const void* l, const void* x, const void* w, const void* b,
-                          void* out, void* wt, void* ts, int G, int S, int ldl, int C, int F,
+                          void* out, void* ts, int G, int S, int ldl, int C, int F, int ldf,
                           int K, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? band_fused_fwd<__nv_bfloat16>(l, x, w, b, out, wt, ts, G, S, ldl, C, F, K, s)
-              : band_fused_fwd<float>(l, x, w, b, out, wt, ts, G, S, ldl, C, F, K, s);
+  return bf16 ? band_fused_fwd<__nv_bfloat16>(l, x, w, b, out, ts, G, S, ldl, C, F, ldf, K, s)
+              : band_fused_fwd<float>(l, x, w, b, out, ts, G, S, ldl, C, F, ldf, K, s);
 }
 
 // l (row stride ldl), x [G,S,C] -> t [K,G,S,C], all in x's dtype.
@@ -1128,23 +1705,33 @@ int hlhgat_band_terms_fwd(const void* l, const void* x, void* t, int G, int S, i
               : band_terms_fwd<float>(l, x, t, G, S, ldl, C, K, s);
 }
 
-// Number of graph-block slices of the dW/db partial sums: the caller
-// allocates partial [n_split, K*C*F + F] float32.
-int hlhgat_band_fused_bwd_splits(int G, int C, int F, int K) { return band_splits(G, C, F, K); }
+// Number of slices of the dW/db partial sums (bf16 != 0: bfloat16): the
+// caller allocates partial [n_split, K*C*F + F] float32.
+int hlhgat_band_fused_bwd_splits(int G, int S, int C, int F, int K, int bf16) {
+  return bf16 ? band_splits<__nv_bfloat16>(G, S, C, F, K) : band_splits<float>(G, S, C, F, K);
+}
 
-// l (row stride ldl), x [G,S,C], g [G,S,F], dx [G,S,C] in x's
-// dtype; w [K,C,F] float32; dwdb [K*C*F + F] float32 receives dW then db;
-// wt as in the forward; ts: scratch [K-1,G,S,C] and bars: scratch [K,G,S,C]
-// in x's type (both unused when K = 1).
+// Dynamic shared bytes band_bar_kernel needs for g's row stride ldf, or 0
+// where that is more than a block may have (the fused backward refuses it).
+size_t hlhgat_band_bar_smem(int ldf, int bf16) {
+  const size_t n = bf16 ? bar_smem<__nv_bfloat16>(ldf) : bar_smem<float>(ldf);
+  return n > kSmemMax ? 0 : n;
+}
+
+// l (row stride ldl), x [G,S,C], g [G,S,ldf], dx [G,S,C] in x's dtype; w:
+// W [K,C,F] as band_bar_kernel reads it, in x's type, zero past C and F:
+// bfloat16 W [K,C,ldf], float32 its TF32 halves [2,K,C,ldf]; dwdb
+// [K*C*F + F] float32 receives dW then db; ts: scratch [K-1,G,S,C] and
+// bars: scratch [K,G,S,C] in x's type (both unused when K = 1).
 int hlhgat_band_fused_bwd(const void* l, const void* x, const void* w, const void* g,
-                          void* dx, void* dwdb, void* partial, void* wt, void* ts, void* bars,
-                          int G, int S, int ldl, int C, int F, int K, int n_split, int bf16,
+                          void* dx, void* dwdb, void* partial, void* ts, void* bars, int G,
+                          int S, int ldl, int C, int F, int ldf, int K, int n_split, int bf16,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? band_fused_bwd<__nv_bfloat16>(l, x, w, g, dx, dwdb, partial, wt, ts, bars, G,
-                                              S, ldl, C, F, K, n_split, s)
-              : band_fused_bwd<float>(l, x, w, g, dx, dwdb, partial, wt, ts, bars, G, S, ldl,
-                                      C, F, K, n_split, s);
+  return bf16 ? band_fused_bwd<__nv_bfloat16>(l, x, w, g, dx, dwdb, partial, ts, bars, G, S,
+                                              ldl, C, F, ldf, K, n_split, s)
+              : band_fused_bwd<float>(l, x, w, g, dx, dwdb, partial, ts, bars, G, S, ldl, C, F,
+                                      ldf, K, n_split, s);
 }
 
 // l (row stride ldl), dt [K,G,S,C] -> dx [G,S,C], all in dt's
@@ -1162,6 +1749,15 @@ int hlhgat_band_terms_bwd(const void* l, const void* dt, void* dx, void* bars, i
 // tile.  Returns a cudaError_t.
 int hlhgat_band_step_plan(int G, int S, int C, int bf16, int* out) {
   return bf16 ? step_plan_of<__nv_bfloat16>(G, S, C, out) : step_plan_of<float>(G, S, C, out);
+}
+
+// A product kernel's launch (kind 0: band_out_kernel, 1: band_bar_kernel,
+// 2: band_dw_kernel) for G blocks of S rows, C channels (a multiple of 16
+// bytes), F columns and K terms: out[0..9] as hlhgat_band_step_plan gives
+// them, the tile's rows and columns last.  Returns a cudaError_t.
+int hlhgat_band_product_plan(int kind, int G, int S, int C, int F, int K, int bf16, int* out) {
+  return bf16 ? product_plan_of<__nv_bfloat16>(kind, G, S, C, F, K, out)
+              : product_plan_of<float>(kind, G, S, C, F, K, out);
 }
 
 

@@ -49,8 +49,16 @@ Blocks of more rows go, for the same four functions, to the kernels of
 launch a recurrence step (``band_step_kernel``: wgmma fed by a ring of TMA
 stages, the tile chosen from S and C, ``band_step_plan``), the terms (and
 in the fused backward the cotangents ``g W_kᵀ``) in a scratch buffer the
-wrapper allocates, with the same rounding points.  Every S, K, C and F
-runs on the card; no block size reaches the plain versions there.
+wrapper allocates, with the same rounding points.  The fused ones' products
+(``BAND_PRODUCTS``: ``Σ_k T_k W_k + b``; ``g W_kᵀ``; dW and db) are wgmma
+kernels fed by TMA too (``band_product_plan``), reading W as
+``band_weights`` prepares it once per weight tensor and version (bfloat16
+W, or float32 TF32 halves, K-major for the tensor cores); a column count F
+whose rows are not 16 bytes pads W and the cotangent g with zero columns
+and leaves the output through a padded buffer.  Every S, K and C runs on
+the card, and every F whose cotangent rows fit a block's shared memory in
+``g W_kᵀ`` (608 float32, 1536 bfloat16); no block size reaches the plain
+versions there.
 
 The band kernels read L as a prepared operator (``band_operator``): in
 bfloat16 L cast to bfloat16, in float32 its TF32 halves ``hi = tf32(L)``
@@ -106,7 +114,7 @@ LAUNCHES = {
     "laguerre_terms_dense_bwd": 0,
 }
 BAND_LAUNCHES = dict.fromkeys(LAUNCHES, 0)  # the launches above that took the band kernels
-PREPARATIONS = {"band_operator": 0}  # band operators prepared (cache misses)
+PREPARATIONS = {"band_operator": 0, "band_weights": 0}  # band preparations (cache misses)
 BAND_SHAPES: set[tuple[int, int, int, torch.dtype]] = set()  # (G, S, C, dtype) of band steps
 RESIDENT_ROWS = 128  # blocks the kernels that hold L in shared memory take
 _SMEM_LIMIT = 232448  # bytes a block may opt into on sm_90
@@ -118,7 +126,8 @@ def reset_launch_counts() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
         BAND_LAUNCHES[key] = 0
-    PREPARATIONS["band_operator"] = 0
+    for key in PREPARATIONS:
+        PREPARATIONS[key] = 0
 
 
 def _library(name: str = "laguerre_dense") -> ctypes.CDLL:
@@ -143,12 +152,14 @@ def _library(name: str = "laguerre_dense") -> ctypes.CDLL:
             }
         else:
             sigs = {
-                "hlhgat_band_fused_fwd": ([p] * 7 + [i] * 7 + [p], i),
+                "hlhgat_band_fused_fwd": ([p] * 6 + [i] * 8 + [p], i),
                 "hlhgat_band_terms_fwd": ([p, p, p] + [i] * 6 + [p], i),
-                "hlhgat_band_fused_bwd": ([p] * 10 + [i] * 8 + [p], i),
+                "hlhgat_band_fused_bwd": ([p] * 9 + [i] * 9 + [p], i),
                 "hlhgat_band_terms_bwd": ([p] * 4 + [i] * 6 + [p], i),
-                "hlhgat_band_fused_bwd_splits": ([i, i, i, i], i),
+                "hlhgat_band_fused_bwd_splits": ([i] * 6, i),
+                "hlhgat_band_bar_smem": ([i, i], z),
                 "hlhgat_band_step_plan": ([i, i, i, i, p], i),
+                "hlhgat_band_product_plan": ([i] * 7 + [p], i),
             }
         sigs["hlhgat_cuda_error_string"] = ([i], ctypes.c_char_p)
         for fn, (argtypes, restype) in sigs.items():
@@ -417,6 +428,26 @@ def band_step_plan(g: int, s: int, c: int, dtype: torch.dtype) -> dict:
                 waves=gx * gy * gz / max(per_sm * sms, 1), tile=(rows, cols), channels=cp)
 
 
+BAND_PRODUCTS = ("band_out_kernel", "band_bar_kernel", "band_dw_kernel")
+
+
+def band_product_plan(kernel: str, g: int, s: int, c: int, f: int, k: int,
+                      dtype: torch.dtype) -> dict:
+    """How a product kernel of the fused band entry points (``BAND_PRODUCTS``)
+    launches for G blocks of S rows, C channels (rounded up to 16 bytes, as
+    the kernels take them), F columns and K terms, in the form of
+    ``band_step_plan``.  Needs the card."""
+    lib = _library("laguerre_band")
+    out = (ctypes.c_int * 10)()
+    cp = band_row_stride(c, dtype)
+    code = lib.hlhgat_band_product_plan(BAND_PRODUCTS.index(kernel), g, s, cp, f, k,
+                                        int(dtype == torch.bfloat16), out)
+    _check_launch(lib, code, f"{kernel} plan")
+    gx, gy, gz, threads, smem, regs, per_sm, sms, rows, cols = list(out)
+    return dict(grid=(gx, gy, gz), threads=threads, smem=smem, regs=regs, ctas_per_sm=per_sm,
+                waves=gx * gy * gz / max(per_sm * sms, 1), tile=(rows, cols), channels=cp)
+
+
 def _aligned(t: torch.Tensor, c: int) -> torch.Tensor:
     """t [..., C] contiguous, starting on 16 bytes, with c ≥ C channels (the
     extra ones zero): what the band kernels' TMA loads take."""
@@ -428,18 +459,51 @@ def _aligned(t: torch.Tensor, c: int) -> torch.Tensor:
     return out
 
 
-def _pad_rows(w: torch.Tensor, c: int) -> torch.Tensor:
-    """W [K, C, F] with c ≥ C rows, the extra ones zero."""
-    if w.shape[1] == c:
-        return w
-    out = torch.zeros((w.shape[0], c, w.shape[2]), dtype=w.dtype, device=w.device)
-    out[:, :w.shape[1]].copy_(w)
+_weights = TensorCache()  # (W, (dtype, transposed, C', F')) -> W as the band products read it
+
+
+def _prepare_band_weights(w: torch.Tensor, cp: int, fp: int, dtype: torch.dtype,
+                          transposed: bool) -> torch.Tensor:
+    k, c, f = w.shape
+    src = w.to(torch.float32)
+    if dtype == torch.bfloat16:
+        out = torch.zeros((k, cp, fp), dtype=dtype, device=w.device)
+        out[:, :c, :f].copy_(src)
+        return out
+    if transposed:
+        src, (c, f), (cp, fp) = src.transpose(1, 2), (f, c), (fp, cp)
+    out = torch.zeros((2, k, cp, fp), dtype=torch.float32, device=w.device)
+    hi = _tf32(src)
+    out[0, :, :c, :f].copy_(hi)
+    torch.sub(src, hi, out=out[1, :, :c, :f])
+    return out
+
+
+def band_weights(w: torch.Tensor, cp: int, fp: int, dtype: torch.dtype,
+                 transposed: bool = False) -> torch.Tensor:
+    """W [K, C, F] as the fused band products read it, zero past C up to
+    ``cp`` channels and past F up to ``fp`` columns (rows of 16 bytes for
+    TMA): bfloat16 W [K, cp, fp] cast; float32 its TF32 halves [2, K, cp,
+    fp], hi = tf32(W) (rounded to nearest, as ``_tf32``) then lo = W − hi
+    (exact, so hi + lo is W), or with ``transposed`` those of Wᵀ [2, K, fp,
+    cp] (the output product's B, which TF32 wgmma takes only K-major).
+    Prepared on the first request and then served from the cache while W is
+    the same tensor at the same version (an optimizer step edits W in place
+    and so prepares it anew); the entry goes when W does."""
+    tag = (dtype, transposed and dtype == torch.float32, cp, fp)
+    hit = _weights.lookup(w, tag)
+    if hit is not None:
+        return hit
+    out = _prepare_band_weights(w, cp, fp, dtype, tag[1])
+    _weights.put(w, tag, out)
+    PREPARATIONS["band_weights"] += 1
     return out
 
 
 # The band entry points on the prepared operator, C padded to 16 bytes
 # (``_aligned``) where it is not; each returns the launch's cudaError_t.
-# With K = 1 no recurrence step runs: L is not read and C stays as it is.
+# With K = 1 no recurrence step runs and L is not read; the terms kernels
+# then keep C as it is, the fused ones' products still read x by TMA.
 
 def _band_layout(l, x, k: int) -> tuple[int, int, int]:
     """(operator pointer, its row stride, the kernels' channel count)."""
@@ -454,13 +518,19 @@ def _band_layout(l, x, k: int) -> tuple[int, int, int]:
 def _band_fused_fwd(lib, l, x, w, b, out) -> int:
     g, s, c = x.shape
     k, _, f = w.shape
-    lp, ld, cp = _band_layout(l, x, k)
-    xp, wp = _aligned(x, cp), _pad_rows(w, cp)
-    wt, ts = _w_scratch(wp, x), _term_scratch(xp, k - 1)
-    return lib.hlhgat_band_fused_fwd(
-        lp, xp.data_ptr(), wp.data_ptr(), b.data_ptr(), out.data_ptr(),
-        _ptr(wt), _ptr(ts), g, s, ld, cp, f, k, _bf16(x), _stream(),
+    lp, ld, _ = _band_layout(l, x, k)
+    cp, fp = band_row_stride(c, x.dtype), band_row_stride(f, x.dtype)
+    xp = _aligned(x, cp)
+    wp = band_weights(w, cp, fp, x.dtype, transposed=True)
+    ts = _term_scratch(xp, k - 1)
+    outp = out if fp == f else torch.empty((g, s, fp), dtype=x.dtype, device=x.device)
+    code = lib.hlhgat_band_fused_fwd(
+        lp, xp.data_ptr(), wp.data_ptr(), b.data_ptr(), outp.data_ptr(), _ptr(ts),
+        g, s, ld, cp, f, fp, k, _bf16(x), _stream(),
     )
+    if fp != f and code == 0:
+        out.copy_(outp[..., :f])
+    return code
 
 
 def _band_terms_fwd(lib, l, x, k, out) -> int:
@@ -478,19 +548,22 @@ def _band_terms_fwd(lib, l, x, k, out) -> int:
 def _band_fused_bwd(lib, l, x, w, g, dx, dwdb) -> int:
     n_g, s, c = x.shape
     k, _, f = w.shape
-    lp, ld, cp = _band_layout(l, x, k)
-    xp, wp = _aligned(x, cp), _pad_rows(w, cp)
+    lp, ld, _ = _band_layout(l, x, k)
+    cp, fp = band_row_stride(c, x.dtype), band_row_stride(f, x.dtype)
+    if lib.hlhgat_band_bar_smem(fp, _bf16(x)) == 0:
+        raise ValueError(f"F={f} needs more shared memory than a block has")
+    xp, gp = _aligned(x, cp), _aligned(g, fp)
+    wp = band_weights(w, cp, fp, x.dtype)
     n_w = k * cp * f
-    n_split = lib.hlhgat_band_fused_bwd_splits(n_g, cp, f, k)
+    n_split = lib.hlhgat_band_fused_bwd_splits(n_g, s, cp, f, k, _bf16(x))
     partial = torch.empty((n_split, n_w + f), dtype=torch.float32, device=x.device)
     dwdb_p = dwdb if cp == c else torch.zeros(n_w + f, dtype=torch.float32, device=x.device)
     dxp = dx if cp == c else torch.empty((n_g, s, cp), dtype=x.dtype, device=x.device)
-    wt = _w_scratch(wp, x)
     ts, bars = _term_scratch(xp, k - 1), _term_scratch(xp, k if k > 1 else 0)
     code = lib.hlhgat_band_fused_bwd(
-        lp, xp.data_ptr(), wp.data_ptr(), g.data_ptr(), dxp.data_ptr(),
-        dwdb_p.data_ptr(), partial.data_ptr(), _ptr(wt), _ptr(ts), _ptr(bars),
-        n_g, s, ld, cp, f, k, n_split, _bf16(x), _stream(),
+        lp, xp.data_ptr(), wp.data_ptr(), gp.data_ptr(), dxp.data_ptr(),
+        dwdb_p.data_ptr(), partial.data_ptr(), _ptr(ts), _ptr(bars),
+        n_g, s, ld, cp, f, fp, k, n_split, _bf16(x), _stream(),
     )
     if cp != c and code == 0:
         dx.copy_(dxp[..., :c])

@@ -94,7 +94,7 @@ def main() -> None:
     ours = ("fused_fwd_mma_kernel", "terms_fwd_mma_kernel", "fused_bwd_dx_mma_kernel",
             "fused_bwd_dw_mma_kernel", "terms_bwd_mma_kernel", "reduce_partials_kernel",
             "cast_w_kernel", "ell_spmm_kernel", "band_step_kernel", "band_out_kernel",
-            "band_bar_kernel", "band_dw_kernel", "band_db_kernel")
+            "band_bar_kernel", "band_dw_kernel", "band_reduce_kernel")
     ours_us = sum(r[0] for r in kernels if any(k in r[2] for k in ours))
     print(f"[profile] {card} | zinc_pyr training step, batch {n} {args.dtype} "
           f"{args.layout} layout, {args.route} route")

@@ -195,8 +195,9 @@ def test_channel_padding_keeps_the_channels():
     xb = x[..., :40].to(torch.bfloat16).contiguous()
     assert xb.data_ptr() % 16 == 0 and lg._aligned(xb, lg.band_row_stride(40, torch.bfloat16)) is xb
     w = torch.ones(3, 100, 7)
-    wp = lg._pad_rows(w, lg.band_row_stride(100, torch.bfloat16))
-    assert wp.shape == (3, 104, 7) and torch.equal(wp[:, :100], w) and not wp[:, 100:].any()
+    wp = lg.band_weights(w, lg.band_row_stride(100, torch.bfloat16), 8, torch.bfloat16)
+    assert wp.shape == (3, 104, 8) and torch.equal(wp[:, :100, :7].float(), w)
+    assert not wp[:, 100:].any() and not wp[:, :, 7:].any()
 
 
 def test_three_products_on_the_halves_keep_float32_accuracy():

@@ -267,10 +267,12 @@ def test_backward_wrappers_reject_what_the_kernels_cannot_take(cuda):
 
 # blocks over 128 rows (the band kernels): S = 129 (one row past a band,
 # rows not 16-byte aligned), 200, 256 and 512, with ragged C and F, K = 1,
-# 2 and 10 among them
+# 2 and 10 among them; TSP's widths at K = 2 and the widest output tile
+# (F = 256, two column tiles of the output product)
 _BAND_SHAPES = [
     (3, 129, 45, 37, 4), (2, 200, 64, 72, 6), (2, 256, 64, 64, 6),
     (3, 256, 100, 130, 2), (1, 256, 33, 8, 1), (2, 512, 40, 48, 10),
+    (2, 512, 256, 256, 2), (2, 256, 64, 256, 4),
 ]
 
 
