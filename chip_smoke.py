@@ -13,7 +13,8 @@
    libraries with ``cuobjdump -sass``: every Laguerre kernel, fused and
    terms, forward and backward, must hold tensor-core opcodes (HMMA /
    HGMMA), and every kernel of the band library, step and products, wgmma
-   (HGMMA), in float32 (3xTF32) and in bfloat16.
+   (HGMMA) and no HMMA, in float32 (3xTF32) and in bfloat16, in each
+   instantiation (``band_bar_kernel`` has two: g resident and streamed).
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the zinc_pyr forward gives it (the batch's real L0 blocks, random
    x/W/b) and, off the path, at a ragged shape, at K = 8, at S = 96 and at
@@ -31,8 +32,10 @@
    bit-equal: every distinct conv shape over 128 rows of the pooled path
    below (its 256-row L1 blocks; coarse-level blocks too where they exceed
    128 rows), counted per pass, and off the path the same graphs' 512-row
-   L1 blocks at K = 4, C = F = 64 and 128, and a ragged case (G = 3, S =
-   129, C = 45, F = 37, K = 4); then the terms kernels (2 and 4) at brain
+   L1 blocks at K = 4, C = F = 64 and 128, a ragged case (G = 3, S =
+   129, C = 45, F = 37, K = 4), and wide outputs (G = 8, S = 256, C = 64,
+   K = 4, F = 576, 640, 1472 and 1600: ``g W_kᵀ`` with g's rows resident
+   and streamed, in each dtype); then the terms kernels (2 and 4) at brain
    scale, held as phase 10 holds them: every conv on phase 10's folded
    level-0 L1 (the Shen-268 pyramid, S = 8997, among them C = 512, K = 4)
    and on the brain demo's (S = 7047, K = 3).  Each shape prints the band
@@ -1382,7 +1385,10 @@ def band_cases(torch, np, conv, model, batch, wide_l1):
     """Kernel cases over 128 rows: every distinct (operator, K, C, F) of the
     pooled model's forward with S > 128, counted per pass, then off the
     path the 512-row L1 blocks ``wide_l1`` at K = 4, C = F = 64 and 128, and
-    their leading 129 x 129 in 3 blocks at C = 45, F = 37, K = 4."""
+    their leading 129 x 129 in 3 blocks at C = 45, F = 37, K = 4, and 8 of
+    them cut to 256 rows at C = 64, K = 4 and wide F: the widest F whose
+    rows of g a CTA of ``band_bar_kernel`` holds in shared memory (576
+    float32, 1472 bfloat16) and one past it in each dtype."""
     counted = {}
     for lap, k, c, f in conv_calls(torch, conv, model, batch):
         if lap.shape[1] > 128:
@@ -1396,6 +1402,8 @@ def band_cases(torch, np, conv, model, batch, wide_l1):
     cases += [("wide", wide_l1, 4, w, w, 0) for w in (64, 128)]
     # ragged: rows, channels and columns none of which is a tile's multiple
     cases.append(("ragged", wide_l1[:3, :129, :129].contiguous(), 4, 45, 37, 0))
+    wide_f = wide_l1[:8, :256, :256].contiguous()
+    cases += [("wide_f", wide_f, 4, 64, f, 0) for f in (576, 640, 1472, 1600)]
     return cases
 
 
@@ -3601,6 +3609,11 @@ def main(argv=None) -> int:
                 if not found or min(found) == 0:
                     fail(f"{name} ({'bfloat16' if bf16 else 'float32'}) holds no "
                          f"{' or '.join(opcodes)}: {found}")
+        if "HMMA" not in opcodes:  # wgmma kernels: no mma.sync left in them
+            held = {kernel: n["HMMA"] for kernel, n in counts.items()
+                    if any(name in kernel for name in wanted) and n.get("HMMA")}
+            if held:
+                fail(f"{lib}: wgmma kernels hold HMMA: {held}")
 
     # ---- data -------------------------------------------------------------
     t0 = time.perf_counter()

@@ -103,10 +103,14 @@
 //   accumulator, and a bfloat16 stage of W 256 wide would leave one CTA an
 //   SM.
 // * band_bar_kernel (fused backward) <- b_list of _bwd_kernel (:149-155):
-//   b̄_k = g W_kᵀ for every k, rounded to x's type.  The CTA's 64 rows of g
-//   stay in shared memory while it walks k, so g is read once, not K times;
-//   N = 64 channels, the depth F.  The adjoint walk then runs as in the
-//   terms backward.
+//   b̄_k = g W_kᵀ for every k, rounded to x's type; N = 64 channels, the
+//   depth F, k outer and g's column chunks inner.  Where they fit (F <= 576
+//   float32, 1472 bfloat16) the CTA's 64 rows of g stay in shared memory
+//   while it walks k, so g is read once, not K times; past that each ring
+//   stage carries g's chunk beside W_k's, so shared memory does not grow
+//   with F and g's rows come from L2 K times.  Both walk the same chunks in
+//   the same order through the same wgmma, so b̄ has the same bits either
+//   way.  The adjoint walk then runs as in the terms backward.
 // * band_dw_kernel (fused backward) <- dW and db of _bwd_kernel (:134-146):
 //   partial sums of dW_k = T_kᵀ g (M = 64 channels, so C = 64 fills the
 //   tile; N = 64 columns of g; the depth the rows) for two terms a CTA over
@@ -920,17 +924,21 @@ __global__ void __launch_bounds__(kProdThreads)
   }
 }
 
-// band_bar_kernel's shared memory: the ring of W_k chunks [64 channels][128
-// B] (float32: hi, lo), the output tile [64][64] staged for its TMA store,
-// then the CTA's rows of g, fchunks boxes [64][128 B].
-template <typename T>
+// band_bar_kernel's shared memory: the ring, a stage W_k's chunk [64
+// channels][128 B] (float32: hi, lo) and, where g streams (kResidentG
+// false), g's chunk [64 rows][128 B] after it; the output tile [64][64]
+// staged for its TMA store; where g is resident, the CTA's rows of g,
+// fchunks boxes [64][128 B].
+template <typename T, bool kResidentG>
 struct BarTile {
   static constexpr bool kF32 = sizeof(T) == 4;
   static constexpr int kDepth = 128 / sizeof(T);  // columns of g a chunk
-  static constexpr int kStageBytes = kBox * (kF32 ? 2 : 1);
+  static constexpr int kWBytes = kBox * (kF32 ? 2 : 1);
+  static constexpr int kStageBytes = kWBytes + (kResidentG ? 0 : kBox);
   static constexpr int kOutBytes = 64 * 64 * sizeof(T);
   static size_t smem(int fchunks) {
-    return (size_t)kRing * kStageBytes + kOutBytes + (size_t)fchunks * kBox + 1024;
+    return (size_t)kRing * kStageBytes + kOutBytes + (kResidentG ? (size_t)fchunks * kBox : 0) +
+           1024;
   }
 };
 
@@ -938,13 +946,14 @@ struct BarTile {
 // [blockIdx.y·64, +64) x channels [blockIdx.x·64, +64): g_map over g [R,
 // F'], w_map over W's halves [2K, C, F'] (float32) or W [K, C, F'], bar_map
 // over bars [K, R, C]; the g rows stay in shared memory while the CTA walks
-// k, each term's tile leaves by a TMA store.
-template <typename T>
+// k (kResidentG) or come with W_k's chunk in every stage, each term's tile
+// leaves by a TMA store.
+template <typename T, bool kResidentG>
 __global__ void __launch_bounds__(kProdThreads)
     band_bar_kernel(const __grid_constant__ TensorMap g_map,
                     const __grid_constant__ TensorMap w_map,
                     const __grid_constant__ TensorMap bar_map, int K, int fchunks) {
-  using Tl = BarTile<T>;
+  using Tl = BarTile<T, kResidentG>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) u64 full[kRing], empty[kRing], g_full;
   unsigned char* smem = align1024(smem_raw);
@@ -961,20 +970,23 @@ __global__ void __launch_bounds__(kProdThreads)
 
   if (warp == 4) {
     if (lane == 0) {
-      mbar_expect_tx(&g_full, fchunks * kBox);
-      for (int fc = 0; fc < fchunks; ++fc)
-        tma_load(g_tile + fc * kBox, &g_map, &g_full, fc * Tl::kDepth, row0, 0);
+      if constexpr (kResidentG) {
+        mbar_expect_tx(&g_full, fchunks * kBox);
+        for (int fc = 0; fc < fchunks; ++fc)
+          tma_load(g_tile + fc * kBox, &g_map, &g_full, fc * Tl::kDepth, row0, 0);
+      }
       for (int it = 0; it < total; ++it) {
         u64* bar = ring_fill(full, empty, kRing, it, Tl::kStageBytes);
         unsigned char* stage = smem + (it % kRing) * Tl::kStageBytes;
         const int k = it / fchunks, f0 = (it % fchunks) * Tl::kDepth;
         tma_load(stage, &w_map, bar, f0, c0, k);
         if constexpr (Tl::kF32) tma_load(stage + kBox, &w_map, bar, f0, c0, K + k);
+        if constexpr (!kResidentG) tma_load(stage + Tl::kWBytes, &g_map, bar, f0, row0, 0);
       }
     }
     return;
   }
-  mbar_wait(&g_full, 0);
+  if constexpr (kResidentG) mbar_wait(&g_full, 0);
   for (int k = 0; k < K; ++k) {
     float acc[32];
 #pragma unroll
@@ -982,8 +994,9 @@ __global__ void __launch_bounds__(kProdThreads)
     for (int fc = 0; fc < fchunks; ++fc) {
       const int it = k * fchunks + fc;
       ring_wait(full, kRing, it);
-      const unsigned char* a = g_tile + fc * kBox;
-      const unsigned w = smem_addr(smem + (it % kRing) * Tl::kStageBytes);
+      const unsigned char* stage = smem + (it % kRing) * Tl::kStageBytes;
+      const unsigned char* a = kResidentG ? g_tile + fc * kBox : stage + Tl::kWBytes;
+      const unsigned w = smem_addr(stage);
       if constexpr (Tl::kF32) {
         unsigned ah[4][4], al[4][4];
         a_rows_tf32(a, ah, al);
@@ -1495,35 +1508,34 @@ cudaError_t launch_out(const T* x, const T* ts, const T* w, const float* b, T* o
   return F > 64 ? run(Nb<2>{}) : run(Nb<1>{});
 }
 
-// Dynamic shared bytes of band_bar_kernel for g's row stride ldf.
-template <typename T>
-size_t bar_smem(int ldf) {
-  return BarTile<T>::smem((ldf + BarTile<T>::kDepth - 1) / BarTile<T>::kDepth);
-}
-
 // bars[k] = g W_kᵀ for every k (band_bar_kernel); g [R, ldf], w W's halves
-// [2K, C, ldf] (float32) or W [K, C, ldf].
+// [2K, C, ldf] (float32) or W [K, C, ldf].  g's rows stay resident where
+// they fit (ldf <= 576 float32, 1472 bfloat16), else they stream with W.
 template <typename T>
 cudaError_t launch_bar(const T* g, const T* w, T* bars, int R, int C, int ldf, int K,
                        cudaStream_t stream, int* plan = nullptr) {
   constexpr bool bf16 = sizeof(T) == 2;
-  using Tl = BarTile<T>;
   const u64 es = sizeof(T);
-  const int fchunks = (ldf + Tl::kDepth - 1) / Tl::kDepth;
-  ProductLaunch p;
-  p.grid = dim3((C + 63) / 64, (R + 63) / 64);
-  p.smem = bar_smem<T>(ldf);
-  if (p.smem > kSmemMax) return cudaErrorInvalidValue;
-  const auto kernel = band_bar_kernel<T>;
-  STEP_TRY(allow_smem(kernel, p.smem));
-  if (plan != nullptr) return product_plan(kernel, p, plan);
-  TensorMap gm, wm, bm;
-  STEP_TRY(make_map(&gm, g, bf16, ldf, R, 1, ldf * es, (u64)R * ldf * es, Tl::kDepth, 64));
-  STEP_TRY(make_map(&wm, w, bf16, ldf, C, bf16 ? K : 2 * K, ldf * es, (u64)C * ldf * es,
-                    Tl::kDepth, 64));
-  STEP_TRY(make_map(&bm, bars, bf16, C, R, K, C * es, (u64)R * C * es, Tl::kDepth, 64));
-  kernel<<<p.grid, kProdThreads, p.smem, stream>>>(gm, wm, bm, K, fchunks);
-  return cudaGetLastError();
+  using Resident = BarTile<T, true>;
+  const int fchunks = (ldf + Resident::kDepth - 1) / Resident::kDepth;
+  auto run = [&](auto resident) -> cudaError_t {
+    constexpr bool kResidentG = decltype(resident)::value != 0;
+    using Tl = BarTile<T, kResidentG>;
+    const auto kernel = band_bar_kernel<T, kResidentG>;
+    ProductLaunch p;
+    p.grid = dim3((C + 63) / 64, (R + 63) / 64);
+    p.smem = Tl::smem(fchunks);
+    STEP_TRY(allow_smem(kernel, p.smem));
+    if (plan != nullptr) return product_plan(kernel, p, plan);
+    TensorMap gm, wm, bm;
+    STEP_TRY(make_map(&gm, g, bf16, ldf, R, 1, ldf * es, (u64)R * ldf * es, Tl::kDepth, 64));
+    STEP_TRY(make_map(&wm, w, bf16, ldf, C, bf16 ? K : 2 * K, ldf * es, (u64)C * ldf * es,
+                      Tl::kDepth, 64));
+    STEP_TRY(make_map(&bm, bars, bf16, C, R, K, C * es, (u64)R * C * es, Tl::kDepth, 64));
+    kernel<<<p.grid, kProdThreads, p.smem, stream>>>(gm, wm, bm, K, fchunks);
+    return cudaGetLastError();
+  };
+  return Resident::smem(fchunks) <= kSmemMax ? run(Nb<1>{}) : run(Nb<0>{});
 }
 
 // The CTAs of band_dw_kernel a slice: term groups x channel tiles x column tiles.
@@ -1709,13 +1721,6 @@ int hlhgat_band_terms_fwd(const void* l, const void* x, void* t, int G, int S, i
 // caller allocates partial [n_split, K*C*F + F] float32.
 int hlhgat_band_fused_bwd_splits(int G, int S, int C, int F, int K, int bf16) {
   return bf16 ? band_splits<__nv_bfloat16>(G, S, C, F, K) : band_splits<float>(G, S, C, F, K);
-}
-
-// Dynamic shared bytes band_bar_kernel needs for g's row stride ldf, or 0
-// where that is more than a block may have (the fused backward refuses it).
-size_t hlhgat_band_bar_smem(int ldf, int bf16) {
-  const size_t n = bf16 ? bar_smem<__nv_bfloat16>(ldf) : bar_smem<float>(ldf);
-  return n > kSmemMax ? 0 : n;
 }
 
 // l (row stride ldl), x [G,S,C], g [G,S,ldf], dx [G,S,C] in x's dtype; w:

@@ -55,10 +55,11 @@ kernels fed by TMA too (``band_product_plan``), reading W as
 ``band_weights`` prepares it once per weight tensor and version (bfloat16
 W, or float32 TF32 halves, K-major for the tensor cores); a column count F
 whose rows are not 16 bytes pads W and the cotangent g with zero columns
-and leaves the output through a padded buffer.  Every S, K and C runs on
-the card, and every F whose cotangent rows fit a block's shared memory in
-``g W_kᵀ`` (608 float32, 1536 bfloat16); no block size reaches the plain
-versions there.
+and leaves the output through a padded buffer.  Every S, K, C and F runs
+on the card; no shape reaches the plain versions there.  ``g W_kᵀ`` keeps
+a CTA's 64 rows of g in shared memory where they fit (F <= 576 in
+float32, 1472 in bfloat16, after F is padded to 16 bytes) and streams
+them beside W's chunks for wider F.
 
 The band kernels read L as a prepared operator (``band_operator``): in
 bfloat16 L cast to bfloat16, in float32 its TF32 halves ``hi = tf32(L)``
@@ -157,7 +158,6 @@ def _library(name: str = "laguerre_dense") -> ctypes.CDLL:
                 "hlhgat_band_fused_bwd": ([p] * 9 + [i] * 9 + [p], i),
                 "hlhgat_band_terms_bwd": ([p] * 4 + [i] * 6 + [p], i),
                 "hlhgat_band_fused_bwd_splits": ([i] * 6, i),
-                "hlhgat_band_bar_smem": ([i, i], z),
                 "hlhgat_band_step_plan": ([i, i, i, i, p], i),
                 "hlhgat_band_product_plan": ([i] * 7 + [p], i),
             }
@@ -550,8 +550,6 @@ def _band_fused_bwd(lib, l, x, w, g, dx, dwdb) -> int:
     k, _, f = w.shape
     lp, ld, _ = _band_layout(l, x, k)
     cp, fp = band_row_stride(c, x.dtype), band_row_stride(f, x.dtype)
-    if lib.hlhgat_band_bar_smem(fp, _bf16(x)) == 0:
-        raise ValueError(f"F={f} needs more shared memory than a block has")
     xp, gp = _aligned(x, cp), _aligned(g, fp)
     wp = band_weights(w, cp, fp, x.dtype)
     n_w = k * cp * f

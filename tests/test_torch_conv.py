@@ -58,6 +58,42 @@ def test_fused_plain_matches_pallas(rng, dtype, k, c, f):
     _close(ours, ref, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_bwd_plain_matches_pallas_vjp_at_a_wide_output(dtype):
+    """The VJP of the JAX fused kernel (interpret mode) against the port's
+    plain backward over 128 rows at F = 1600, wider than any cotangent whose
+    rows a CTA of the card's band kernel can hold in shared memory: the
+    function the card must compute there.  float32 at the gradient
+    tolerance of test_torch_grad.py; bfloat16 at 2e-2 of each output's
+    max|ref| (the card's band tolerance): b̄_k sums 1600 columns before its
+    one rounding, so a flipped rounding moves dx by an ulp of a sum much
+    larger than any one term, which a fixed atol set for F <= 20 does not
+    cover."""
+    rng = np.random.default_rng(16)
+    g_, s, c, f, k = 1, 136, 8, 1600, 3
+    l = rng.standard_normal((g_, s, s)).astype(np.float32)
+    l = (l + l.transpose(0, 2, 1)) / (2 * np.sqrt(s))  # symmetric, spectrum O(1)
+    x = rng.standard_normal((g_, s, c)).astype(np.float32)
+    w = (rng.uniform(-1, 1, (k, c, f)) * np.sqrt(6.0 / (c + f))).astype(np.float32)
+    b = rng.standard_normal(f).astype(np.float32)
+    cot = rng.standard_normal((g_, s, f)).astype(np.float32)
+    td = getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda x_, w_, b_: pallas_hodge.laguerre_dense_fused(
+        jnp.asarray(l, dtype), x_, w_, b_), jnp.asarray(x, dtype), jnp.asarray(w), jnp.asarray(b))
+    refs = vjp(jnp.asarray(cot, dtype))
+    ours = lg.laguerre_dense_fused_bwd_plain(
+        torch.from_numpy(l).to(td), torch.from_numpy(x).to(td), torch.from_numpy(w),
+        torch.from_numpy(cot).to(td))
+    assert ours[0].dtype == td and ours[1].dtype == ours[2].dtype == torch.float32
+    for mine, ref in zip(ours, refs):
+        mine, ref = mine.float().numpy(), np.asarray(ref, np.float32)
+        assert mine.shape == ref.shape
+        if dtype == "float32":
+            np.testing.assert_allclose(mine, ref, rtol=2e-3, atol=1e-5)
+        else:
+            np.testing.assert_allclose(mine, ref, rtol=0, atol=2e-2 * np.abs(ref).max())
+
+
 def test_fused_plain_matches_pallas_over_two_channel_tiles(rng):
     """C = 600: the JAX kernel splits the channels into two tiles and carries
     its accumulator across them; the port's kernel loops over its slices."""

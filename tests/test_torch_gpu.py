@@ -268,11 +268,16 @@ def test_backward_wrappers_reject_what_the_kernels_cannot_take(cuda):
 # blocks over 128 rows (the band kernels): S = 129 (one row past a band,
 # rows not 16-byte aligned), 200, 256 and 512, with ragged C and F, K = 1,
 # 2 and 10 among them; TSP's widths at K = 2 and the widest output tile
-# (F = 256, two column tiles of the output product)
+# (F = 256, two column tiles of the output product); then g W_kᵀ on either
+# side of the widest F whose rows of g stay in shared memory (576 float32,
+# 1472 bfloat16; each shape runs in both dtypes), the last one with ragged
+# S and C
 _BAND_SHAPES = [
     (3, 129, 45, 37, 4), (2, 200, 64, 72, 6), (2, 256, 64, 64, 6),
     (3, 256, 100, 130, 2), (1, 256, 33, 8, 1), (2, 512, 40, 48, 10),
     (2, 512, 256, 256, 2), (2, 256, 64, 256, 4),
+    (2, 256, 64, 576, 4), (1, 256, 64, 608, 3), (1, 256, 64, 640, 3),
+    (1, 256, 32, 1472, 2), (1, 256, 32, 1536, 2), (1, 300, 40, 1600, 4),
 ]
 
 
@@ -309,6 +314,21 @@ def test_band_kernels_match_plain(cuda, dtype, g, s, c, f, k):
         again = kernel()
         again = again if isinstance(again, tuple) else (again,)
         assert all(torch.equal(a, r) for a, r in zip(got, again)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [64, 576, 640, 1472, 1600])
+def test_band_bar_plan_fits_a_block_at_any_width(cuda, dtype, f):
+    """g W_kᵀ has a launch at every F: its shared memory stays within what
+    a block may opt into, and past the resident rows of g it no longer grows
+    with F."""
+    p = lg.band_product_plan("band_bar_kernel", 4, 256, 64, f, 4, dtype)
+    assert 0 < p["smem"] <= 232448, p
+    assert p["ctas_per_sm"] >= 1 and p["tile"] == (64, 64), p
+    wider = lg.band_product_plan("band_bar_kernel", 4, 256, 64, 4 * f, 4, dtype)
+    assert wider["smem"] <= 232448, wider
+    if f >= 1600 or (f >= 640 and dtype == torch.float32):
+        assert wider["smem"] == p["smem"], (p, wider)
 
 
 @pytest.mark.parametrize("route", ["fused", "terms"])
