@@ -14,9 +14,19 @@ from typing import Any
 
 import torch
 
+from hl_hgat_tpu_torch.utils import profiling
+
 
 def _to(v, device):
-    return None if v is None else torch.as_tensor(v).to(device)
+    """``v`` as a tensor on ``device``; with the port's tracing on, the
+    bytes that leave the host for a card count under ``h2d_bytes``
+    (``utils/profiling.py``; the tensor's size, no sync)."""
+    if v is None:
+        return None
+    t = torch.as_tensor(v)
+    if profiling.tracing and t.device.type == "cpu" and torch.device(device).type != "cpu":
+        profiling.count("h2d_bytes", t.nbytes)
+    return t.to(device)
 
 
 def _fields_to(obj, device, keep: tuple[str, ...]):

@@ -30,11 +30,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from hl_hgat_tpu_torch.complex.batch import _to
 from hl_hgat_tpu_torch.complex.dense import DenseBatch, DenseLevel, DensePool
-
-
-def _to(v, device):
-    return None if v is None else torch.as_tensor(v).to(device)
 
 
 def _fields_to(obj, device):

@@ -29,16 +29,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from hl_hgat_tpu_torch.complex.batch import ComplexBatch, CooMatrix
+from hl_hgat_tpu_torch.complex.batch import ComplexBatch, CooMatrix, _to as _array_to
 from hl_hgat_tpu_torch.complex.build import GraphSample, boundary_dense
 
 
 def _to(v, device):
-    if v is None:
-        return None
     if isinstance(v, (CooMatrix, BlockDiagMatrix)):
         return v.to(device)
-    return torch.as_tensor(v).to(device)
+    return _array_to(v, device)
 
 
 @dataclasses.dataclass

@@ -26,11 +26,18 @@ through ``train.Trainer``).
 
 ``BrainPredictor`` serves the shared-skeleton brain models: every subject
 rides one ``collate_dense_shared`` batch layout, one operator a level.
+
+With the port's tracing on (``utils/profiling.py``), a ``Predictor`` call
+is the unit ``serve.request`` and its layers are the spans
+``serve.loader`` (the loader's set-up), ``serve.pack`` (a batch's collate),
+``serve.transfer``, ``serve.forward`` (inflate and the forward, issued)
+and ``serve.readback`` (the host waiting for the answer).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Sequence
 
 import numpy as np
@@ -43,6 +50,7 @@ from hl_hgat_tpu_torch.data.datasets import brain_sample
 from hl_hgat_tpu_torch.data.loader import BucketedLoader
 from hl_hgat_tpu_torch.device import resolve_device
 from hl_hgat_tpu_torch.train.checkpoint import restore_checkpoint
+from hl_hgat_tpu_torch.utils import profiling
 
 # The JAX package's serving batch for ZINC-sized graphs; here it is the
 # batch chip_smoke.py drives, not a measured optimum of this port.
@@ -89,17 +97,18 @@ class Predictor:
         return self
 
     def loader(self, samples: Sequence[GraphSample]) -> BucketedLoader:
-        # serving inputs may be unlabeled; the collate wants a y array
-        samples = [
-            dataclasses.replace(
-                s, y=np.zeros(s.num_edges if self.edge_level else 1, np.float32))
-            if s.y is None else s
-            for s in samples
-        ]
-        return BucketedLoader(
-            samples, batch_size=min(self.batch_size, len(samples)), shuffle=False,
-            num_buckets=1, layout="dense_packed", node_cap=self.node_cap,
-            edge_cap=self.edge_cap, transfer=self.transfer, y_per_edge=self.edge_level)
+        with profiling.span("serve.loader"):
+            # serving inputs may be unlabeled; the collate wants a y array
+            samples = [
+                dataclasses.replace(
+                    s, y=np.zeros(s.num_edges if self.edge_level else 1, np.float32))
+                if s.y is None else s
+                for s in samples
+            ]
+            return BucketedLoader(
+                samples, batch_size=min(self.batch_size, len(samples)), shuffle=False,
+                num_buckets=1, layout="dense_packed", node_cap=self.node_cap,
+                edge_cap=self.edge_cap, transfer=self.transfer, y_per_edge=self.edge_level)
 
     def collate(self, samples: Sequence[GraphSample]):
         """The first batch the loader makes of ``samples``, on the
@@ -109,27 +118,39 @@ class Predictor:
 
     def forward(self, batch) -> torch.Tensor:
         """The model on a batch on the device, inflated first if compact."""
-        with torch.inference_mode():
+        with profiling.span("serve.forward"), torch.inference_mode():
             out = self.model(maybe_inflate(batch))
         return out[0] if isinstance(out, tuple) else out
 
     def __call__(self, samples: Sequence[GraphSample]) -> np.ndarray | list[np.ndarray]:
-        samples = list(samples)
+        with profiling.span("serve.request", unit=True):
+            return self._serve(list(samples))
+
+    def _serve(self, samples: list[GraphSample]) -> np.ndarray | list[np.ndarray]:
         bs = min(self.batch_size, len(samples))
         outs: list[np.ndarray] = []
-        for i, host in enumerate(self.loader(samples)):
+        batches = iter(self.loader(samples))
+        for i in itertools.count():
+            with profiling.span("serve.pack"):
+                host = next(batches, None)
+            if host is None:
+                break
             keep = min(bs, len(samples) - i * bs)  # the rest are filler
-            out = self.forward(host.to(self.device)).float().cpu().numpy()
-            if not self.edge_level:
-                outs.append(out[:keep])
-                continue
-            # each graph's edge rows, in its own edge order, from the host
-            # batch's graph ids: no readback from the device
-            lvl = host.levels[0]
-            gid = np.asarray(lvl.s_gid).reshape(-1)
-            real = np.asarray(level_edge_mask(lvl)).reshape(-1) > 0
-            flat = out.reshape((-1,) + out.shape[2:])
-            outs.extend(flat[(gid == g) & real] for g in range(keep))
+            with profiling.span("serve.transfer"):
+                batch = host.to(self.device)
+            out = self.forward(batch)
+            with profiling.span("serve.readback"):
+                out = out.float().cpu().numpy()
+                if not self.edge_level:
+                    outs.append(out[:keep])
+                    continue
+                # each graph's edge rows, in its own edge order, from the host
+                # batch's graph ids: no readback from the device
+                lvl = host.levels[0]
+                gid = np.asarray(lvl.s_gid).reshape(-1)
+                real = np.asarray(level_edge_mask(lvl)).reshape(-1) > 0
+                flat = out.reshape((-1,) + out.shape[2:])
+                outs.extend(flat[(gid == g) & real] for g in range(keep))
         return outs if self.edge_level else np.concatenate(outs, axis=0)
 
 

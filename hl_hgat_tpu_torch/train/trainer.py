@@ -64,6 +64,7 @@ from hl_hgat_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from hl_hgat_tpu_torch.train.optim import ReduceLROnPlateau, adam_l2, set_learning_rate
+from hl_hgat_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,36 +205,43 @@ class Trainer:
     def train_step(self, batch: Batch) -> torch.Tensor:
         """Forward (BN on batch statistics), loss, backward, one Adam
         update.  Returns the loss as a 0-d tensor on the device — no
-        readback, so the host can run ahead of the card."""
-        loss = self._compute_gradients(batch)
-        self.optimizer.step()
+        readback, so the host can run ahead of the card.  With the port's
+        tracing on it is the unit ``train.step``, its layers the spans
+        ``train.forward``, ``train.backward`` and ``train.optimizer``."""
+        with profiling.span("train.step", unit=True):
+            loss = self._compute_gradients(batch)
+            with profiling.span("train.optimizer"):
+                self.optimizer.step()
         return loss
 
     def _compute_gradients(self, batch: Batch) -> torch.Tensor:
         """`train_step` up to the update: the batch on the device with the
         step's random draws, forward, loss and backward.  Every parameter
         has a gradient afterwards; returns the detached loss."""
-        batch = self._on_device(batch)
-        cfg = self.cfg
-        if cfg.pe_flip_node_static is not None:
-            batch = batch.replace(x_t=pe_sign_flip(
-                batch.x_t, num_static=cfg.pe_flip_node_static, generator=self.generator))
-        if cfg.pe_flip_edge_static is not None:
-            batch = batch.replace(x_s=pe_sign_flip(
-                batch.x_s, num_static=cfg.pe_flip_edge_static, generator=self.generator))
-        if cfg.tsp_aug_prob is not None:
-            batch = tsp_dropout(batch, apply_prob=cfg.tsp_aug_prob, generator=self.generator)
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        _, loss = self._forward_loss(batch)
-        loss.backward()
-        # A parameter the loss does not reach (the link model's last edge
-        # conv) gets a zero gradient, not none: the L2 term still decays it,
-        # as in the JAX trainer, where every leaf has a gradient.
-        for group in self.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None and p.requires_grad:
-                    p.grad = torch.zeros_like(p)
+        with profiling.span("train.forward"):
+            batch = self._on_device(batch)
+            cfg = self.cfg
+            if cfg.pe_flip_node_static is not None:
+                batch = batch.replace(x_t=pe_sign_flip(
+                    batch.x_t, num_static=cfg.pe_flip_node_static, generator=self.generator))
+            if cfg.pe_flip_edge_static is not None:
+                batch = batch.replace(x_s=pe_sign_flip(
+                    batch.x_s, num_static=cfg.pe_flip_edge_static, generator=self.generator))
+            if cfg.tsp_aug_prob is not None:
+                batch = tsp_dropout(batch, apply_prob=cfg.tsp_aug_prob,
+                                    generator=self.generator)
+            self.model.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            _, loss = self._forward_loss(batch)
+        with profiling.span("train.backward"):
+            loss.backward()
+            # A parameter the loss does not reach (the link model's last edge
+            # conv) gets a zero gradient, not none: the L2 term still decays
+            # it, as in the JAX trainer, where every leaf has a gradient.
+            for group in self.optimizer.param_groups:
+                for p in group["params"]:
+                    if p.grad is None and p.requires_grad:
+                        p.grad = torch.zeros_like(p)
         return loss.detach()
 
     def eval_step(self, batch: Batch) -> tuple[torch.Tensor, torch.Tensor]:

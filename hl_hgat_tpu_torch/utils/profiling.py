@@ -6,6 +6,26 @@ cards a result lives on; ``trace_context`` records a ``torch.profiler``
 trace of a region and writes it as a Chrome trace; ``enable_nan_checks``
 makes an op that produces a NaN raise ``FloatingPointError``, as
 ``jax_debug_nans`` does.
+
+The port's own spans and counters (not in the JAX module):
+
+    profiling.enable()                    # off by default
+    trainer.train_step(batch)             # train.step > train.forward, ...
+    snap = profiling.snapshot()           # spans, counters, launch counts
+
+``span(name)`` marks a layer of the port (``serving.Predictor``: a
+request's loader, pack, transfer, forward and readback; ``train.Trainer``:
+a step's forward, backward and optimizer) and ``count(name, n)`` a count
+at the same boundary (``h2d_bytes`` in the batches' ``to``).  A span
+opened with ``unit=True`` (``serve.request``, ``train.step``) starts a
+unit of work; the spans and counts under it carry its id.  (The kernel
+launch counters stay where they are counted, ``ops.laguerre_dense.LAUNCHES``
+and ``ops.ell_spmm.LAUNCHES``.)  While tracing is on, each span is also a ``torch.profiler.record_function`` range, so a
+profiler running then shows it on its own timeline, and ``snapshot``
+gives the span's bounds on that timeline's clock (Unix ns, which a Chrome
+trace's ``ts``·1000 + ``baseTimeNanoseconds`` is).  Off, a span is one
+check of ``tracing`` and a shared no-op object.  At most ``SPAN_CAP``
+spans are kept; ``dropped`` counts those past it.
 """
 
 from __future__ import annotations
@@ -13,7 +33,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import threading
 import time
+from typing import NamedTuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -21,6 +43,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from hl_hgat_tpu_torch.ops import nan_checks
 
 TRACE_FILE = "trace.json"  # what trace_context writes into its logdir
+SPAN_CAP = 1 << 16  # spans kept in memory; ``dropped`` counts the rest
 
 
 class StepTimer:
@@ -134,3 +157,154 @@ def enable_nan_checks(enable: bool = True) -> None:
         _nan_mode.__exit__(None, None, None)
         _nan_mode = None
 
+
+# -- the port's spans and counters ---------------------------------------------
+
+tracing = False  # the one flag a span or a count checks while off
+
+
+class SpanRecord(NamedTuple):
+    """One span: ``start_ns`` / ``end_ns`` in Unix ns (None while open),
+    ``parent`` the index of the span open around it on its thread, ``unit``
+    the id of the unit of work it belongs to (None outside one)."""
+
+    name: str
+    start_ns: int
+    end_ns: int | None
+    parent: int | None
+    unit: int | None
+
+
+class Snapshot(NamedTuple):
+    spans: list  # [SpanRecord], in the order they opened
+    counters: dict  # name -> total
+    unit_counters: dict  # unit id (None outside one) -> {name: n}
+    units: int  # units opened since the last reset; ids are 0 .. units - 1
+    dropped: int  # spans past SPAN_CAP, not kept
+
+
+class _State:
+    def __init__(self, anchor: tuple[int, int]):
+        self.lock = threading.Lock()
+        self.local = threading.local()  # .stack: [(span index, unit id)] of a thread
+        self.spans: list[list] = []  # [name, start pc ns, end pc ns, parent, unit]
+        self.counters: dict = {}  # unit id (None outside one) -> {name: n}
+        self.units = 0  # units opened
+        self.dropped = 0
+        self.anchor = anchor  # (time_ns, perf_counter_ns) read together
+
+    def stack(self) -> list:
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+    def add(self, unit, counts: dict) -> None:
+        with self.lock:
+            mine = self.counters.setdefault(unit, {})
+            for name, n in counts.items():
+                mine[name] = mine.get(name, 0) + n
+
+
+_state = _State((time.time_ns(), time.perf_counter_ns()))
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "root", "stack", "unit", "record", "range")
+
+    def __init__(self, name: str, root: bool):
+        self.name, self.root = name, root
+
+    def __enter__(self):
+        start = time.perf_counter_ns()
+        st = _state
+        self.stack = st.stack()
+        parent, self.unit = self.stack[-1] if self.stack else (None, None)
+        with st.lock:
+            if self.root:
+                self.unit, st.units = st.units, st.units + 1
+            if len(st.spans) < SPAN_CAP:
+                index, self.record = len(st.spans), [self.name, start, None, parent, self.unit]
+                st.spans.append(self.record)
+            else:
+                index, self.record = None, None
+                st.dropped += 1
+        self.stack.append((index, self.unit))
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.range.__exit__(*exc)
+        self.stack.pop()
+        if self.record is not None:
+            self.record[2] = time.perf_counter_ns()
+        return False
+
+
+def span(name: str, unit: bool = False):
+    """A context manager marking a layer of the port: with tracing off the
+    shared no-op; on, a recorded span and a profiler range ``name``.
+    ``unit=True`` starts a unit of work (a request, a step)."""
+    if not tracing:
+        return _NO_SPAN
+    return _Span(name, unit)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of the unit running on this thread
+    (while tracing is on)."""
+    if tracing:
+        stack = _state.stack()
+        _state.add(stack[-1][1] if stack else None, {name: n})
+
+
+def enable() -> None:
+    """Tracing on: spans and counts are recorded from here, their clock
+    anchored to Unix time now."""
+    global tracing
+    _state.anchor = (time.time_ns(), time.perf_counter_ns())
+    tracing = True
+
+
+def disable() -> None:
+    """Tracing off; what was recorded stays until ``reset``."""
+    global tracing
+    tracing = False
+
+
+def reset() -> None:
+    """Forget every span and count recorded; unit ids start again at 0
+    (a span open now closes into the store it opened in)."""
+    global _state
+    _state = _State(_state.anchor)
+
+
+def snapshot() -> Snapshot:
+    """The spans and counts recorded."""
+    st = _state
+    wall, pc = st.anchor
+    with st.lock:
+        spans = [SpanRecord(name, wall + start - pc, None if end is None else wall + end - pc,
+                            parent, unit)
+                 for name, start, end, parent, unit in st.spans]
+        unit_counters = {u: dict(c) for u, c in st.counters.items()}
+        units, dropped = st.units, st.dropped
+    totals: dict = {}
+    for c in unit_counters.values():
+        for name, n in c.items():
+            totals[name] = totals.get(name, 0) + n
+    return Snapshot(spans, totals, unit_counters, units, dropped)

@@ -24,7 +24,7 @@ _PROBE = textwrap.dedent("""
                                         "ml_dtypes", "hl_hgat_tpu", "matplotlib"))
     print("MODULES", len(names), "BAD", bad)
     want = ("train.losses", "train.metrics", "train.optim", "train.trainer",
-            "profile_training", "profile_serving", "complex.batch", "ops.boundary",
+            "complex.batch", "ops.boundary",
             "ops.spmm", "ops.ell_spmm", "ops.nan_checks", "complex.coarsen", "nn.pool", "complex.augment",
             "complex.dense", "data.synthetic", "serving", "data.brain", "data.datasets",
             "models.abcd", "models.hgat", "nn.inception", "native", "data.fast_collate",
