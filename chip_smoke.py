@@ -7,10 +7,10 @@
     python3 chip_smoke.py --analysis-only   # build, then phase 14 only
 
 1. Builds the CUDA kernels from ``hl_hgat_tpu_torch/csrc`` (nvcc, sm_90a)
-   and, at the same time, the host library ``csrc/hlhgat_native.cpp`` (g++;
-   a ``[native]`` line with its build seconds), prints the card's name and
-   power limit, and reads the three Laguerre
-   libraries with ``cuobjdump -sass``: every Laguerre kernel, fused and
+   and, at the same time, the host library ``csrc/hlhgat_native.cpp`` and
+   ``csrc/hlhgat_pack.cpp`` (g++; a ``[native]`` line with its build
+   seconds), prints the card's name and power limit, and reads the three
+   Laguerre libraries with ``cuobjdump -sass``: every Laguerre kernel, fused and
    terms, forward and backward, must hold tensor-core opcodes (HMMA /
    HGMMA), and every kernel of the band library, step and products, wgmma
    (HGMMA) and no HMMA, in float32 (3xTF32) and in bfloat16, in each

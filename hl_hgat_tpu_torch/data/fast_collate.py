@@ -8,9 +8,11 @@ graph.  Here
 
 * `FlatSamples` flattens the dataset once into contiguous arenas
   (concatenated COO, edge and feature arrays with prefix offsets),
+* `pack_indices` plans the bins (first-fit-decreasing under four sort
+  keys) in one C call (``csrc/hlhgat_pack.cpp::ffd_pack``),
 * `collate_packed_fast` fills a batch with three C calls per level
   (``csrc/hlhgat_native.cpp::packed_fill_*``, through ``native.py``); Python
-  only computes the bin placements, and
+  only turns the bins into slot offsets, and
 * `collate_packed_compact` emits the same placements in the compact
   transfer format of ``complex/compact.py`` (vectorised NumPy), which the
   trainer densifies on the card.
@@ -124,33 +126,24 @@ def pack_indices(flat: FlatSamples, indices: np.ndarray, node_cap: int,
     """First-fit-decreasing bin packing of ``flat``'s graphs ``indices``
     under each sort key, the fewest bins kept (the earliest key on ties):
     the bins of `complex/dense.py::pack_plan`, as positions into
-    ``indices``.  A graph over the caps raises."""
-    n = flat.levels[0].num_nodes[indices].astype(np.int64)
-    e = flat.levels[0].num_edges[indices].astype(np.int64)
+    ``indices``, each bin's in first-fit order.  Planned by the host
+    library (``csrc/hlhgat_pack.cpp::ffd_pack``) in one call for all keys.
+    A graph over the caps raises."""
+    n = np.ascontiguousarray(flat.levels[0].num_nodes[indices], np.int64)
+    e = np.ascontiguousarray(flat.levels[0].num_edges[indices], np.int64)
     if int(n.max()) > node_cap or int(e.max()) > edge_cap:
         bad = int(np.argmax((n > node_cap) | (e > edge_cap)))
         raise ValueError(f"graph ({n[bad]} nodes, {e[bad]} edges) exceeds pack caps "
                          f"({node_cap}, {edge_cap})")
-    best: list[list[int]] | None = None
-    for key in _sort_keys(n, e):
-        bins: list[list[int]] = []
-        rem_n: list[int] = []
-        rem_e: list[int] = []
-        for pos in np.argsort(-key, kind="stable").tolist():
-            nn, ee = int(n[pos]), int(e[pos])
-            for b in range(len(bins)):
-                if rem_n[b] >= nn and rem_e[b] >= ee:
-                    bins[b].append(pos)
-                    rem_n[b] -= nn
-                    rem_e[b] -= ee
-                    break
-            else:
-                bins.append([pos])
-                rem_n.append(node_cap - nn)
-                rem_e.append(edge_cap - ee)
-        if best is None or len(bins) < len(best):
-            best = bins
-    return best or []
+    keys = _sort_keys(n, e)
+    orders = np.stack([np.argsort(-key, kind="stable") for key in keys]).astype(np.int64)
+    order, bin_of = np.empty(n.size, np.int64), np.empty(n.size, np.int64)
+    nb = int(native.load().ffd_pack(n.size, n, e, len(keys), orders, node_cap, edge_cap,
+                                    order, bin_of))
+    # bin-major, each bin's members in visiting order
+    members = order[np.argsort(bin_of, kind="stable")].tolist()
+    ends = np.cumsum(np.bincount(bin_of, minlength=nb)).tolist()
+    return [members[a:b] for a, b in zip([0] + ends[:-1], ends)]
 
 
 @dataclasses.dataclass

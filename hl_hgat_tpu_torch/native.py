@@ -1,21 +1,23 @@
-"""ctypes binding of the host C++ preprocessing kernels (``csrc/hlhgat_native.cpp``).
+"""ctypes binding of the host C++ preprocessing kernels (``csrc/hlhgat_native.cpp``,
+``csrc/hlhgat_pack.cpp``).
 
-The port's counterpart of ``hl_hgat_tpu/native.py``.  The source is
-compiled with ``g++`` at first use into ``_build/libhlhgat_native-<hash>.so``
+The port's counterpart of ``hl_hgat_tpu/native.py``.  Both sources are
+compiled with ``g++`` at first use into one ``_build/libhlhgat_native-<hash>.so``
 and loaded with ctypes; nothing happens at import.  The hash covers the
-source, the flags and what ``-march=native`` means on this host (``g++
+sources, the flags and what ``-march=native`` means on this host (``g++
 -Q --help=target``), so a library built for another CPU is never loaded.
 A failed build raises with the compiler's log: there is no quiet NumPy
 fallback.  The NumPy versions of the same functions stay in the modules
 that call them (``complex/build.py``), under names of their own, for the
 tests.
 
-Nine entry points, all with declared ``argtypes``/``restype``:
+Ten entry points, all with declared ``argtypes``/``restype``:
 ``graclus_match`` and ``coarse_edges`` (the MLGC matcher of
 ``complex/coarsen.py``), ``coo_to_ell``, ``max_row_nnz``, ``hodge_l1``,
-``l1_pair_count`` and the three fills of the packed collate
-(``packed_fill_level``, ``packed_fill_rows``, ``packed_fill_pool``, driven by
-``data/fast_collate.py``).  ctypes releases the interpreter lock during a
+``l1_pair_count``, the three fills of the packed collate
+(``packed_fill_level``, ``packed_fill_rows``, ``packed_fill_pool``) and its
+bin planner ``ffd_pack`` (``hlhgat_pack.cpp``, the port's own), driven by
+``data/fast_collate.py``.  ctypes releases the interpreter lock during a
 call, so a collate on a prefetch thread overlaps the training step.
 """
 
@@ -34,7 +36,9 @@ from pathlib import Path
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent
+# the JAX package's native/hlhgat_native.cpp, copied unchanged
 SOURCE = _PKG / "csrc" / "hlhgat_native.cpp"
+PACK_SOURCE = _PKG / "csrc" / "hlhgat_pack.cpp"
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared")
 
@@ -51,11 +55,11 @@ def _cxx() -> str:
 
 @functools.cache
 def library_path() -> Path:
-    """Where the library for this source, these flags and this CPU lives."""
+    """Where the library for these sources, these flags and this CPU lives."""
     target = subprocess.run([_cxx(), "-march=native", "-Q", "--help=target"],
                             capture_output=True, text=True, check=True).stdout
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()
-                            + target.encode()).hexdigest()
+    digest = hashlib.sha256(SOURCE.read_bytes() + PACK_SOURCE.read_bytes()
+                            + " ".join(CXX_FLAGS).encode() + target.encode()).hexdigest()
     return BUILD_DIR / f"libhlhgat_native-{digest[:16]}.so"
 
 
@@ -70,11 +74,12 @@ def build() -> float:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE), str(PACK_SOURCE)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed for {SOURCE.name}:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"g++ failed for {SOURCE.name} + {PACK_SOURCE.name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return time.perf_counter() - t0
 
@@ -108,6 +113,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
             i64, i64, i64, i64, i64,
             f32p, f32p,
         ], None),
+        "ffd_pack": ([i64, i64p, i64p, i64, i64p, i64, i64, i64p, i64p], i64),
     }
     for name, (args, res) in sig.items():
         fn = getattr(lib, name)

@@ -8,7 +8,9 @@ said: derived L0/L1 to 1 ulp (rtol 3e-7), train steps rtol 1e-4."""
 
 import copy
 import dataclasses
+import functools
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -27,9 +29,10 @@ from hl_hgat_tpu.train.trainer import Trainer as JTrainer
 from hl_hgat_tpu.train.trainer import TrainerConfig as JTrainerConfig
 from hl_hgat_tpu.train.trainer import TrainState
 from hl_hgat_tpu_torch.complex import augment, compact
+from hl_hgat_tpu_torch.complex.compact import ROW_MULTIPLE
 from hl_hgat_tpu_torch.complex.dense import collate_dense_packed, pack_plan
 from hl_hgat_tpu_torch.data import fast_collate as fast
-from hl_hgat_tpu_torch.data.loader import BucketedLoader
+from hl_hgat_tpu_torch.data.loader import BucketedLoader, _rnd
 from hl_hgat_tpu_torch.data.prefetch import prefetch
 from hl_hgat_tpu_torch.data.synthetic import random_simplex_sample, zinc_like_samples
 from hl_hgat_tpu_torch.models import presets
@@ -112,17 +115,81 @@ def test_flat_samples_match_jax(num_pool, y_per_edge):
         same(ours.y_graph, ref.y_graph, "y_graph")
 
 
-def test_pack_indices_match_jax_and_pack_plan():
+@functools.cache
+def _zinc1024():
+    return zinc_like_samples(np.random.default_rng(19), 1024, keig=4)
+
+
+def _sized(n, e):
+    """Stand-ins for the arenas and the samples that carry only the level-0
+    counts, all that the planners read."""
+    n, e = np.asarray(n, np.int32), np.asarray(e, np.int32)
+    flat = types.SimpleNamespace(levels=[types.SimpleNamespace(num_nodes=n, num_edges=e)])
+    return flat, flat, [types.SimpleNamespace(num_nodes=int(a), num_edges=int(b))
+                        for a, b in zip(n, e)]
+
+
+def _pack_case(name):
+    """(arenas, JAX arenas, samples, indices, caps, what the case shows)."""
+    if name.startswith("mixed") or name == "repeats":
+        samples = _samples(2, count=40, num_pool=0)
+        flat, jflat = fast.FlatSamples(samples), jfast.FlatSamples([to_jax(s) for s in samples])
+        idx = np.random.default_rng(3).permutation(40)[:32]
+        if name == "repeats":  # a short final batch filled with the smallest graph
+            filler = min(range(40), key=lambda i: samples[i].num_nodes + samples[i].num_edges)
+            idx = np.concatenate([idx[:20], np.full(12, filler)])
+        caps = {"mixed_48_56": (48, 56), "mixed_32_40": (32, 40)}.get(name, (128, 128))
+        return flat, jflat, samples, idx, caps, None
+    if name.startswith("zinc"):
+        samples = _zinc1024()
+        flat = fast.FlatSamples(samples)
+        idx = np.random.default_rng(5).permutation(1024)
+        return flat, flat, samples, idx, (128, 128 if name == "zinc_128_128" else 256), None
+    n, e, caps, shows = {
+        "equal_size": ([10] * 50, [12] * 50, (48, 56), None),
+        # max(n, e) packs 4 bins, n alone 3
+        "later_key": ([1, 2, 1, 7, 1, 7, 2], [4, 4, 6, 4, 6, 4, 8], (10, 12), "later_key"),
+        # every key packs 8 bins, some of them other bins than max(n, e)'s
+        "tie": ([6, 5, 3, 3, 1, 1, 1, 2, 7], [7, 10, 6, 7, 10, 8, 7, 6, 6], (10, 12), "tie"),
+        "at_cap": ([48, 10, 48, 5, 20, 48, 1], [20, 56, 56, 5, 30, 1, 56], (48, 56), None),
+        "single": ([17], [19], (48, 56), None),
+    }[name]
+    return *_sized(n, e), np.arange(len(n)), caps, shows
+
+
+def _bins_under_each_key(monkeypatch, flat, idx, caps):
+    """`pack_indices`' bins with one sort key at a time."""
+    keys = fast._sort_keys
+    out = []
+    for k in range(4):
+        monkeypatch.setattr(fast, "_sort_keys", lambda n, e, k=k: keys(n, e)[k:k + 1])
+        out.append(fast.pack_indices(flat, idx, *caps))
+    monkeypatch.setattr(fast, "_sort_keys", keys)
+    return out
+
+
+@pytest.mark.parametrize("name", [
+    "mixed_48_56", "mixed_32_40", "mixed_128", "zinc_128_128", "zinc_128_256", "equal_size",
+    "later_key", "tie", "at_cap", "repeats", "single"])
+def test_pack_indices_match_jax_and_pack_plan(name, monkeypatch):
+    flat, jflat, samples, idx, caps, shows = _pack_case(name)
+    bins = fast.pack_indices(flat, idx, *caps)
+    assert bins == jfast.pack_indices(jflat, idx, *caps)
+    assert bins == pack_plan([samples[i] for i in idx], *caps)[0]
+    assert sorted(p for b in bins for p in b) == list(range(len(idx)))
+    per_key = _bins_under_each_key(monkeypatch, flat, idx, caps)
+    assert bins == min(per_key, key=len)  # the earliest of the fewest
+    if shows == "later_key":
+        assert len(per_key[0]) > len(bins)
+    if shows == "tie":
+        assert any(len(b) == len(bins) and b != bins for b in per_key[1:])
+
+
+def test_pack_indices_refuses_a_graph_over_the_caps():
     samples = _samples(2, count=40, num_pool=0)
-    flat, jflat = fast.FlatSamples(samples), jfast.FlatSamples([to_jax(s) for s in samples])
     idx = np.random.default_rng(3).permutation(40)[:32]
-    for caps in ((48, 56), (32, 40), (128, 128)):
-        bins = fast.pack_indices(flat, idx, *caps)
-        assert bins == jfast.pack_indices(jflat, idx, *caps)
-        plan = pack_plan([samples[i] for i in idx], *caps)[0]
-        assert bins == plan
     with pytest.raises(ValueError, match="exceeds pack caps"):
-        fast.pack_indices(flat, idx, 10, 10)
+        fast.pack_indices(fast.FlatSamples(samples), idx, 10, 10)
 
 
 @pytest.mark.parametrize("num_pool,y_per_edge,num_blocks", [
@@ -294,6 +361,26 @@ def test_loader_refuses_unknown_options():
                dict(layout="dense_packed", y_per_node=True), dict(variants=3)):
         with pytest.raises(ValueError):
             BucketedLoader(samples, batch_size=4, **kw)
+
+
+def test_loader_batch_is_the_compact_collate_of_pack_plans_bins():
+    """A serving-size batch (1024 molecules, derived transfer): the loader's
+    batch equals, array for array, the compact collate of the reference
+    planner's bins under the loader's own caps."""
+    samples = _zinc1024()
+    idx = np.random.default_rng(6).permutation(1024)
+    kw = dict(batch_size=1024, layout="dense_packed", transfer="derived", shuffle=False)
+    got = BucketedLoader(samples, **kw)._packed(0, idx)
+    ref = BucketedLoader(samples, **kw)
+    bins = pack_plan([samples[i] for i in idx], 128, 128)[0]
+    num_blocks, nnz_caps, pool_caps = ref._compact_caps(0, idx, len(bins))
+    pad0 = ref.pad_specs[0][0]
+    want = fast.collate_packed_compact(
+        ref._flat, idx, node_cap=128, edge_cap=128, bins=bins, num_blocks=num_blocks,
+        level_caps=[(128, 128)] * (ref._flat.depth - 1), nnz_caps=nnz_caps,
+        pool_caps=pool_caps, operators="derived",
+        row_caps=(_rnd(pad0.nodes, ROW_MULTIPLE), _rnd(pad0.edges, ROW_MULTIPLE)))
+    same(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """The port's host library (``hl_hgat_tpu_torch/native.py``) against the JAX
-package's binding of the same C++ source: each of the nine entry points on
-the same inputs, exact; the build into the port's own ``_build/`` (never a
-library of ``native/``), its failure with the compiler's log; and the two
+package's binding of the same C++ source: each of the nine shared entry
+points on the same inputs, exact; the port's own ``ffd_pack`` declared (its
+bins are tested through ``pack_indices`` in ``test_torch_data.py``); the build
+of both sources into the port's own ``_build/`` (never a library of
+``native/``), its hash, its failure with the compiler's log; and the two
 callers in ``complex/build.py`` against their NumPy versions."""
 
 import ctypes
@@ -153,6 +155,33 @@ def test_failed_build_raises_with_the_compiler_log(tmp_path, monkeypatch):
     finally:
         monkeypatch.undo()
         native.library_path.cache_clear()
+
+
+def test_ffd_pack_is_declared(libs):
+    fn = libs[0].ffd_pack
+    assert fn.argtypes is not None and len(fn.argtypes) == 9
+    assert fn.restype is ctypes.c_int64
+
+
+@pytest.mark.parametrize("edited", ["SOURCE", "PACK_SOURCE"])
+def test_both_sources_feed_the_library_hash(tmp_path, monkeypatch, edited):
+    for name in ("SOURCE", "PACK_SOURCE"):
+        copy = tmp_path / getattr(native, name).name
+        copy.write_bytes(getattr(native, name).read_bytes())
+        monkeypatch.setattr(native, name, copy)
+    native.library_path.cache_clear()
+    try:
+        before = native.library_path()
+        src = getattr(native, edited)
+        src.write_text(src.read_text() + "// edited\n")
+        native.library_path.cache_clear()
+        after = native.library_path()
+        assert after != before and after.parent == before.parent
+        assert after.name.startswith("libhlhgat_native-")
+    finally:
+        monkeypatch.undo()
+        native.library_path.cache_clear()
+    assert native.library_path().name != after.name
 
 
 def test_hodge_laplacians_coo_takes_the_native_l1():
