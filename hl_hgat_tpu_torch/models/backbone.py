@@ -21,6 +21,7 @@ other.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -44,6 +45,7 @@ from hl_hgat_tpu_torch.ops.dispatch import (
     masked_mean_nodes,
 )
 from hl_hgat_tpu_torch.ops.segment import embed_lookup
+from hl_hgat_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,7 +167,10 @@ class DenseInt3Backbone(nn.Module):
             pieces_t = (torch.cat(pieces_t, dim=-1),)
             pieces_s = (torch.cat(pieces_s, dim=-1),)
 
-            if i in cfg.att_locs or i in cfg.pool_locs:
+            if i not in cfg.att_locs and i not in cfg.pool_locs:
+                continue
+            # a pooled block's gates and coarsening are the span model.pool
+            with profiling.span("model.pool") if i in cfg.pool_locs else contextlib.nullcontext():
                 g_t, g_s = (x_t, x_s) if cfg.gate_input == "last" else (pieces_t, pieces_s)
                 a_t, a_s = self.get_submodule(f"NEAtt{i}")(g_t, g_s, level, deg)
                 if cfg.max_normalize_gates:
@@ -179,15 +184,14 @@ class DenseInt3Backbone(nn.Module):
                 else:
                     x_t = x_t * a_t.to(x_t.dtype)
                     x_s = x_s * a_s.to(x_s.dtype)
-
-            if i in cfg.pool_locs:
-                coarse = batch.levels[k + 1]
-                pieces_t, pieces_s = (
-                    (p,) for p in sapool_scatter(pieces_t[0], pieces_s[0], batch.pools[k],
-                                                 level, coarse))
-                k += 1
-                level = coarse
-                deg = level.deg + cfg.deg_eps
+                if i in cfg.pool_locs:
+                    coarse = batch.levels[k + 1]
+                    pieces_t, pieces_s = (
+                        (p,) for p in sapool_scatter(pieces_t[0], pieces_s[0], batch.pools[k],
+                                                     level, coarse))
+                    k += 1
+                    level = coarse
+                    deg = level.deg + cfg.deg_eps
         return ((x_t, x_s) + ((atts,) if return_atts else ())
                 + ((snapshots,) if return_snapshots else ()))
 

@@ -107,6 +107,7 @@ import torch
 
 from hl_hgat_tpu_torch.ops.nan_checks import check_kernel_outputs
 from hl_hgat_tpu_torch.ops.tensor_cache import TensorCache
+from hl_hgat_tpu_torch.utils import profiling
 
 LAUNCHES = {
     "laguerre_dense_fused": 0,
@@ -404,11 +405,13 @@ def band_operator(l: torch.Tensor, dtype: torch.dtype) -> BandOperator:
     op = _prepared.lookup(l, dtype)
     if op is not None:
         return op
-    op = _prepare_band_operator(l, dtype)
+    with profiling.span("band.prepare"):
+        op = _prepare_band_operator(l, dtype)
     if op.data is l:
         return op
     _prepared.put(l, dtype, op)
     PREPARATIONS["band_operator"] += 1
+    profiling.count("band_prep_bytes", op.data.nbytes)
     return op
 
 
@@ -494,9 +497,11 @@ def band_weights(w: torch.Tensor, cp: int, fp: int, dtype: torch.dtype,
     hit = _weights.lookup(w, tag)
     if hit is not None:
         return hit
-    out = _prepare_band_weights(w, cp, fp, dtype, tag[1])
+    with profiling.span("band.prepare"):
+        out = _prepare_band_weights(w, cp, fp, dtype, tag[1])
     _weights.put(w, tag, out)
     PREPARATIONS["band_weights"] += 1
+    profiling.count("band_prep_bytes", out.nbytes)
     return out
 
 
@@ -611,6 +616,8 @@ def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
     _check_launch(lib, code, "laguerre_dense_fused")
     LAUNCHES["laguerre_dense_fused"] += 1
     BAND_LAUNCHES["laguerre_dense_fused"] += band
+    if band:
+        profiling.count("band_launches")
     check_kernel_outputs("laguerre_dense_fused", out)
     return out
 
@@ -635,6 +642,8 @@ def _terms_fwd_cuda(l, x, k: int) -> torch.Tensor:
     _check_launch(lib, code, "laguerre_terms_dense")
     LAUNCHES["laguerre_terms_dense"] += 1
     BAND_LAUNCHES["laguerre_terms_dense"] += band
+    if band:
+        profiling.count("band_launches")
     check_kernel_outputs("laguerre_terms_dense", out)
     return out
 
@@ -688,6 +697,8 @@ def laguerre_dense_fused_bwd(
         _check_launch(lib, code, "laguerre_dense_fused_bwd")
         LAUNCHES["laguerre_dense_fused_bwd"] += 1
         BAND_LAUNCHES["laguerre_dense_fused_bwd"] += band
+        if band:
+            profiling.count("band_launches")
         check_kernel_outputs("laguerre_dense_fused_bwd", dx, dwdb)
     elif x.numel():
         dx.zero_()
@@ -720,6 +731,8 @@ def laguerre_terms_dense_bwd(l: torch.Tensor, dt: torch.Tensor, k: int) -> torch
     _check_launch(lib, code, "laguerre_terms_dense_bwd")
     LAUNCHES["laguerre_terms_dense_bwd"] += 1
     BAND_LAUNCHES["laguerre_terms_dense_bwd"] += band
+    if band:
+        profiling.count("band_launches")
     check_kernel_outputs("laguerre_terms_dense_bwd", dx)
     return dx
 

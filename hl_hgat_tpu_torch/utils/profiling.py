@@ -15,10 +15,16 @@ The port's own spans and counters (not in the JAX module):
 
 ``span(name)`` marks a layer of the port (``serving.Predictor``: a
 request's loader, pack, transfer, forward and readback; ``train.Trainer``:
-a step's forward, backward and optimizer) and ``count(name, n)`` a count
-at the same boundary (``h2d_bytes`` in the batches' ``to``).  A span
-opened with ``unit=True`` (``serve.request``, ``train.step``) starts a
-unit of work; the spans and counts under it carry its id.  (The kernel
+a step's forward, backward and optimizer; ``models.backbone``: a gated
+pool, ``model.pool``; ``ops.laguerre_dense``: a preparation of band
+operands, ``band.prepare``) and ``count(name, n)`` a count at the same
+boundary (``h2d_bytes`` in the batches' ``to``; ``band_launches`` and
+``band_prep_bytes`` in ``ops.laguerre_dense``).  A span opened with
+``unit=True`` (``serve.request``, ``train.step``) starts a unit of work;
+the spans and counts under it carry its id.  A thread that has opened no
+span (autograd runs a CUDA backward on a thread of its own) counts into
+the one unit open then, its spans children of that unit's root; with none
+or several open, outside any unit.  (The kernel
 launch counters stay where they are counted, ``ops.laguerre_dense.LAUNCHES``
 and ``ops.ell_spmm.LAUNCHES``.)  While tracing is on, each span is also a ``torch.profiler.record_function`` range, so a
 profiler running then shows it on its own timeline, and ``snapshot``
@@ -190,6 +196,7 @@ class _State:
         self.spans: list[list] = []  # [name, start pc ns, end pc ns, parent, unit]
         self.counters: dict = {}  # unit id (None outside one) -> {name: n}
         self.units = 0  # units opened
+        self.open: dict = {}  # unit id -> its root span's index, while the root is open
         self.dropped = 0
         self.anchor = anchor  # (time_ns, perf_counter_ns) read together
 
@@ -198,6 +205,19 @@ class _State:
         if stack is None:
             stack = self.local.stack = []
         return stack
+
+    def context(self) -> tuple:
+        """(parent span index, unit id) for what this thread opens or counts
+        now: its innermost open span's, or, on a thread that has none open,
+        the root's of the one unit open (else none)."""
+        stack = self.stack()
+        if stack:
+            return stack[-1]
+        with self.lock:
+            if len(self.open) == 1:
+                unit, index = next(iter(self.open.items()))
+                return index, unit
+        return None, None
 
     def add(self, unit, counts: dict) -> None:
         with self.lock:
@@ -223,16 +243,17 @@ _NO_SPAN = _NoSpan()
 
 
 class _Span:
-    __slots__ = ("name", "root", "stack", "unit", "record", "range")
+    __slots__ = ("name", "root", "state", "stack", "unit", "record", "range")
 
     def __init__(self, name: str, root: bool):
         self.name, self.root = name, root
 
     def __enter__(self):
         start = time.perf_counter_ns()
-        st = _state
+        st = self.state = _state
         self.stack = st.stack()
-        parent, self.unit = self.stack[-1] if self.stack else (None, None)
+        # a unit opened on a thread with no span open stands alone
+        parent, self.unit = (None, None) if self.root and not self.stack else st.context()
         with st.lock:
             if self.root:
                 self.unit, st.units = st.units, st.units + 1
@@ -242,6 +263,8 @@ class _Span:
             else:
                 index, self.record = None, None
                 st.dropped += 1
+            if self.root:
+                st.open[self.unit] = index
         self.stack.append((index, self.unit))
         self.range = torch.profiler.record_function(self.name)
         self.range.__enter__()
@@ -252,6 +275,9 @@ class _Span:
         self.stack.pop()
         if self.record is not None:
             self.record[2] = time.perf_counter_ns()
+        if self.root:
+            with self.state.lock:
+                self.state.open.pop(self.unit, None)
         return False
 
 
@@ -265,11 +291,11 @@ def span(name: str, unit: bool = False):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` of the unit running on this thread
-    (while tracing is on)."""
+    """Add ``n`` to the counter ``name`` of the unit running on this thread,
+    or of the one unit open where this thread runs none (while tracing is
+    on)."""
     if tracing:
-        stack = _state.stack()
-        _state.add(stack[-1][1] if stack else None, {name: n})
+        _state.add(_state.context()[1], {name: n})
 
 
 def enable() -> None:

@@ -256,3 +256,163 @@ def test_h2d_bytes_are_the_moved_tensors_bytes(samples, model, transfer):
     moved = host.to("meta")
     assert profiling.snapshot().counters == {"h2d_bytes": want}
     assert sum(t.nbytes for t in arrays(moved)) == want
+
+
+def test_a_thread_without_spans_counts_into_the_one_open_unit():
+    """Autograd runs a CUDA backward on a thread of its own: a count or span
+    made there belongs to the one unit open, the span a child of its root;
+    with no unit or two units open it stays outside any."""
+    profiling.enable()
+
+    def work(name):
+        profiling.count(name)
+        with profiling.span(name):
+            pass
+
+    def elsewhere(name):
+        t = threading.Thread(target=work, args=(name,))
+        t.start()
+        t.join(timeout=10)
+
+    elsewhere("before")
+    with profiling.span("step", unit=True):
+        with profiling.span("backward"):
+            elsewhere("inside")
+    elsewhere("after")
+    other, go = threading.Barrier(2), threading.Barrier(2)
+
+    def unit():
+        with profiling.span("req", unit=True):
+            other.wait(timeout=10)
+            go.wait(timeout=10)
+
+    t = threading.Thread(target=unit)
+    t.start()
+    with profiling.span("req", unit=True):
+        other.wait(timeout=10)
+        elsewhere("two_open")
+        go.wait(timeout=10)
+    t.join(timeout=10)
+    snap = profiling.snapshot()
+    assert snap.unit_counters[0] == {"inside": 1}
+    assert snap.unit_counters[None] == {"before": 1, "after": 1, "two_open": 1}
+    assert [s.parent for s in snap.spans if s.name == "req"] == [None, None]  # roots alone
+    parents = {s.name: (s.parent, s.unit) for s in snap.spans if s.name != "req"}
+    step = [s.name for s in snap.spans].index("step")
+    assert parents["inside"] == (step, 0)  # the root, not the other thread's "backward"
+    assert parents["before"] == parents["after"] == parents["two_open"] == (None, None)
+
+
+@pytest.fixture
+def fake_band(monkeypatch):
+    """On the CPU every Laguerre function runs its plain version: each here
+    also does, for a block over ``RESIDENT_ROWS`` rows, what the card's
+    wrapper does around its band launch (the operator from ``band_operator``,
+    one ``band_launches`` count), a backward's from a thread of its own, as
+    autograd runs a CUDA backward.  Returns the launches made."""
+    from hl_hgat_tpu_torch.ops import laguerre_dense as lg
+
+    made = []
+
+    def launch(l, rows, backward):
+        if rows > lg.RESIDENT_ROWS:
+            lg.band_operator(l, torch.float32)
+            made.append(backward)
+            if backward:
+                t = threading.Thread(target=profiling.count, args=("band_launches",))
+                t.start()
+                t.join(timeout=10)
+            else:
+                profiling.count("band_launches")
+
+    def wrap(name, backward):
+        plain = getattr(lg, name)
+
+        def run(l, x, *rest):
+            launch(l, x.shape[-2], backward)
+            return plain(l, x, *rest)
+        monkeypatch.setattr(lg, name, run)
+
+    for name in ("laguerre_terms_dense_plain", "laguerre_dense_fused_plain"):
+        wrap(name, False)
+    for name in ("laguerre_terms_dense_bwd_plain", "laguerre_dense_fused_bwd_plain"):
+        wrap(name, True)
+    lg._prepared.clear()
+    yield made
+    lg._prepared.clear()
+
+
+def test_a_brain_step_records_its_pools_and_band_work_a_zinc_step_none(samples, fake_band):
+    from hl_hgat_tpu_torch.complex.dense import collate_dense_shared
+    from hl_hgat_tpu_torch.data.synthetic import synthetic_brain_samples
+
+    brain = synthetic_brain_samples(2, seed=0, n_rois=48, t_len=32, num_pool=2)
+    levels = brain[0].levels  # L1 of 245, 171 and 74 rows
+    m, meta = presets.hgat_attpool(
+        channels=(1, 1, 1), filters=(8, 8, 16), k=3, mlp_channels=(8,), pool_num=2,
+        nodes_per_graph=levels[2].num_nodes, edges_per_graph=levels[2].num_edges,
+        fine_nodes_per_graph=levels[0].num_nodes, fine_edges_per_graph=levels[0].num_edges,
+        device="cpu")
+    trainer = Trainer(m, TrainerConfig(task=meta["task"]), device="cpu")
+    batch = collate_dense_shared(brain).to("cpu")  # torch tensors, cached by identity
+    profiling.enable()
+    for _ in range(2):  # the first step prepares the operators, the second reads the cache
+        trainer.train_step(batch)
+    snap = profiling.snapshot()
+    per_step = len(fake_band) // 2
+    assert fake_band[:per_step] == fake_band[per_step:] and any(fake_band) and not all(fake_band)
+    assert snap.unit_counters[1] == {"band_launches": per_step}
+    prepared = [s for s in snap.spans if s.name == "band.prepare"]
+    assert len(prepared) == 2 and {s.unit for s in prepared} == {0}  # two levels' L1
+    from hl_hgat_tpu_torch.ops import laguerre_dense as lg
+    assert snap.unit_counters[0] == {
+        "band_launches": per_step,
+        "band_prep_bytes": sum(op.data.nbytes for op in (
+            lg.band_operator(lv.l1, torch.float32) for lv in batch.levels[:2]))}
+    names = {s.name: s for s in snap.spans}
+    for s in snap.spans:
+        if s.name in ("model.pool", "band.prepare"):
+            assert snap.spans[s.parent].name in ("train.forward", "model.pool"), s
+    assert [s.unit for s in snap.spans if s.name == "model.pool"] == [0, 0, 1, 1]
+    assert names["model.pool"].end_ns is not None
+
+    profiling.reset()
+    z, zmeta = presets.zinc_pyr(**SMALL, device="cpu", seed=5)
+    Trainer(z, TrainerConfig(task=zmeta["task"]), device="cpu").train_step(
+        collate_dense_packed(samples[:8]))
+    snap = profiling.snapshot()
+    assert {s.name for s in snap.spans} == {"train.step", "train.forward", "train.backward",
+                                             "train.optimizer"}
+    assert snap.counters == {}
+
+
+@pytest.mark.gpu
+def test_on_the_card_a_brain_steps_band_launches_land_in_its_unit():
+    """On the card autograd runs the backward's band launches on its own
+    thread: they count into the step's unit all the same, every launch the
+    step made (forward and backward) and no other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hl_hgat_tpu_torch.complex.dense import collate_dense_shared
+    from hl_hgat_tpu_torch.data.synthetic import synthetic_brain_samples
+    from hl_hgat_tpu_torch.ops import laguerre_dense as lg
+
+    brain = synthetic_brain_samples(2, seed=0, n_rois=48, t_len=32, num_pool=2)
+    levels = brain[0].levels
+    m, meta = presets.hgat_attpool(
+        channels=(1, 1, 1), filters=(8, 8, 16), k=3, mlp_channels=(8,), pool_num=2,
+        nodes_per_graph=levels[2].num_nodes, edges_per_graph=levels[2].num_edges,
+        fine_nodes_per_graph=levels[0].num_nodes, fine_edges_per_graph=levels[0].num_edges,
+        device="cuda")
+    trainer = Trainer(m, TrainerConfig(task=meta["task"]), device="cuda")
+    batch = collate_dense_shared(brain).to("cuda")
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    before = dict(lg.BAND_LAUNCHES)
+    profiling.enable()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    snap = profiling.snapshot()
+    made = {k: lg.BAND_LAUNCHES[k] - before[k] for k in before}
+    assert made["laguerre_terms_dense_bwd"] > 0
+    assert snap.unit_counters == {0: {"band_launches": sum(made.values())}}
