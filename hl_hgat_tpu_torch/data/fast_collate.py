@@ -6,16 +6,19 @@ graph's Laplacian COO, boundary, masks, degrees, features and pooling
 operators into block-diagonal dense blocks with ~15 small NumPy calls per
 graph.  Here
 
-* `FlatSamples` flattens the dataset once into contiguous arenas
-  (concatenated COO, edge and feature arrays with prefix offsets),
+* `FlatSamples` flattens the dataset (or a serving request,
+  ``serving.RequestPacker``) once into contiguous arenas (concatenated COO,
+  edge and feature arrays with prefix offsets) of what its transfer reads,
 * `pack_indices` plans the bins (first-fit-decreasing under four sort
   keys) in one C call (``csrc/hlhgat_pack.cpp::ffd_pack``),
 * `collate_packed_fast` fills a batch with three C calls per level
   (``csrc/hlhgat_native.cpp::packed_fill_*``, through ``native.py``); Python
-  only turns the bins into slot offsets, and
+  only turns the bins into slot offsets,
 * `collate_packed_compact` emits the same placements in the compact
   transfer format of ``complex/compact.py`` (vectorised NumPy), which the
-  trainer densifies on the card.
+  trainer densifies on the card, and
+* `PackedBatches` makes a loader bucket's or a request's batches under one
+  set of pinned shapes.
 
 `collate_packed_fast` equals `collate_dense_packed` array for array (the
 tests assert it); there is no NumPy branch inside it: a caller that wants
@@ -25,12 +28,19 @@ the NumPy collate calls it by name.
 from __future__ import annotations
 
 import dataclasses
+import math
+import operator
 
 import numpy as np
 
 from hl_hgat_tpu_torch import native
 from hl_hgat_tpu_torch.complex.build import GraphSample
 from hl_hgat_tpu_torch.complex.dense import _ROW_MULTIPLE, DenseBatch, DenseLevel, DensePool
+
+
+def _rnd(x: int, m: int) -> int:
+    """``x`` rounded up to a multiple of ``m``, at least ``m``."""
+    return max(-(-int(x) // m) * m, m)
 
 
 def _prefix(counts) -> np.ndarray:
@@ -42,6 +52,9 @@ def _prefix(counts) -> np.ndarray:
 
 @dataclasses.dataclass
 class _FlatLevel:
+    """One level's arenas; the ``l0_*``/``l1_*`` COO fields are None in
+    arenas made for the derived transfer."""
+
     num_nodes: np.ndarray  # [N] int32
     num_edges: np.ndarray  # [N] int32
     l0_off: np.ndarray  # [N+1] int64
@@ -58,36 +71,54 @@ class _FlatLevel:
     max_eig: np.ndarray  # [N] float64, λmax of the unscaled L0 per graph
 
 
-class FlatSamples:
-    """Once-per-dataset contiguous arenas of a sample list, level by level."""
+_SAMPLE_FIELDS = operator.attrgetter("levels", "x_t", "x_s", "y")
+_LEVEL_FIELDS = operator.attrgetter("num_nodes", "num_edges", "src", "dst", "max_eig")
+_COO_FIELDS = operator.attrgetter("l0_rows", "l0_cols", "l0_vals", "l1_rows", "l1_cols",
+                                  "l1_vals")
 
-    def __init__(self, samples: list[GraphSample]):
+
+class FlatSamples:
+    """Contiguous arenas of a sample list, level by level: once a dataset
+    for the training loader, once a request for the Predictor's packer.
+    ``transfer`` names the collate that reads them: ``"dense"`` (the
+    default) reads every arena; ``"compact"`` reads no feature arena
+    (``x_t``/``x_s`` None) and ``"derived"`` no L0/L1 COO arena either
+    (their ``l0_*``/``l1_*`` fields None).  Each sample's feature rows stay
+    where they are: the compact collate gathers them once, straight into
+    its batch (`feature_rows`)."""
+
+    def __init__(self, samples: list[GraphSample], *, transfer: str = "dense"):
         self.depth = len(samples[0].levels)
         self.levels: list[_FlatLevel] = []
         i32 = lambda a: np.ascontiguousarray(a, np.int32)  # noqa: E731
         f32 = lambda a: np.ascontiguousarray(a, np.float32)  # noqa: E731
         cat = np.concatenate
+        # one pass over each object's fields (a serving request's samples
+        # are cold in the cache), the columns then concatenated
+        levels, x_t, x_s, ys = zip(*map(_SAMPLE_FIELDS, samples))
         for lv in range(self.depth):
-            sts = [s.levels[lv] for s in samples]
+            sts = [lvls[lv] for lvls in levels]
+            num_nodes, num_edges, src, dst, max_eig = zip(*map(_LEVEL_FIELDS, sts))
+            ops = dict.fromkeys(f"{op}_{part}" for op in ("l0", "l1")
+                                for part in ("off", "rows", "cols", "vals"))
+            if transfer != "derived":
+                l0_rows, l0_cols, l0_vals, l1_rows, l1_cols, l1_vals = zip(
+                    *map(_COO_FIELDS, sts))
+                ops.update(
+                    l0_off=_prefix([r.size for r in l0_rows]), l0_rows=i32(cat(l0_rows)),
+                    l0_cols=i32(cat(l0_cols)), l0_vals=f32(cat(l0_vals)),
+                    l1_off=_prefix([r.size for r in l1_rows]), l1_rows=i32(cat(l1_rows)),
+                    l1_cols=i32(cat(l1_cols)), l1_vals=f32(cat(l1_vals)))
             self.levels.append(_FlatLevel(
-                num_nodes=i32([st.num_nodes for st in sts]),
-                num_edges=i32([st.num_edges for st in sts]),
-                l0_off=_prefix([st.l0_rows.size for st in sts]),
-                l0_rows=i32(cat([st.l0_rows for st in sts])),
-                l0_cols=i32(cat([st.l0_cols for st in sts])),
-                l0_vals=f32(cat([st.l0_vals for st in sts])),
-                l1_off=_prefix([st.l1_rows.size for st in sts]),
-                l1_rows=i32(cat([st.l1_rows for st in sts])),
-                l1_cols=i32(cat([st.l1_cols for st in sts])),
-                l1_vals=f32(cat([st.l1_vals for st in sts])),
-                e_off=_prefix([st.src.size for st in sts]),
-                src=i32(cat([st.src for st in sts])),
-                dst=i32(cat([st.dst for st in sts])),
-                max_eig=np.asarray([st.max_eig for st in sts], np.float64),
-            ))
+                num_nodes=i32(num_nodes), num_edges=i32(num_edges),
+                e_off=_prefix([e.size for e in src]), src=i32(cat(src)), dst=i32(cat(dst)),
+                max_eig=np.asarray(max_eig, np.float64), **ops))
         self.n_off = _prefix(self.levels[0].num_nodes)
-        self.x_t = f32(cat([s.x_t for s in samples]))
-        self.x_s = f32(cat([s.x_s for s in samples]))
+        self.feature_dims = (x_t[0].shape[1], x_s[0].shape[1])
+        self._features = {"x_t": x_t, "x_s": x_s}
+        dense = transfer == "dense"
+        self.x_t = f32(cat(x_t)) if dense else None
+        self.x_s = f32(cat(x_s)) if dense else None
         # pools[k]: flattened fine→coarse assignments (−1 = dropped)
         self.c_node: list[np.ndarray] = []
         self.c_edge: list[np.ndarray] = []
@@ -100,19 +131,44 @@ class FlatSamples:
             self.c_edge.append(np.ascontiguousarray(cat(ces), np.int64))
             self.cn_off.append(_prefix([c.size for c in cns]))
             self.ce_off.append(_prefix([c.size for c in ces]))
-        ys = [np.asarray(s.y, np.float32) for s in samples]
-        flat_ys = [y.reshape(-1) for y in ys]
+        # the labels flattened in one call, seen in both layouts below
+        y_flat = cat(ys, axis=None, dtype=np.float32)
+        self.y_trailing = np.shape(ys[0])[1:]
         # ragged labels (per edge) have no per-graph table
-        self.y_graph = (np.ascontiguousarray(np.stack(flat_ys))
-                        if len({y.shape for y in flat_ys}) == 1 else None)
+        self.y_graph = (y_flat.reshape(len(ys), -1)
+                        if len({np.size(y) for y in ys}) == 1 else None)
         # per-edge labels share the level-0 edge arena's layout
-        self.y_edge = np.ascontiguousarray(cat([y.reshape(y.shape[0], -1) for y in ys]))
+        self.y_edge = y_flat.reshape(-1, math.prod(self.y_trailing))
         self.y_edge_feat = self.y_edge.shape[1]
-        self.y_trailing = ys[0].shape[1:]
         self.count = len(samples)
 
     def __len__(self) -> int:
         return self.count
+
+    def feature_rows(self, name: str, sample_idx: np.ndarray, out: np.ndarray) -> None:
+        """Samples ``sample_idx``'s rows of ``name`` (``"x_t"`` or
+        ``"x_s"``), one sample after another, written into ``out``."""
+        parts = self._features[name]
+        np.concatenate([parts[i] for i in sample_idx.tolist()], out=out)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes the arenas hold (a buffer shared by two of them counted once)."""
+        arrays = [a for fl in self.levels for a in vars(fl).values()]
+        arrays += [self.n_off, self.x_t, self.x_s, self.y_graph, self.y_edge, *self.c_node,
+                   *self.c_edge, *self.cn_off, *self.ce_off]
+        buffers = {}
+        for a in arrays:
+            if a is not None:
+                owner = a if a.base is None else a.base
+                buffers[id(owner)] = owner.nbytes
+        return sum(buffers.values())
+
+
+def _segment_sums(flags: np.ndarray, off: np.ndarray) -> np.ndarray:
+    """Per segment [off[i], off[i+1]) of ``flags``, its count of True."""
+    c = np.concatenate([[0], np.cumsum(flags.astype(np.int64))])
+    return c[off[1:]] - c[off[:-1]]
 
 
 # Deterministic FFD sort keys, the same as complex/dense.py::_PACK_SORT_KEYS
@@ -323,9 +379,7 @@ def collate_packed_compact(
     (s0, e0) = pl.caps[0]
     rows0 = flat_positions(bin_of, pl.offs_n[0], lvl0.num_nodes[sample_idx], s0)
     cols0 = flat_positions(bin_of, pl.offs_e[0], lvl0.num_edges[sample_idx], e0)
-    ft, fs = flat.x_t.shape[1], flat.x_s.shape[1]
-    xt_rows = flat.x_t[_gather_ranges(flat.n_off, sample_idx)]
-    xs_rows = flat.x_s[_gather_ranges(lvl0.e_off, sample_idx)]
+    ft, fs = flat.feature_dims
     n_flat, e_flat = nb * s0, nb * e0
     if row_caps is not None:
         ncap, ecap = row_caps
@@ -337,10 +391,11 @@ def collate_packed_compact(
     if rows0.size > ncap or cols0.size > ecap:
         raise ValueError(f"feature rows ({rows0.size}, {cols0.size}) exceed row_caps "
                          f"({ncap}, {ecap})")
+    # each slot's rows, gathered straight into the padded arrays
     x_t = np.zeros((ncap, ft), np.float32)
-    x_t[: rows0.size] = xt_rows
+    flat.feature_rows("x_t", sample_idx, x_t[: rows0.size])
     x_s = np.zeros((ecap, fs), np.float32)
-    x_s[: cols0.size] = xs_rows
+    flat.feature_rows("x_s", sample_idx, x_s[: cols0.size])
     # padding entries point one past the last row: the dump row
     x_t_rows = _pad_ids(rows0, ncap, n_flat, n_flat)
     x_s_rows = _pad_ids(cols0, ecap, e_flat, e_flat)
@@ -382,3 +437,91 @@ def collate_packed_compact(
     return CompactBatch(x_t=x_t, x_s=x_s, y=y, levels=tuple(levels), pools=tuple(pools),
                         num_graphs=ng, x_t_rows=x_t_rows, x_s_rows=x_s_rows,
                         y_packed=y_per_edge)
+
+
+def batch_row_pad(counts: np.ndarray, batch_size: int) -> int:
+    """The rows a batch of ``batch_size`` of these graphs may need: the sum
+    of the ``batch_size`` largest ``counts``, a set smaller than a batch
+    filled with its smallest, rounded up to ``_ROW_MULTIPLE``."""
+    counts = np.asarray(counts, np.int64)
+    k = min(batch_size, counts.size)
+    top = np.partition(counts, counts.size - k)[counts.size - k:]
+    return _rnd(int(top.sum()) + (batch_size - k) * int(top.min()), _ROW_MULTIPLE)
+
+
+def filler_index(num_nodes: np.ndarray, num_edges: np.ndarray) -> int:
+    """The graph that fills a short final batch: the smallest by nodes +
+    edges, the first such."""
+    return int(np.argmin(np.asarray(num_nodes, np.int64) + num_edges))
+
+
+class PackedBatches:
+    """Packed batches of ``flat``'s graphs under one set of shapes: a
+    training loader's bucket, or one serving request.  Called with a
+    batch's indices into ``flat``, it plans the bins (`pack_indices`) and
+    collates them in ``transfer``'s format: ``"dense"`` with the block count
+    rounded up to a multiple of 16, ``"compact"`` / ``"derived"`` with the
+    block count and entry caps pinned (seeded from the first batch with a
+    margin, raised only where a batch exceeds them) and the feature rows
+    fixed by ``row_pads``, the worst-case level-0 (node, edge) row totals
+    (`batch_row_pad`).  Coarse levels are packed on level 0's caps, which
+    bound them."""
+
+    def __init__(self, flat: FlatSamples, *, transfer: str, node_cap: int, edge_cap: int,
+                 y_per_edge: bool, row_pads: tuple[int, int]):
+        from hl_hgat_tpu_torch.complex.compact import ROW_MULTIPLE
+
+        if transfer not in ("dense", "compact", "derived"):
+            raise ValueError(f"unknown transfer {transfer!r}")
+        self.flat, self.transfer, self.y_per_edge = flat, transfer, y_per_edge
+        self.node_cap, self.edge_cap = node_cap, edge_cap
+        self.row_caps = tuple(_rnd(x, ROW_MULTIPLE) for x in row_pads)
+        self.pins: dict | None = None
+        if transfer != "dense":
+            # per-sample counts of kept pool entries (assignment >= 0)
+            self.pool_kept = [
+                tuple(_segment_sums(c >= 0, off) for c, off in (
+                    (flat.c_node[lv], flat.cn_off[lv]), (flat.c_edge[lv], flat.ce_off[lv])))
+                for lv in range(flat.depth - 1)]
+
+    def caps(self, idx: np.ndarray, n_bins: int):
+        """The pinned (num_blocks, nnz_caps, pool_caps) of a batch of
+        ``n_bins`` bins; an operator arena ``flat`` lacks (a derived
+        request's) needs no entries."""
+        from hl_hgat_tpu_torch.complex.compact import NNZ_MULTIPLE
+
+        need = {"blocks": n_bins, "nnz": [], "pool": []}
+        for fl in self.flat.levels:
+            need["nnz"].append(tuple(0 if off is None else int((off[idx + 1] - off[idx]).sum())
+                                     for off in (fl.l0_off, fl.l1_off, fl.e_off)))
+        for t, s in self.pool_kept:
+            need["pool"].append(max(int(t[idx].sum()), int(s[idx].sum())))
+        margin = lambda x, m: _rnd(x + max(x // 16, m // 2), m)  # noqa: E731
+        pins = self.pins
+        if pins is None:
+            self.pins = pins = {
+                "blocks": _rnd(need["blocks"] + 4, 4),
+                "nnz": [tuple(margin(x, NNZ_MULTIPLE) for x in tri) for tri in need["nnz"]],
+                "pool": [margin(x, NNZ_MULTIPLE) for x in need["pool"]]}
+        else:  # raise any exceeded field
+            if need["blocks"] > pins["blocks"]:
+                pins["blocks"] = _rnd(need["blocks"] + 4, 4)
+            pins["nnz"] = [tuple(margin(x, NNZ_MULTIPLE) if x > c else c
+                                 for x, c in zip(tri, cur))
+                           for tri, cur in zip(need["nnz"], pins["nnz"])]
+            pins["pool"] = [margin(x, NNZ_MULTIPLE) if x > c else c
+                            for x, c in zip(need["pool"], pins["pool"])]
+        return pins["blocks"], pins["nnz"], pins["pool"]
+
+    def __call__(self, idx: np.ndarray):
+        flat = self.flat
+        bins = pack_indices(flat, idx, self.node_cap, self.edge_cap)
+        kw = dict(node_cap=self.node_cap, edge_cap=self.edge_cap, y_per_edge=self.y_per_edge,
+                  bins=bins, level_caps=[(self.node_cap, self.edge_cap)] * (flat.depth - 1))
+        if self.transfer == "dense":
+            return collate_packed_fast(flat, idx, num_blocks=_rnd(len(bins), 16), **kw)
+        num_blocks, nnz_caps, pool_caps = self.caps(idx, len(bins))
+        return collate_packed_compact(
+            flat, idx, num_blocks=num_blocks, nnz_caps=nnz_caps, pool_caps=pool_caps,
+            operators="derived" if self.transfer == "derived" else "coo",
+            row_caps=self.row_caps, **kw)

@@ -16,18 +16,8 @@ import numpy as np
 import torch
 
 from hl_hgat_tpu_torch.complex.build import GraphSample, LevelPad, attach_link_pairs, collate
-from hl_hgat_tpu_torch.complex.compact import NNZ_MULTIPLE, ROW_MULTIPLE
-from hl_hgat_tpu_torch.complex.dense import _ROW_MULTIPLE
 from hl_hgat_tpu_torch.data.fast_collate import (
-    FlatSamples, collate_packed_compact, collate_packed_fast, pack_indices)
-
-
-def _sample_cost(s: GraphSample) -> int:
-    return s.num_nodes + s.num_edges
-
-
-def _rnd(x: int, m: int) -> int:
-    return max(-(-int(x) // m) * m, m)
+    FlatSamples, PackedBatches, batch_row_pad, filler_index)
 
 
 @dataclasses.dataclass
@@ -84,7 +74,12 @@ class BucketedLoader:
         if self.variants > 1 and len(self.samples) % self.variants:
             raise ValueError(f"{len(self.samples)} samples not divisible by "
                              f"variants={self.variants}")
-        costs = np.asarray([_sample_cost(s) for s in self.samples])
+        depth = len(self.samples[0].levels)
+        # per level, each sample's node, edge, L0 and L1 entry counts
+        sizes = [np.asarray([(st.num_nodes, st.num_edges, st.l0_rows.size, st.l1_rows.size)
+                             for st in (s.levels[lv] for s in self.samples)], np.int64)
+                 for lv in range(depth)]
+        costs = sizes[0][:, 0] + sizes[0][:, 1]
         if self.variants > 1:
             # bucket by group (its worst variant): every roll of a graph
             # lands in one bucket, so shapes stay fixed across epochs
@@ -94,78 +89,30 @@ class BucketedLoader:
             self._bucket_of = np.searchsorted(qs, costs)
         else:
             self._bucket_of = np.zeros(len(self.samples), np.int64)
-        # per-bucket pad spec: the sums of the bucket's batch_size largest
-        # samples, each resource on its own
+        # per bucket: its pad spec, the sums of its batch_size largest
+        # samples, each resource on its own, and its smallest member, the
+        # filler of short final batches
         self._pads: list[list[LevelPad]] = []
-        depth = len(self.samples[0].levels)
-        for b in range(self.num_buckets):
-            idx = np.nonzero(self._bucket_of == b)[0]
-            members = [self.samples[i] for i in idx] or list(self.samples)
-            pads = []
-            for lv in range(depth):
-                def worst(key):
-                    vals = sorted((key(s.levels[lv]) for s in members), reverse=True)
-                    total = sum(vals[: self.batch_size])
-                    # a bucket smaller than batch_size is filled with its
-                    # smallest member
-                    if len(vals) < self.batch_size:
-                        total += (self.batch_size - len(vals)) * vals[-1]
-                    return _rnd(total, _ROW_MULTIPLE)
-
-                pads.append(LevelPad(
-                    nodes=worst(lambda st: st.num_nodes), edges=worst(lambda st: st.num_edges),
-                    nnz0=worst(lambda st: st.l0_rows.size),
-                    nnz1=worst(lambda st: st.l1_rows.size)))
-            self._pads.append(pads)
-        # per-bucket smallest member, the filler of short final batches
         self._filler_idx: list[int] = []
         for b in range(self.num_buckets):
             idx = np.nonzero(self._bucket_of == b)[0]
-            cand = idx if idx.size else np.arange(len(self.samples))
-            self._filler_idx.append(int(min(cand, key=lambda i: _sample_cost(self.samples[i]))))
+            if not idx.size:
+                idx = np.arange(len(self.samples))
+            self._pads.append([
+                LevelPad(*(batch_row_pad(col, self.batch_size) for col in size[idx].T))
+                for size in sizes])
+            self._filler_idx.append(int(idx[filler_index(sizes[0][idx, 0], sizes[0][idx, 1])]))
         if self.layout == "dense_packed":
             # flattened once for the per-epoch native collate
-            self._flat = FlatSamples(list(self.samples))
-            # Pinned per-bucket caps of the compact/derived transfer, seeded
-            # from the bucket's first batch with a margin and raised only
-            # when a batch exceeds them: one set of shapes per bucket.
-            self._compact_pins: dict[int, dict] = {}
-            if self.transfer in ("compact", "derived"):
-                def seg_counts(flags, off):
-                    c = np.concatenate([[0], np.cumsum(flags.astype(np.int64))])
-                    return c[off[1:]] - c[off[:-1]]
-
-                # per-sample counts of kept pool entries (assignment >= 0)
-                self._pool_valid = [
-                    (seg_counts(self._flat.c_node[lv] >= 0, self._flat.cn_off[lv]),
-                     seg_counts(self._flat.c_edge[lv] >= 0, self._flat.ce_off[lv]))
-                    for lv in range(self._flat.depth - 1)]
+            self._flat = FlatSamples(list(self.samples), transfer=self.transfer)
+            # one set of shapes per bucket: its pinned caps of the
+            # compact/derived transfer and its worst-case level-0 row totals
+            self._packers = [
+                PackedBatches(self._flat, transfer=self.transfer, node_cap=self.node_cap,
+                              edge_cap=self.edge_cap, y_per_edge=self.y_per_edge,
+                              row_pads=(pads[0].nodes, pads[0].edges))
+                for pads in self._pads]
         self._epoch = 0
-
-    def _compact_caps(self, bucket: int, idx: np.ndarray, n_bins: int):
-        """Pinned (num_blocks, nnz_caps, pool_caps) for one batch."""
-        need = {"blocks": n_bins, "nnz": [], "pool": []}
-        for fl in self._flat.levels:
-            need["nnz"].append(tuple(int((off[idx + 1] - off[idx]).sum())
-                                     for off in (fl.l0_off, fl.l1_off, fl.e_off)))
-        for t, s in self._pool_valid:
-            need["pool"].append(max(int(t[idx].sum()), int(s[idx].sum())))
-        margin = lambda x, m: _rnd(x + max(x // 16, m // 2), m)  # noqa: E731
-        pins = self._compact_pins.get(bucket)
-        if pins is None:
-            pins = {"blocks": _rnd(need["blocks"] + 4, 4),
-                    "nnz": [tuple(margin(x, NNZ_MULTIPLE) for x in tri) for tri in need["nnz"]],
-                    "pool": [margin(x, NNZ_MULTIPLE) for x in need["pool"]]}
-            self._compact_pins[bucket] = pins
-        else:  # raise any exceeded field
-            if need["blocks"] > pins["blocks"]:
-                pins["blocks"] = _rnd(need["blocks"] + 4, 4)
-            pins["nnz"] = [tuple(margin(x, NNZ_MULTIPLE) if x > c else c
-                                 for x, c in zip(tri, cur))
-                           for tri, cur in zip(need["nnz"], pins["nnz"])]
-            pins["pool"] = [margin(x, NNZ_MULTIPLE) if x > c else c
-                            for x, c in zip(need["pool"], pins["pool"])]
-        return pins["blocks"], pins["nnz"], pins["pool"]
 
     @property
     def pad_specs(self) -> list[list[LevelPad]]:
@@ -202,7 +149,7 @@ class BucketedLoader:
                 n_fill = self.batch_size - len(chunk) if self.pad_final else 0
                 idx = np.concatenate([chunk, np.full(n_fill, self._filler_idx[b])]).astype(np.int64)
                 if self.layout == "dense_packed":
-                    yield self._cast_features(self._packed(b, idx))
+                    yield self._cast_features(self._packers[b](idx))
                     continue
                 batch_samples = [self.samples[j] for j in idx]
                 batch = self._cast_features(collate(
@@ -215,23 +162,6 @@ class BucketedLoader:
                         np.random.default_rng(self.seed * 100003 + ep * 131 + i),
                         n_queries=nq, n_neg=nneg)
                 yield batch
-
-    def _packed(self, bucket: int, idx: np.ndarray):
-        bins = pack_indices(self._flat, idx, self.node_cap, self.edge_cap)
-        kw = dict(node_cap=self.node_cap, edge_cap=self.edge_cap, y_per_edge=self.y_per_edge,
-                  bins=bins,
-                  # coarse levels are smaller than level 0, whose caps bound them
-                  level_caps=[(self.node_cap, self.edge_cap)] * (self._flat.depth - 1))
-        if self.transfer == "dense":
-            return collate_packed_fast(self._flat, idx, num_blocks=_rnd(len(bins), 16), **kw)
-        num_blocks, nnz_caps, pool_caps = self._compact_caps(bucket, idx, len(bins))
-        # feature rows fixed per bucket: its worst-case level-0 row totals
-        pad0 = self._pads[bucket][0]
-        row_caps = (_rnd(pad0.nodes, ROW_MULTIPLE), _rnd(pad0.edges, ROW_MULTIPLE))
-        return collate_packed_compact(
-            self._flat, idx, num_blocks=num_blocks, nnz_caps=nnz_caps, pool_caps=pool_caps,
-            operators="derived" if self.transfer == "derived" else "coo",
-            row_caps=row_caps, **kw)
 
     def _cast_features(self, batch):
         if self.feature_dtype == "float32":

@@ -9,16 +9,18 @@
     edge_preds = Predictor(model, edge_level=True, edge_cap=512)(samples)
                                                   # one [e_i, 1] array a graph
 
-Samples ride the training fast path: ``data/loader.py::BucketedLoader``
-(one bucket, no shuffle, packed blocks, ``transfer="derived"`` by default:
-B1 and the spectral scales cross to the card and ``maybe_inflate``
-rebuilds the operators there), and the forward runs in eval mode (BN on
-running statistics, no dropout) under ``torch.inference_mode``.  A short
-final batch is filled with the loader's filler graph, whose rows are
-stripped, so outputs align 1:1 with the inputs.  Every graph must fit one
-block of (node_cap, edge_cap) rows, as in the JAX loader: a larger one
-raises (batches with graphs spanning blocks are trained and evaluated
-through ``train.Trainer``).
+A request rides a packer of its own (``RequestPacker``): the packed
+blocks of the training loader (``data/loader.py::BucketedLoader``: one
+bucket, no shuffle, ``transfer="derived"`` by default: B1 and the spectral
+scales cross to the card and ``maybe_inflate`` rebuilds the operators
+there), the same batches array for array, made from arenas of only what the
+transfer ships, gathered once for the request and dropped with it.  The
+forward runs in eval mode (BN on running statistics, no dropout) under
+``torch.inference_mode``.  A short final batch is filled with the request's
+smallest graph, whose rows are stripped, so outputs align 1:1 with the
+inputs.  Every graph must fit one block of (node_cap, edge_cap) rows, as in
+the JAX loader: a larger one raises (batches with graphs spanning blocks
+are trained and evaluated through ``train.Trainer``).
 
     model, _ = presets.hgat_attpool(...)          # the brain family
     out = BrainPredictor(model, levels, pools)(timeseries)
@@ -29,9 +31,11 @@ rides one ``collate_dense_shared`` batch layout, one operator a level.
 
 With the port's tracing on (``utils/profiling.py``), a ``Predictor`` call
 is the unit ``serve.request`` and its layers are the spans
-``serve.loader`` (the loader's set-up), ``serve.pack`` (a batch's collate),
-``serve.transfer``, ``serve.forward`` (inflate and the forward, issued)
-and ``serve.readback`` (the host waiting for the answer).
+``serve.loader`` (the request packer's set-up: arenas, row pads, filler),
+``serve.pack`` (a batch's collate), ``serve.transfer``, ``serve.forward``
+(inflate and the forward, issued) and ``serve.readback`` (the host waiting
+for the answer); the counter ``request_arena_bytes`` is what the request's
+arenas hold.
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ from hl_hgat_tpu_torch.complex.build import GraphSample
 from hl_hgat_tpu_torch.complex.compact import level_edge_mask, maybe_inflate
 from hl_hgat_tpu_torch.complex.dense import DenseBatch, collate_dense_shared
 from hl_hgat_tpu_torch.data.datasets import brain_sample
-from hl_hgat_tpu_torch.data.loader import BucketedLoader
+from hl_hgat_tpu_torch.data.fast_collate import (
+    FlatSamples, PackedBatches, batch_row_pad, filler_index)
 from hl_hgat_tpu_torch.device import resolve_device
 from hl_hgat_tpu_torch.train.checkpoint import restore_checkpoint
 from hl_hgat_tpu_torch.utils import profiling
@@ -57,12 +62,44 @@ from hl_hgat_tpu_torch.utils import profiling
 RECOMMENDED_THROUGHPUT_BATCH = 384
 
 
+class RequestPacker:
+    """One request's packed batches, in input order: those of
+    ``BucketedLoader(samples, batch_size, shuffle=False, num_buckets=1,
+    layout="dense_packed", ...)`` array for array, made from the request's
+    own arenas (`FlatSamples`), which hold only what ``transfer`` ships.
+    The feature-row pads (`batch_row_pad`), the filler of a short final
+    batch (`filler_index`) and the pinned caps hold for this request
+    alone."""
+
+    def __init__(self, samples: Sequence[GraphSample], *, batch_size: int, node_cap: int,
+                 edge_cap: int, transfer: str, y_per_edge: bool):
+        self.flat = FlatSamples(list(samples), transfer=transfer)
+        self.batch_size = batch_size
+        lvl0 = self.flat.levels[0]
+        self.filler = filler_index(lvl0.num_nodes, lvl0.num_edges)
+        self.batches = PackedBatches(
+            self.flat, transfer=transfer, node_cap=node_cap, edge_cap=edge_cap,
+            y_per_edge=y_per_edge, row_pads=(batch_row_pad(lvl0.num_nodes, batch_size),
+                                             batch_row_pad(lvl0.num_edges, batch_size)))
+
+    def __len__(self) -> int:
+        return -(-len(self.flat) // self.batch_size)
+
+    def __iter__(self):
+        count, bs = len(self.flat), self.batch_size
+        for lo in range(0, count, bs):
+            idx = np.arange(lo, lo + bs, dtype=np.int64)
+            idx[idx >= count] = self.filler
+            yield self.batches(idx)
+
+
 class Predictor:
-    """Deterministic forward over loader-fed packed batches.
+    """Deterministic forward over packed batches, a ``RequestPacker`` a
+    request.
     ``edge_level=True`` returns one unpadded array per input graph
     (per-edge outputs, TSP); otherwise one leading-axis row per graph.
-    ``transfer`` is the loader's: ``"derived"`` (default), ``"compact"``
-    or ``"dense"``."""
+    ``transfer`` is the packed collate's: ``"derived"`` (default),
+    ``"compact"`` or ``"dense"``."""
 
     def __init__(
         self,
@@ -96,7 +133,9 @@ class Predictor:
         restore_checkpoint(ckpt_dir, self.model)
         return self
 
-    def loader(self, samples: Sequence[GraphSample]) -> BucketedLoader:
+    def loader(self, samples: Sequence[GraphSample]) -> RequestPacker:
+        """The request packer of ``samples``; iterating it makes the
+        request's host batches."""
         with profiling.span("serve.loader"):
             # serving inputs may be unlabeled; the collate wants a y array
             samples = [
@@ -105,13 +144,15 @@ class Predictor:
                 if s.y is None else s
                 for s in samples
             ]
-            return BucketedLoader(
-                samples, batch_size=min(self.batch_size, len(samples)), shuffle=False,
-                num_buckets=1, layout="dense_packed", node_cap=self.node_cap,
+            packer = RequestPacker(
+                samples, batch_size=min(self.batch_size, len(samples)), node_cap=self.node_cap,
                 edge_cap=self.edge_cap, transfer=self.transfer, y_per_edge=self.edge_level)
+            if profiling.tracing:
+                profiling.count("request_arena_bytes", packer.flat.nbytes)
+            return packer
 
     def collate(self, samples: Sequence[GraphSample]):
-        """The first batch the loader makes of ``samples``, on the
+        """The first batch the request packer makes of ``samples``, on the
         predictor's device (a compact batch not yet inflated); a graph over
         the caps raises."""
         return next(iter(self.loader(list(samples)))).to(self.device)

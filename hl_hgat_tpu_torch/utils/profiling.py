@@ -18,8 +18,10 @@ request's loader, pack, transfer, forward and readback; ``train.Trainer``:
 a step's forward, backward and optimizer; ``models.backbone``: a gated
 pool, ``model.pool``; ``ops.laguerre_dense``: a preparation of band
 operands, ``band.prepare``) and ``count(name, n)`` a count at the same
-boundary (``h2d_bytes`` in the batches' ``to``; ``band_launches`` and
-``band_prep_bytes`` in ``ops.laguerre_dense``).  A span opened with
+boundary (``h2d_bytes`` in the batches' ``to``; ``request_arena_bytes``,
+what a serving request's arenas hold, in ``serving.Predictor.loader``;
+``band_launches`` and ``band_prep_bytes`` in ``ops.laguerre_dense``).  A
+span opened with
 ``unit=True`` (``serve.request``, ``train.step``) starts a unit of work;
 the spans and counts under it carry its id.  A thread that has opened no
 span (autograd runs a CUDA backward on a thread of its own) counts into

@@ -32,7 +32,8 @@ from hl_hgat_tpu_torch.complex import augment, compact
 from hl_hgat_tpu_torch.complex.compact import ROW_MULTIPLE
 from hl_hgat_tpu_torch.complex.dense import collate_dense_packed, pack_plan
 from hl_hgat_tpu_torch.data import fast_collate as fast
-from hl_hgat_tpu_torch.data.loader import BucketedLoader, _rnd
+from hl_hgat_tpu_torch.data.fast_collate import _rnd
+from hl_hgat_tpu_torch.data.loader import BucketedLoader
 from hl_hgat_tpu_torch.data.prefetch import prefetch
 from hl_hgat_tpu_torch.data.synthetic import random_simplex_sample, zinc_like_samples
 from hl_hgat_tpu_torch.models import presets
@@ -370,10 +371,10 @@ def test_loader_batch_is_the_compact_collate_of_pack_plans_bins():
     samples = _zinc1024()
     idx = np.random.default_rng(6).permutation(1024)
     kw = dict(batch_size=1024, layout="dense_packed", transfer="derived", shuffle=False)
-    got = BucketedLoader(samples, **kw)._packed(0, idx)
+    got = BucketedLoader(samples, **kw)._packers[0](idx)
     ref = BucketedLoader(samples, **kw)
     bins = pack_plan([samples[i] for i in idx], 128, 128)[0]
-    num_blocks, nnz_caps, pool_caps = ref._compact_caps(0, idx, len(bins))
+    num_blocks, nnz_caps, pool_caps = ref._packers[0].caps(idx, len(bins))
     pad0 = ref.pad_specs[0][0]
     want = fast.collate_packed_compact(
         ref._flat, idx, node_cap=128, edge_cap=128, bins=bins, num_blocks=num_blocks,

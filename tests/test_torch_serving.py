@@ -1,7 +1,10 @@
 """The port's Predictor: input order, filler stripping, unlabeled inputs,
-and agreement with the JAX Predictor on the same weights (CPU)."""
+agreement with the JAX Predictor on the same weights, and its request
+packer's batches equal to the training loader's (CPU)."""
 
 import dataclasses
+import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -12,10 +15,13 @@ import torch
 from hl_hgat_tpu.complex.dense import collate_dense_packed as jcollate
 from hl_hgat_tpu.models import presets as jpresets
 from hl_hgat_tpu.serving import Predictor as JPredictor
+from hl_hgat_tpu_torch.data.loader import BucketedLoader
 from hl_hgat_tpu_torch.data.synthetic import zinc_like_samples
 from hl_hgat_tpu_torch.models import presets
-from hl_hgat_tpu_torch.serving import Predictor
+from hl_hgat_tpu_torch.serving import Predictor, RequestPacker
+from hl_hgat_tpu_torch.utils import profiling
 from hl_hgat_tpu_torch.weights import from_flax_variables
+from test_torch_data import same
 
 SMALL = dict(channels=(1,), filters=(24,), k=3, keig=15, mlp_channels=(8,))
 
@@ -104,21 +110,88 @@ def test_matches_jax_predictor_in_every_transfer(samples, transfer):
 
 
 def test_serves_through_the_bucketed_loader(samples, model):
-    """One bucket, no shuffle, the packed layout, the chosen transfer; the
+    """A request's own packer makes the batches of the training loader
+    (one bucket, no shuffle, the packed layout, the chosen transfer); the
     device batch of a compact transfer is inflated in ``forward``."""
     from hl_hgat_tpu_torch.complex.compact import CompactBatch
     from hl_hgat_tpu_torch.complex.dense import DenseBatch
 
     pred = Predictor(model, batch_size=4, device="cpu")
     loader = pred.loader(samples)
-    assert (loader.num_buckets, loader.shuffle, loader.layout, loader.transfer) == (
-        1, False, "dense_packed", "derived")
-    assert len(loader) == 3
+    assert isinstance(loader, RequestPacker) and loader.batches.transfer == "derived"
+    assert len(loader) == 3 and len(list(loader)) == 3
     batch = pred.collate(samples)
     assert isinstance(batch, CompactBatch) and batch.num_graphs == 4
     dense = Predictor(model, batch_size=4, transfer="dense", device="cpu").collate(samples)
     assert isinstance(dense, DenseBatch)
     np.testing.assert_allclose(pred.forward(batch).numpy(), pred(samples[:4]), rtol=0, atol=0)
+
+
+@functools.cache
+def _tsp():
+    from hl_hgat_tpu_torch.data.synthetic import tsp_like_samples
+
+    return tsp_like_samples(5, seed=4, min_nodes=30, max_nodes=60)
+
+
+@pytest.mark.parametrize("size", ["under_batch", "batch_x2.5"])
+@pytest.mark.parametrize("edge_level", [False, True])
+@pytest.mark.parametrize("transfer", ["dense", "compact", "derived"])
+def test_request_packer_matches_the_bucketed_loader(samples, model, transfer, edge_level, size):
+    """Every host batch of a request, field by field, dtypes included,
+    equals the batch of ``BucketedLoader`` under the arguments the
+    Predictor gave it before it had a packer of its own: one request under
+    ``batch_size``, and one of 2.5 batches whose last is filled with the
+    request's smallest graph.  Some inputs are unlabeled."""
+    if edge_level:
+        graphs, caps = _tsp(), dict(node_cap=128, edge_cap=512)
+        batch_size = 8 if size == "under_batch" else 2
+    else:
+        graphs, caps = samples[:10], dict(node_cap=128, edge_cap=128)
+        batch_size = 16 if size == "under_batch" else 4
+    request = [dataclasses.replace(s, y=None) if i % 3 == 1 else s
+               for i, s in enumerate(graphs)]
+    pred = Predictor(model, batch_size=batch_size, edge_level=edge_level, transfer=transfer,
+                     device="cpu", **caps)
+    got = list(pred.loader(request))
+    labelled = [dataclasses.replace(s, y=np.zeros(s.num_edges if edge_level else 1, np.float32))
+                if s.y is None else s for s in request]
+    want = list(BucketedLoader(labelled, batch_size=min(batch_size, len(request)),
+                               shuffle=False, num_buckets=1, layout="dense_packed",
+                               transfer=transfer, y_per_edge=edge_level, **caps))
+    assert len(got) == len(want) == (1 if size == "under_batch" else 3)
+    for i, (a, b) in enumerate(zip(got, want)):
+        same(a, b, f"batch{i}")
+
+
+def test_request_packer_refuses_a_graph_over_the_caps(samples, model):
+    caps = dict(node_cap=12, edge_cap=12)
+    with pytest.raises(ValueError) as want:
+        list(BucketedLoader(samples, batch_size=4, shuffle=False, layout="dense_packed",
+                            transfer="derived", **caps))
+    with pytest.raises(ValueError, match=re.escape(str(want.value))):
+        Predictor(model, batch_size=4, device="cpu", **caps)(samples)
+
+
+def test_request_arena_bytes_are_counted(samples, model):
+    """A request counts the bytes of the arenas its packer gathers, which
+    leave out the L0/L1 COO arenas where the transfer is derived."""
+    counted = {}
+    try:
+        for transfer in ("derived", "compact"):
+            pred = Predictor(model, batch_size=4, transfer=transfer, device="cpu")
+            profiling.reset()
+            profiling.enable()
+            pred(samples)
+            profiling.disable()
+            counted[transfer] = profiling.snapshot().unit_counters[0]["request_arena_bytes"]
+            flat = pred.loader(samples).flat
+            assert counted[transfer] == flat.nbytes > 0
+            assert (flat.levels[0].l0_rows is None) == (transfer == "derived")
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert counted["derived"] < counted["compact"]
 
 
 @pytest.mark.parametrize("transfer", ["dense", "compact", "derived"])

@@ -210,7 +210,8 @@ def test_a_predictor_request_splits_into_its_layers(samples, model):
     # three batches of four (one filler graph), then the loader's end
     assert _tree(snap) == ([("serve.request", None, 0), ("serve.loader", "serve.request", 0)]
                            + batch * 3 + [("serve.pack", "serve.request", 0)])
-    assert snap.unit_counters == {}  # nothing left the host
+    # nothing left the host; the request's arenas were gathered once
+    assert snap.unit_counters == {0: {"request_arena_bytes": pred.loader(samples).flat.nbytes}}
     req = snap.spans[0]
     inside = sum(s.end_ns - s.start_ns for s in snap.spans if s.parent == 0)
     assert inside <= req.end_ns - req.start_ns
