@@ -142,10 +142,11 @@
    route (float32 TOL, bfloat16 BRAIN_BF16_TOL of max|ref| per output) and,
    in float32, against the flat layout on the ELL kernel (rtol 2e-4, atol
    2e-5: the JAX package's shared-vs-flat test); trained one warm-up step
-   (cuDNN's autotuner picks Inception1D's algorithms) and BRAIN_STEPS
-   ``Trainer(task="brain")`` steps per dtype (14 terms + 13 terms-backward
-   launches a step); forward and step ms with the busy share, peak device
-   memory and the top device operations, beside the same forward and steps
+   (cuDNN's autotuner picks Inception1D's algorithms), one counted step
+   (14 terms + 13 terms-backward launches) and BRAIN_STEPS timed
+   ``Trainer(task="brain")`` steps per dtype; forward and step ms with the
+   busy share, peak device memory and the top device operations, beside
+   the same forward and steps
    on the plain route; forwards and steps on a batch already seen prepare
    no band operator in either dtype; ``abcd_attpool`` at its preset widths
    served once per dtype; a ``[band]`` line for every band shape the phase
@@ -236,8 +237,13 @@
    (TOL); ``examples.gp_brain`` at GP_DEMO over two gloo
    ranks sharing the card (finite losses, equal on both ranks).
 15. Prints one ``{"kernels": [...]}`` line (five kernels; launches summed
-   over every phase's main-path runs, the spawned ranks' included) and,
-   last, the ``{"ok": true, ...}`` line.
+   over every phase's counted main-path calls, the spawned ranks' included)
+   and, last, the ``{"ok": true, ...}`` line.
+
+Launches are counted by the port's recorder (``utils.profiling``,
+``launches.<wrapper>``), which is on only around untimed calls (``counting``)
+and around the in-process CLI runs of phases 12 and 13, whose seconds say
+so; a timed loop runs with it off.
 
 Any failed check exits non-zero before the result lines.  Needs one card;
 exits non-zero without one.
@@ -264,11 +270,16 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-# bf16 dense on the tensor cores; float32-accurate work at its fastest is
-# three TF32 passes (the fused kernels' 3xTF32): 495 / 3 TFLOP/s, above the
-# 67 TFLOP/s of the CUDA cores, so no float32 row can read under its bound
-PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+# the card's peaks, the benchmark's (float32-accurate work at its fastest is
+# three TF32 passes, the fused kernels' 3xTF32, above the 67 TFLOP/s of the
+# CUDA cores, so no float32 row can read under its bound)
+from portbench.counts import HBM_BYTES_PER_S, PEAK_FLOPS
+
+# the hand kernels' wrappers, as the port's recorder names their launches
+# (``launches.<wrapper>``)
+LAGUERRE = ("laguerre_dense_fused", "laguerre_terms_dense", "laguerre_dense_fused_bwd",
+            "laguerre_terms_dense_bwd")
+ELL = ("spmm_ell", "spmm_ell_bwd")
 # the kernels that must hold tensor-core opcodes, in both dtypes, and which
 # opcodes count: the band library's are wgmma (HGMMA) kernels
 MMA_KERNELS = {"laguerre_dense": (("HMMA", "HGMMA"), ("fused_fwd_mma_kernel",
@@ -419,6 +430,31 @@ ANALYSIS_PHASE_S = 90
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+@contextlib.contextmanager
+def counting():
+    """The port's recorder (``utils.profiling``) on around the block, which
+    is an untimed call (a timed one would carry the recorder's profiler
+    ranges): yields a dict that holds the block's counter totals once the
+    block ends.  The recorder is off and empty afterwards."""
+    from hl_hgat_tpu_torch.utils import profiling
+
+    profiling.reset()
+    profiling.enable()
+    counters = {}
+    try:
+        yield counters
+    finally:
+        profiling.disable()
+        counters.update(profiling.snapshot().counters)
+        profiling.reset()
+
+
+def launched(counters, names=LAGUERRE) -> dict:
+    """``{wrapper: launches}`` of the wrappers ``names`` in ``counting``'s
+    counters."""
+    return {name: counters.get(f"launches.{name}", 0) for name in names}
 
 
 def bits(torch, *tensors) -> str:
@@ -578,10 +614,10 @@ def check_terms_pair(torch, lg, dtype, label, lb, x, dt, count, summary, yardsti
         nbytes, flops, count, summary[("laguerre_terms_dense_bwd", dtype)], same_bits=True)
 
 
-def empty_summary(lg):
+def empty_summary():
     return {(name, dtype): dict(ms=0.0, plain_ms=0.0, by_bytes=0.0, by_ops=0.0, bound=0.0,
                                 err=0.0)
-            for name in lg.LAUNCHES for dtype in ("float32", "bfloat16")}
+            for name in LAGUERRE for dtype in ("float32", "bfloat16")}
 
 
 def check_kernels(torch, np, lg, l_blocks, conv_shapes, seed):
@@ -603,7 +639,7 @@ def check_kernels(torch, np, lg, l_blocks, conv_shapes, seed):
     # terms the fused backward holds at once (the terms kernels too)
     off_path = [(s, 3, 100, 72), (s, 8, 64, 64), (96, 6, 128, 128), (s, 10, 64, 64)]
     terms_off_path = [(s, 3, 100), (s, 8, 64), (96, 6, 128), (s, 10, 64)]
-    summary = empty_summary(lg)
+    summary = empty_summary()
     for dtype in ("float32", "bfloat16"):
         td = getattr(torch, dtype)
         l = l_blocks.to(td)
@@ -680,15 +716,15 @@ def compare_train_grads(tag, dtype, got, ref, zero_grad, prefix="train"):
 
 def train_phase(torch, np, model32, samples, host_batch, real_edges, card):
     """A first step and TRAIN_STEPS timed steps per dtype and route through
-    ``Trainer.train_step``; returns the launches summed over all of them."""
+    ``Trainer.train_step``; returns the launches of the first steps, which
+    are counted (the timed ones are not)."""
     from hl_hgat_tpu_torch.complex.dense import collate_dense_packed
     from hl_hgat_tpu_torch.models import presets
     from hl_hgat_tpu_torch.nn import conv
-    from hl_hgat_tpu_torch.ops import laguerre_dense as lg
     from hl_hgat_tpu_torch.train import Trainer, TrainerConfig, l1_loss
 
     cfg = TrainerConfig(task="regression", lr=1e-3, weight_decay=1e-3)
-    none = {name: 0 for name in lg.LAUNCHES}
+    none = dict.fromkeys(LAGUERRE, 0)
     per_step = {"plain": none,
                 "terms": {**none, "laguerre_terms_dense": 16, "laguerre_terms_dense_bwd": 16},
                 "fused": {**none, "laguerre_dense_fused": 18, "laguerre_dense_fused_bwd": 18}}
@@ -723,11 +759,12 @@ def train_phase(torch, np, model32, samples, host_batch, real_edges, card):
             conv.use_terms_kernel(terms)
             trainer = Trainer(copy.deepcopy(seed_model), cfg)
             conditioned[route] = eval_mode_grads(trainer.model, batch)
-            lg.reset_launch_counts()
-            losses = [trainer.train_step(batch)]
-            torch.cuda.synchronize()
-            if dict(lg.LAUNCHES) != per_step[route]:
-                fail(f"{dtype} {route} training step launched {dict(lg.LAUNCHES)}, "
+            with counting() as counters:
+                losses = [trainer.train_step(batch)]
+                torch.cuda.synchronize()
+            counts = launched(counters)
+            if counts != per_step[route]:
+                fail(f"{dtype} {route} training step launched {counts}, "
                      f"expected {per_step[route]}")
             grads = grads_of(trainer.model)
             for name in conv_weights:
@@ -740,11 +777,6 @@ def train_phase(torch, np, model32, samples, host_batch, real_edges, card):
                 losses.append(trainer.train_step(batch))
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-            counts = dict(lg.LAUNCHES)
-            want = {k: v * (TRAIN_STEPS + 1) for k, v in per_step[route].items()}
-            if counts != want:
-                fail(f"{dtype} {route}: {counts} launches over {TRAIN_STEPS + 1} steps, "
-                     f"expected {want}")
             for name in total:
                 total[name] += counts[name]
             values = [float(x) for x in losses]
@@ -901,38 +933,40 @@ def strip_ell(batch):
         dataclasses.replace(lvl, l0=strip(lvl.l0), l1=strip(lvl.l1)) for lvl in batch.levels))
 
 
-def flat_task_phase(torch, np, ell, tag, make_model, batch, task, steps, per_step, units,
+def flat_task_phase(torch, np, tag, make_model, batch, task, steps, per_step, units,
                     card, skip_grad=()):
     """One flat model on the default (ELL-kernel) route, float32 and
     bfloat16, through ``Trainer``: eval forward (timed), ``steps`` training
     steps (the first apart), launch counts, falling loss, non-zero conv
-    gradients.  Returns (launches summed over the training steps, the
+    gradients.  Returns (the launches of the counted first steps, the
     float32 eval output)."""
     from hl_hgat_tpu_torch.nn import conv
     from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
 
-    total = {name: 0 for name in ell.LAUNCHES}
+    total = dict.fromkeys(ELL, 0)
     out32 = None
     for dtype in ("float32", "bfloat16"):
         model = make_model(dtype)
         trainer = Trainer(model, TrainerConfig(task=task, lr=1e-3, weight_decay=1e-3,
                                                metric_mode="max"))
-        ell.reset_launch_counts()
-        out, loss = trainer.eval_step(batch)
-        torch.cuda.synchronize()
-        if dict(ell.LAUNCHES) != {"spmm_ell": per_step[0], "spmm_ell_bwd": 0}:
-            fail(f"{tag} {dtype}: eval forward launched {dict(ell.LAUNCHES)}")
+        with counting() as counters:
+            out, loss = trainer.eval_step(batch)
+            torch.cuda.synchronize()
+        counts = launched(counters, ELL)
+        if counts != {"spmm_ell": per_step[0], "spmm_ell_bwd": 0}:
+            fail(f"{tag} {dtype}: eval forward launched {counts}")
         if not bool(torch.isfinite(out).all()) or out.dtype != torch.float32:
             fail(f"{tag} {dtype}: eval output not finite float32")
         if dtype == "float32":
             out32 = out
         fwd_ms = median_ms(torch, lambda: trainer.eval_step(batch), 10)
-        ell.reset_launch_counts()
-        losses = [trainer.train_step(batch)]
-        torch.cuda.synchronize()
+        with counting() as counters:
+            losses = [trainer.train_step(batch)]
+            torch.cuda.synchronize()
+        counts = launched(counters, ELL)
         want = {"spmm_ell": per_step[0], "spmm_ell_bwd": per_step[1]}
-        if dict(ell.LAUNCHES) != want:
-            fail(f"{tag} {dtype}: training step launched {dict(ell.LAUNCHES)}, expected {want}")
+        if counts != want:
+            fail(f"{tag} {dtype}: training step launched {counts}, expected {want}")
         for name, m in model.named_modules():
             if isinstance(m, conv.LaguerreConv) and name not in skip_grad:
                 if m.weight.grad is None or not bool((m.weight.grad != 0).any()):
@@ -942,9 +976,6 @@ def flat_task_phase(torch, np, ell, tag, make_model, batch, task, steps, per_ste
             losses.append(trainer.train_step(batch))
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
-        counts = dict(ell.LAUNCHES)
-        if counts != {k: v * steps for k, v in want.items()}:
-            fail(f"{tag} {dtype}: {counts} launches over {steps} steps")
         for name in total:
             total[name] += counts[name]
         values = [float(x) for x in losses]
@@ -1024,7 +1055,7 @@ def print_ell_summary(ell_summary, card):
 
 def flat_phase(torch, np, model32, samples, packed_pred32, card):
     """The flat (COO/ELL) layout at full width; returns the ELL kernel's
-    per-step summary and its launches summed over every flat run."""
+    per-step summary and its launches summed over every counted flat step."""
     from hl_hgat_tpu_torch.models import presets
     from hl_hgat_tpu_torch.nn import conv
     from hl_hgat_tpu_torch.ops import ell_spmm as ell
@@ -1041,7 +1072,7 @@ def flat_phase(torch, np, model32, samples, packed_pred32, card):
     cfg = TrainerConfig(task="regression", lr=1e-3, weight_decay=1e-3)
     routes = {"gather": (False, zinc), "coo": (True, strip_ell(zinc)), "ell": (True, zinc)}
     per_step = {"gather": (0, 0), "coo": (0, 0), "ell": (80, 80)}
-    total = {name: 0 for name in ell.LAUNCHES}
+    total = dict.fromkeys(ELL, 0)
     conv_names = [n for n, m in model32.named_modules() if isinstance(m, conv.LaguerreConv)]
     zero_grad = {n for n, _ in model32.named_parameters()
                  if n.endswith(".bias") and not n.endswith("bn.bias")
@@ -1057,11 +1088,12 @@ def flat_phase(torch, np, model32, samples, packed_pred32, card):
         for route, (kernel_on, batch) in routes.items():
             ell.use_ell_kernel(kernel_on)
             trainer = Trainer(copy.deepcopy(seed_model), cfg)
-            ell.reset_launch_counts()
-            out, _ = trainer.eval_step(batch)
-            torch.cuda.synchronize()
-            if dict(ell.LAUNCHES) != {"spmm_ell": per_step[route][0], "spmm_ell_bwd": 0}:
-                fail(f"flat zinc {dtype} {route}: eval forward launched {dict(ell.LAUNCHES)}")
+            with counting() as counters:
+                out, _ = trainer.eval_step(batch)
+                torch.cuda.synchronize()
+            counts = launched(counters, ELL)
+            if counts != {"spmm_ell": per_step[route][0], "spmm_ell_bwd": 0}:
+                fail(f"flat zinc {dtype} {route}: eval forward launched {counts}")
             if out.shape != (BATCH_GRAPHS, 1) or not bool(torch.isfinite(out).all()):
                 fail(f"flat zinc {dtype} {route}: output shape {tuple(out.shape)} or not finite")
             evals[route] = out
@@ -1073,12 +1105,13 @@ def flat_phase(torch, np, model32, samples, packed_pred32, card):
             loss.backward()
             calm[route] = (float(loss.detach()), grads_of(trainer.model))
             trainer.model.zero_grad(set_to_none=True)
-            ell.reset_launch_counts()
-            losses = [trainer.train_step(batch)]
-            torch.cuda.synchronize()
-            want = dict(zip(("spmm_ell", "spmm_ell_bwd"), per_step[route]))
-            if dict(ell.LAUNCHES) != want:
-                fail(f"flat zinc {dtype} {route}: training step launched {dict(ell.LAUNCHES)}, "
+            with counting() as counters:
+                losses = [trainer.train_step(batch)]
+                torch.cuda.synchronize()
+            counts = launched(counters, ELL)
+            want = dict(zip(ELL, per_step[route]))
+            if counts != want:
+                fail(f"flat zinc {dtype} {route}: training step launched {counts}, "
                      f"expected {want}")
             grads = grads_of(trainer.model)
             for name in conv_names:
@@ -1090,9 +1123,6 @@ def flat_phase(torch, np, model32, samples, packed_pred32, card):
                 losses.append(trainer.train_step(batch))
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-            counts = dict(ell.LAUNCHES)
-            if counts != {k: v * (TRAIN_STEPS + 1) for k, v in want.items()}:
-                fail(f"flat zinc {dtype} {route}: {counts} launches over {TRAIN_STEPS + 1} steps")
             for name in total:
                 total[name] += counts[name]
             values = [float(x) for x in losses]
@@ -1144,7 +1174,7 @@ def flat_phase(torch, np, model32, samples, packed_pred32, card):
 
     # ---- 7b. pascalvoc_node --------------------------------------------------
     counts, out = flat_task_phase(
-        torch, np, ell, "pascalvoc_node",
+        torch, np, "pascalvoc_node",
         lambda dtype: presets.pascalvoc_node(compute_dtype=dtype, seed=0)[0],
         node, "node_classification", TRAIN_STEPS + 1, (36, 36), real["node"], card)
     pad = node.level0.node_mask == 0
@@ -1155,7 +1185,7 @@ def flat_phase(torch, np, model32, samples, packed_pred32, card):
 
     # ---- 7c. pcqm_link -------------------------------------------------------
     counts, out = flat_task_phase(
-        torch, np, ell, "pcqm_link",
+        torch, np, "pcqm_link",
         lambda dtype: presets.pcqm_link(compute_dtype=dtype, seed=0)[0],
         link, "link_prediction", LINK_STEPS, (36, 33), real["link"], card,
         skip_grad=("backbone.NEConv21.edge.conv",))
@@ -1172,7 +1202,7 @@ def check_band_kernels(torch, np, lg, cases, seed):
     ``(tag, l_blocks [G,S,S] float32, K, C, F, launches per pass)``.  Each
     case draws its inputs from its own generator.  Returns per-kernel,
     per-dtype sums over one pass's launches, as ``check_kernels`` does."""
-    summary = empty_summary(lg)
+    summary = empty_summary()
     breakdown = []
     for dtype in ("float32", "bfloat16"):
         td = getattr(torch, dtype)
@@ -1414,13 +1444,13 @@ def band_phase(torch, np, lg, conv, model32, pooled_batch, wide_l1, card):
     forward's (backward's) launches over 128 rows."""
     cases = band_cases(torch, np, conv, model32, pooled_batch, wide_l1)
     summary = check_band_kernels(torch, np, lg, cases, 2)
-    for name in lg.LAUNCHES:
+    for name in LAGUERRE:
         for dtype in ("float32", "bfloat16"):
             agg = summary[(name, dtype)]
             print(f"[kernel] {name} {dtype} blocks over 128 rows, per pooled pass: kernel "
                   f"{agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, bound "
                   f"{agg['bound']:.4f} ms, max|err| {agg['err']:.3e} [{card}]", flush=True)
-    brain = empty_summary(lg)
+    brain = empty_summary()
     for tag, lap, k, c, count in brain_band_cases(torch, np, conv):
         s = lap.shape[1]
         for dtype in ("float32", "bfloat16"):
@@ -1438,19 +1468,20 @@ def band_phase(torch, np, lg, conv, model32, pooled_batch, wide_l1, card):
     return summary
 
 
-def zinc_wide_phase(torch, np, lg, model32, samples, served, card):
+def zinc_wide_phase(torch, np, model32, samples, served, card):
     """Phase 3b: zinc_pyr served through ``Predictor(edge_cap=256)`` (256-row
     L1 blocks, the band kernels) in both dtypes, held against the 128-row
     packing's predictions ``served[dtype]``; then ZINC_WIDE_STEPS training
     steps at ``edge_cap=256`` in float32, the first loss against the
-    128-row packing's.  Returns the launches."""
+    128-row packing's.  Returns the launches counted (the forwards and the
+    first step at 256)."""
     from hl_hgat_tpu_torch.complex.compact import maybe_inflate
     from hl_hgat_tpu_torch.complex.dense import collate_dense_packed
     from hl_hgat_tpu_torch.models import presets
     from hl_hgat_tpu_torch.serving import Predictor
     from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
 
-    total = {name: 0 for name in lg.LAUNCHES}
+    total = dict.fromkeys(LAGUERRE, 0)
     for dtype in ("float32", "bfloat16"):
         model = model32 if dtype == "float32" else presets.zinc_pyr(
             compute_dtype=dtype, seed=0)[0]
@@ -1458,9 +1489,9 @@ def zinc_wide_phase(torch, np, lg, model32, samples, served, card):
         batch = maybe_inflate(pred.collate(samples))  # the loader's derived batch, inflated
         if batch.levels[0].l1.shape[1] != 256:
             fail(f"Predictor(edge_cap=256) packed L1 blocks of {batch.levels[0].l1.shape[1]}")
-        lg.reset_launch_counts()
-        out = pred(samples)
-        counts = dict(lg.LAUNCHES)
+        with counting() as counters:
+            out = pred(samples)
+        counts = launched(counters)
         if counts["laguerre_dense_fused"] != 18 or sum(counts.values()) != 18:
             fail(f"zinc_pyr edge_cap=256 {dtype} forward launched {counts}")
         for name in total:
@@ -1479,16 +1510,18 @@ def zinc_wide_phase(torch, np, lg, model32, samples, served, card):
     for cap in (128, 256):
         trainer = Trainer(copy.deepcopy(model32), cfg)
         batch = collate_dense_packed(samples, edge_cap=cap).to("cuda")
-        lg.reset_launch_counts()
-        t0 = time.perf_counter()
-        losses = [trainer.train_step(batch) for _ in range(ZINC_WIDE_STEPS)]
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / ZINC_WIDE_STEPS
-        counts = dict(lg.LAUNCHES)
-        want = {**{n: 0 for n in lg.LAUNCHES}, "laguerre_dense_fused": 18 * ZINC_WIDE_STEPS,
-                "laguerre_dense_fused_bwd": 18 * ZINC_WIDE_STEPS}
+        with counting() as counters:
+            losses = [trainer.train_step(batch)]
+            torch.cuda.synchronize()
+        counts = launched(counters)
+        want = {**dict.fromkeys(LAGUERRE, 0), "laguerre_dense_fused": 18,
+                "laguerre_dense_fused_bwd": 18}
         if counts != want:
-            fail(f"zinc_pyr edge_cap={cap} training launched {counts}, expected {want}")
+            fail(f"zinc_pyr edge_cap={cap} training step launched {counts}, expected {want}")
+        t0 = time.perf_counter()
+        losses += [trainer.train_step(batch) for _ in range(ZINC_WIDE_STEPS - 1)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (ZINC_WIDE_STEPS - 1)
         values = [float(v) for v in losses]
         if not all(np.isfinite(values)):
             fail(f"zinc_pyr edge_cap={cap}: non-finite loss {values}")
@@ -1497,7 +1530,7 @@ def zinc_wide_phase(torch, np, lg, model32, samples, served, card):
             for name in total:
                 total[name] += counts[name]
         print(f"[train] zinc_pyr float32 edge_cap={cap}: {ZINC_WIDE_STEPS} steps, "
-              f"{step_ms:.3f} ms a step (first included), 18 + 18 launches a step, loss "
+              f"{step_ms:.3f} ms a step (first excluded), 18 + 18 launches a step, loss "
               f"{values[0]:.5f} -> {values[-1]:.5f} [{card}]", flush=True)
     if not abs(firsts[256] - firsts[128]) <= TOL["float32"] * abs(firsts[128]):
         fail(f"zinc_pyr first loss {firsts[256]} at edge_cap=256 vs {firsts[128]} at 128")
@@ -1527,7 +1560,7 @@ def device_profile(torch, fn, calls: int, top: int = 0):
             [(name, us / 1e3 / calls, n / calls) for name, us, n in ops[:top]])
 
 
-def pooled_phase(torch, np, lg, ell, model32, samples, card):
+def pooled_phase(torch, np, model32, samples, card):
     """Phase 8: cifar10sp_attpool at full width on POOLED_GRAPHS packed graphs
     (node_cap 128, edge_cap 256): served through ``Predictor`` and trained
     POOLED_STEPS steps through ``Trainer`` in both dtypes on the default
@@ -1545,7 +1578,7 @@ def pooled_phase(torch, np, lg, ell, model32, samples, card):
     per_fwd = sum(1 for m in model32.modules() if isinstance(m, conv.LaguerreConv))
     if per_fwd != 14:
         fail(f"cifar10sp_attpool has {per_fwd} Laguerre convs, expected 14")
-    total = {name: 0 for name in lg.LAUNCHES}
+    total = dict.fromkeys(LAGUERRE, 0)
     cfg = TrainerConfig(task="classification", lr=1e-3, weight_decay=1e-3, metric_mode="max")
     preds32 = None
     for dtype in ("float32", "bfloat16"):
@@ -1553,9 +1586,9 @@ def pooled_phase(torch, np, lg, ell, model32, samples, card):
             compute_dtype=dtype, seed=0)[0]
         pred = Predictor(model, batch_size=POOLED_GRAPHS, edge_cap=256)
         batch = maybe_inflate(pred.collate(samples))  # the loader's derived batch, inflated
-        lg.reset_launch_counts()
-        out = pred(samples)
-        counts = dict(lg.LAUNCHES)
+        with counting() as counters:
+            out = pred(samples)
+        counts = launched(counters)
         if counts["laguerre_dense_fused"] != per_fwd or sum(counts.values()) != per_fwd:
             fail(f"cifar10sp_attpool {dtype} forward launched {counts}")
         for name in total:
@@ -1608,9 +1641,14 @@ def pooled_phase(torch, np, lg, ell, model32, samples, card):
             compare_grads(tag, grads[True][1], grads[False][1], (), cosine=TRAIN_BF16_COSINE)
 
         trainer = Trainer(copy.deepcopy(model), cfg)
-        lg.reset_launch_counts()
-        losses = [trainer.train_step(batch)]
-        torch.cuda.synchronize()
+        with counting() as counters:
+            losses = [trainer.train_step(batch)]
+            torch.cuda.synchronize()
+        counts = launched(counters)
+        want = {**dict.fromkeys(LAGUERRE, 0), "laguerre_dense_fused": per_fwd,
+                "laguerre_dense_fused_bwd": per_fwd}
+        if counts != want:
+            fail(f"cifar10sp_attpool {dtype}: training step launched {counts}, expected {want}")
         for name, m in trainer.model.named_modules():
             if isinstance(m, conv.LaguerreConv) and not bool((m.weight.grad != 0).any()):
                 fail(f"cifar10sp_attpool {dtype}: {name}.weight has no gradient")
@@ -1619,11 +1657,6 @@ def pooled_phase(torch, np, lg, ell, model32, samples, card):
             losses.append(trainer.train_step(batch))
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / (POOLED_STEPS - 1)
-        counts = dict(lg.LAUNCHES)
-        want = {**{n: 0 for n in lg.LAUNCHES}, "laguerre_dense_fused": per_fwd * POOLED_STEPS,
-                "laguerre_dense_fused_bwd": per_fwd * POOLED_STEPS}
-        if counts != want:
-            fail(f"cifar10sp_attpool {dtype}: {counts} over {POOLED_STEPS} steps, expected {want}")
         for name in total:
             total[name] += counts[name]
         values = [float(v) for v in losses]
@@ -1638,11 +1671,10 @@ def pooled_phase(torch, np, lg, ell, model32, samples, card):
     # the flat layout's eval forward on the ELL kernel
     flat = collate(samples, with_ell=True).to("cuda")
     model32.eval()
-    ell.reset_launch_counts()
-    with torch.inference_mode():
+    with counting() as counters, torch.inference_mode():
         out = model32(flat)
-    torch.cuda.synchronize()
-    ell_counts = dict(ell.LAUNCHES)
+        torch.cuda.synchronize()
+    ell_counts = launched(counters, ELL)
     per_flat = sum(int(m.weight.shape[0]) - 1 for m in model32.modules()
                    if isinstance(m, conv.LaguerreConv))
     if ell_counts != {"spmm_ell": per_flat, "spmm_ell_bwd": 0}:
@@ -1656,7 +1688,7 @@ def pooled_phase(torch, np, lg, ell, model32, samples, card):
     return total, ell_counts
 
 
-def tsp_phase(torch, np, lg, ell, card):
+def tsp_phase(torch, np, card):
     """Phase 9: the large-graph layout and the TSP edge-level model at the
     full width of the TSP-500 configuration, in both dtypes.  Trains
     TSP_GRAPHS graphs packed into spanning blocks (banded: blocks, bands
@@ -1706,9 +1738,9 @@ def tsp_phase(torch, np, lg, ell, card):
           f"packed collate {collate_ms:.1f} ms, flat collate (ELL) {flat_ms:.1f} ms", flush=True)
 
     cfg = TrainerConfig(task="edge_binary", lr=1e-3, weight_decay=1e-3, metric_mode="max")
-    total = {name: 0 for name in lg.LAUNCHES}
-    ell_total = {name: 0 for name in ell.LAUNCHES}
-    none = {name: 0 for name in lg.LAUNCHES}
+    total = dict.fromkeys(LAGUERRE, 0)
+    ell_total = dict.fromkeys(ELL, 0)
+    none = dict.fromkeys(LAGUERRE, 0)
     batch, flat = host.to("cuda"), flat_host.to("cuda")
     gid = lvl.s_gid.reshape(-1)
     real = lvl.edge_mask.reshape(-1) > 0
@@ -1730,10 +1762,9 @@ def tsp_phase(torch, np, lg, ell, card):
 
         # banded training: a warm-up step, TSP_STEPS timed, TSP_STEPS augmented
         trainer = Trainer(copy.deepcopy(model), cfg)
-        lg.reset_launch_counts()
-        ell.reset_launch_counts()
-        losses = [trainer.train_step(batch)]
-        torch.cuda.synchronize()
+        with counting() as warm:
+            losses = [trainer.train_step(batch)]
+            torch.cuda.synchronize()
         for name, m in trainer.model.named_modules():
             if isinstance(m, conv.LaguerreConv) and not bool((m.weight.grad != 0).any()):
                 fail(f"tsp {dtype}: {name}.weight has no gradient")
@@ -1742,12 +1773,14 @@ def tsp_phase(torch, np, lg, ell, card):
             losses.append(trainer.train_step(batch))
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / TSP_STEPS
-        aug = Trainer(copy.deepcopy(model), dataclasses.replace(cfg, tsp_aug_prob=0.75))
-        aug_losses = [aug.train_step(batch) for _ in range(TSP_STEPS)]
-        val_loss, f1 = trainer.evaluate([batch])
-        if dict(lg.LAUNCHES) != none or sum(ell.LAUNCHES.values()):
-            fail(f"tsp {dtype}: the banded layout launched {dict(lg.LAUNCHES)} "
-                 f"{dict(ell.LAUNCHES)}; it takes the plain recurrence")
+        with counting() as rest:
+            aug = Trainer(copy.deepcopy(model), dataclasses.replace(cfg, tsp_aug_prob=0.75))
+            aug_losses = [aug.train_step(batch) for _ in range(TSP_STEPS)]
+            val_loss, f1 = trainer.evaluate([batch])
+        warm, rest = launched(warm, LAGUERRE + ELL), launched(rest, LAGUERRE + ELL)
+        hand = {name: warm[name] + rest[name] for name in warm}
+        if any(hand.values()):
+            fail(f"tsp {dtype}: the banded layout launched {hand}; it takes the plain recurrence")
         values = [float(v) for v in losses + aug_losses] + [val_loss]
         if not all(np.isfinite(values)) or not 0.0 <= f1 <= 1.0:
             fail(f"tsp {dtype}: losses {values}, F1 {f1}")
@@ -1771,12 +1804,13 @@ def tsp_phase(torch, np, lg, ell, card):
         model.eval()
         with torch.inference_mode():
             out_b = model(batch).float().reshape(-1).cpu().numpy()[order]
-            ell.reset_launch_counts()
-            out_f = model(flat).float().reshape(-1).cpu().numpy()[flat_real]
-        if dict(ell.LAUNCHES) != {"spmm_ell": per_flat, "spmm_ell_bwd": 0}:
-            fail(f"tsp {dtype}: the flat forward launched {dict(ell.LAUNCHES)}, want {per_flat}")
+            with counting() as counters:
+                out_f = model(flat).float().reshape(-1).cpu().numpy()[flat_real]
+        ell_counts = launched(counters, ELL)
+        if ell_counts != {"spmm_ell": per_flat, "spmm_ell_bwd": 0}:
+            fail(f"tsp {dtype}: the flat forward launched {ell_counts}, want {per_flat}")
         for name in ell_total:
-            ell_total[name] += ell.LAUNCHES[name]
+            ell_total[name] += ell_counts[name]
         err, scale = float(np.abs(out_b - out_f).max()), float(np.abs(out_f).max())
         print(f"[tsp] {dtype} banded vs flat (ELL) eval forward, {real_edges} edges: max|err| "
               f"{err:.3e} (max|ref| {scale:.3e}); ELL launches {per_flat}", flush=True)
@@ -1821,9 +1855,9 @@ def tsp_phase(torch, np, lg, ell, card):
         # edge-level serving on blocks that fit: fused kernel vs plain route vs CPU
         pred = Predictor(model, batch_size=TSP_SERVE_GRAPHS, edge_level=True, **TSP_CAPS)
         sbatch = maybe_inflate(pred.collate(serve))  # the loader's derived batch, inflated
-        lg.reset_launch_counts()
-        outs = pred(serve)
-        counts = dict(lg.LAUNCHES)
+        with counting() as counters:
+            outs = pred(serve)
+        counts = launched(counters)
         n_convs = len(convs)
         n_l0 = sum(1 for n in convs if n.startswith("backbone.init_node") or ".node." in n)
         if counts != {**none, "laguerre_dense_fused": n_convs}:
@@ -1953,7 +1987,7 @@ def brain_data(np, with_flat: bool = True):
     return levels, pools, series, host, flat_host
 
 
-def brain_phase(torch, np, lg, ell, card):
+def brain_phase(torch, np, lg, card):
     """Phase 10: the brain family on the shared-skeleton layout at full
     width.  Rebuilds the Shen-268 pyramid from the reference fixture's
     skeleton (checked against the fixture's assignments and coarse edges);
@@ -1980,7 +2014,7 @@ def brain_phase(torch, np, lg, ell, card):
     model32, _ = presets.hgat_attpool(**BRAIN_MODEL, **widths, seed=0)
     cases = brain_conv_cases(torch, conv, model32, batch)
     per_fwd = sum(n for *_, n in cases)
-    summary = empty_summary(lg)
+    summary = empty_summary()
     torch.cuda.reset_peak_memory_stats()
     for dtype in ("float32", "bfloat16"):
         td = getattr(torch, dtype)
@@ -1998,7 +2032,7 @@ def brain_phase(torch, np, lg, ell, card):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     torch.cuda.empty_cache()
 
-    none = {name: 0 for name in lg.LAUNCHES}
+    none = dict.fromkeys(LAGUERRE, 0)
     total = dict(none)
     fields = ("pred", "latent", "node_att", "edge_att")
     shapes = {"pred": (1,), "latent": (BRAIN_MODEL["mlp_channels"][-1],),
@@ -2008,9 +2042,9 @@ def brain_phase(torch, np, lg, ell, card):
         model = model32 if dtype == "float32" else presets.hgat_attpool(
             **BRAIN_MODEL, **widths, compute_dtype=dtype, seed=0)[0]
         pred = BrainPredictor(model, levels, pools, batch_size=BRAIN_BATCH)
-        lg.reset_launch_counts()
-        out = pred(list(series))
-        counts = dict(lg.LAUNCHES)
+        with counting() as counters:
+            out = pred(list(series))
+        counts = launched(counters)
         n_batches = -(-BRAIN_SUBJECTS // BRAIN_BATCH)
         if counts != {**none, "laguerre_terms_dense": per_fwd * n_batches}:
             fail(f"hgat_attpool {dtype} serving launched {counts}, expected {per_fwd} terms "
@@ -2037,11 +2071,14 @@ def brain_phase(torch, np, lg, ell, card):
         pred.forward(sbatch)
         torch.cuda.synchronize()
         fwd_gb = torch.cuda.max_memory_allocated() / 1e9
-        prep0 = lg.PREPARATIONS["band_operator"]
-        fwd_ms = median_ms(torch, lambda: pred.forward(sbatch), 5)
         # the batch's operators (in bfloat16 their casts) were prepared by
-        # the forward above: the timed ones find them all in the caches
-        fwd_prep = lg.PREPARATIONS["band_operator"] - prep0
+        # the forward above: a second forward, and the timed ones, find them
+        # all in the caches
+        with counting() as counters:
+            pred.forward(sbatch)
+            torch.cuda.synchronize()
+        fwd_prep = counters.get("prepared.band_operator", 0)
+        fwd_ms = median_ms(torch, lambda: pred.forward(sbatch), 5)
         if fwd_prep:
             fail(f"hgat_attpool {dtype}: forwards on a batch already seen prepared {fwd_prep} "
                  "band operators again")
@@ -2067,14 +2104,14 @@ def brain_phase(torch, np, lg, ell, card):
         if dtype == "float32":
             # the shared layout against the flat one (ELL kernel), eval forward
             model.eval()
-            ell.reset_launch_counts()
-            with torch.inference_mode():
+            with counting() as counters, torch.inference_mode():
                 out_s = model(batch)
                 out_f = model(flat)
+            ell_total = launched(counters, ELL)
             per_flat = sum(int(m.weight.shape[0]) - 1 for m in model.modules()
                            if isinstance(m, conv.LaguerreConv))
-            if dict(ell.LAUNCHES) != {"spmm_ell": per_flat, "spmm_ell_bwd": 0}:
-                fail(f"hgat_attpool flat forward launched {dict(ell.LAUNCHES)}, want {per_flat}")
+            if ell_total != {"spmm_ell": per_flat, "spmm_ell_bwd": 0}:
+                fail(f"hgat_attpool flat forward launched {ell_total}, want {per_flat}")
             errs = []
             for f, a, b in zip(fields, out_s, out_f):
                 a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
@@ -2085,7 +2122,6 @@ def brain_phase(torch, np, lg, ell, card):
             print(f"[brain] hgat_attpool float32 shared vs flat (ELL) eval forward, "
                   f"{BRAIN_BATCH} subjects: max|err| {'; '.join(errs)} (rtol 2e-4, atol "
                   f"2e-5); ELL launches {per_flat}", flush=True)
-            ell_total = dict(ell.LAUNCHES)
 
         # one warm-up step, in which cuDNN's autotuner times Inception1D's
         # convolutions (its trials hold the largest workspace of the phase)
@@ -2095,23 +2131,25 @@ def brain_phase(torch, np, lg, ell, card):
         losses = [trainer.train_step(batch)]
         torch.cuda.synchronize()
         warm_gb = torch.cuda.max_memory_allocated() / 1e9
-        lg.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
+        with counting() as counters:
+            losses.append(trainer.train_step(batch))
+            torch.cuda.synchronize()
+        counts = launched(counters)
+        step_prep = counters.get("prepared.band_operator", 0)
+        if step_prep:
+            fail(f"hgat_attpool {dtype}: a step on the warm-up's batch prepared "
+                 f"{step_prep} band operators again")
+        # the edge init conv reads the raw FC input, which needs no gradient
+        want = {**none, "laguerre_terms_dense": per_fwd,
+                "laguerre_terms_dense_bwd": per_fwd - 1}
+        if counts != want:
+            fail(f"hgat_attpool {dtype} training step launched {counts}, expected {want}")
         t0 = time.perf_counter()
         losses += [trainer.train_step(batch) for _ in range(BRAIN_STEPS)]
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / BRAIN_STEPS
         step_gb = torch.cuda.max_memory_allocated() / 1e9
-        counts = dict(lg.LAUNCHES)
-        step_prep = lg.PREPARATIONS["band_operator"]
-        if step_prep:
-            fail(f"hgat_attpool {dtype}: {BRAIN_STEPS} steps on the warm-up's batch prepared "
-                 f"{step_prep} band operators again")
-        # the edge init conv reads the raw FC input, which needs no gradient
-        want = {**none, "laguerre_terms_dense": per_fwd * BRAIN_STEPS,
-                "laguerre_terms_dense_bwd": (per_fwd - 1) * BRAIN_STEPS}
-        if counts != want:
-            fail(f"hgat_attpool {dtype} training launched {counts}, expected {want}")
         for name in total:
             total[name] += counts[name]
         values = [float(v) for v in losses]
@@ -2123,8 +2161,9 @@ def brain_phase(torch, np, lg, ell, card):
         val_loss, r = trainer.evaluate([batch])
         step_dev, step_busy, step_top = device_profile(
             torch, lambda: trainer.train_step(batch), 1, top=6)
-        print(f"[brain] hgat_attpool {dtype} trained 1 + {BRAIN_STEPS} steps at batch "
-              f"{BRAIN_BATCH}: step {step_ms:.3f} ms (mean of {BRAIN_STEPS} after the warm-up; "
+        print(f"[brain] hgat_attpool {dtype} trained 2 + {BRAIN_STEPS} steps at batch "
+              f"{BRAIN_BATCH}: step {step_ms:.3f} ms (mean of {BRAIN_STEPS} after the warm-up "
+              f"and a counted step; "
               f"device {step_dev:.3f} ms, busy {100 * step_busy:.1f}%; peak device memory "
               f"{step_gb:.2f} GB, {warm_gb:.2f} GB in the warm-up); loss {values[0]:.5f} -> "
               f"{values[-1]:.5f}, eval loss {val_loss:.5f}, Pearson r {r:.4f}; launches a "
@@ -2141,9 +2180,9 @@ def brain_phase(torch, np, lg, ell, card):
         trainer = Trainer(copy.deepcopy(model), cfg)
         conv.use_fused_dense(False)
         try:
-            trainer.train_step(batch)
-            lg.reset_launch_counts()
-            torch.cuda.synchronize()
+            with counting() as counters:
+                trainer.train_step(batch)
+                torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             for _ in range(BRAIN_STEPS):
@@ -2155,8 +2194,8 @@ def brain_phase(torch, np, lg, ell, card):
                 torch, lambda: trainer.train_step(batch), 1)
         finally:
             conv.use_fused_dense(True)
-        if dict(lg.LAUNCHES) != none:
-            fail(f"hgat_attpool {dtype} plain route launched {dict(lg.LAUNCHES)}")
+        if launched(counters) != none:
+            fail(f"hgat_attpool {dtype} plain route launched {launched(counters)}")
         print(f"[brain] hgat_attpool {dtype} plain route against the terms kernel: forward "
               f"{plain_fwd_ms:.3f} ms (device {plain_fwd_dev:.3f} ms, busy "
               f"{100 * plain_fwd_busy:.1f}%) against {fwd_ms:.3f} (device {fwd_dev:.3f}); "
@@ -2175,9 +2214,9 @@ def brain_phase(torch, np, lg, ell, card):
         n_abcd = sum(1 for m in model.modules()
                      if isinstance(m, conv.LaguerreConv) and m.weight.shape[0] > 1)
         pred = BrainPredictor(model, levels[:2], pools[:1], batch_size=BRAIN_BATCH)
-        lg.reset_launch_counts()
-        out = pred(list(series[:BRAIN_BATCH]))
-        counts = dict(lg.LAUNCHES)
+        with counting() as counters:
+            out = pred(list(series[:BRAIN_BATCH]))
+        counts = launched(counters)
         if counts != {**none, "laguerre_terms_dense": n_abcd}:
             fail(f"abcd_attpool {dtype} launched {counts}, expected {n_abcd} terms launches")
         for name in total:
@@ -2265,7 +2304,7 @@ def with_ell_forms(batch):
         dataclasses.replace(lv, l0=ell_of(lv.l0), l1=ell_of(lv.l1)) for lv in batch.levels))
 
 
-def data_phase(torch, np, lg, ell, card):
+def data_phase(torch, np, card):
     """Phase 11: the data pipeline feeding full-width zinc_pyr training.
     Returns the Laguerre and the ELL launches of its main-path runs."""
     import tempfile
@@ -2388,7 +2427,7 @@ def data_phase(torch, np, lg, ell, card):
           "the card", flush=True)
 
     # ---- training: full-width zinc_pyr through Trainer.fit, derived transfer
-    launches = {name: 0 for name in lg.LAUNCHES}
+    launches = dict.fromkeys(LAGUERRE, 0)
     none = dict(launches)
     trainers = {}
     for dtype in ("float32", "bfloat16"):
@@ -2405,16 +2444,20 @@ def data_phase(torch, np, lg, ell, card):
             stamps.append((what, time.perf_counter()))
             return loader
 
-        lg.reset_launch_counts()
         trainer.fit(lambda: stamped(train_loader, "train"), lambda: stamped(val_loader, "val"),
                     epochs=DATA_EPOCHS, verbose=False)
         torch.cuda.synchronize()
-        counts = dict(lg.LAUNCHES)
-        steps, evals = DATA_EPOCHS * len(train_loader), DATA_EPOCHS * len(val_loader)
-        want = {**none, "laguerre_dense_fused": 18 * (steps + evals),
-                "laguerre_dense_fused_bwd": 18 * steps}
+        # the epochs are timed: one more step and one eval on a loader batch are counted
+        batch = next(iter(train_loader))
+        with counting() as counters:
+            trainer.train_step(batch)
+            trainer.eval_step(batch)
+            torch.cuda.synchronize()
+        counts = launched(counters)
+        want = {**none, "laguerre_dense_fused": 18 + 18, "laguerre_dense_fused_bwd": 18}
         if counts != want:
-            fail(f"{dtype} fit launched {counts}, expected {want} (18 + 18 a step, 18 an eval)")
+            fail(f"{dtype} a loader step and eval launched {counts}, expected {want} "
+                 "(18 + 18 a step, 18 an eval)")
         for name in launches:
             launches[name] += counts[name]
         hist = trainer.history
@@ -2428,7 +2471,6 @@ def data_phase(torch, np, lg, ell, card):
         if [w for w, _ in stamps] != ["train", "val"] * DATA_EPOCHS:
             fail(f"{dtype} fit asked for the batches as {[w for w, _ in stamps]}")
         train_s = [b[1] - a[1] for a, b in zip(stamps[::2], stamps[1::2])]
-        batch = next(iter(train_loader))
         dev_ms, busy, _ = device_profile(torch, lambda: trainer.train_step(batch), 3)
         print(f"[data] {dtype} fit: {DATA_EPOCHS} epochs of {len(train_loader)} steps + "
               f"{len(val_loader)} val batches, prefetch 2: epoch {epoch_s[0]:.2f} s, "
@@ -2480,10 +2522,10 @@ def data_phase(torch, np, lg, ell, card):
     packed = torch.cat([trainer.eval_step(b)[0] for b in BucketedLoader(
         val, transfer="derived", **DATA_LOADER | kw)])
     flat_loader = BucketedLoader(val, layout="coo", **kw)
-    ell.reset_launch_counts()
-    flat_pred = torch.cat([trainer.eval_step(with_ell_forms(b))[0] for b in flat_loader])
-    torch.cuda.synchronize()
-    ell_counts = dict(ell.LAUNCHES)
+    with counting() as counters:
+        flat_pred = torch.cat([trainer.eval_step(with_ell_forms(b))[0] for b in flat_loader])
+        torch.cuda.synchronize()
+    ell_counts = launched(counters, ELL)
     if ell_counts != {"spmm_ell": 80 * len(flat_loader), "spmm_ell_bwd": 0}:
         fail(f"flat eval launched {ell_counts}, expected 80 a forward")
     err = float((flat_pred - packed).abs().max())
@@ -2496,7 +2538,7 @@ def data_phase(torch, np, lg, ell, card):
     return launches, ell_counts
 
 
-def checkpoint_phase(torch, np, lg, card):
+def checkpoint_phase(torch, np, card):
     """Phase 12: checkpoint and resume through ``run.main`` at the CLI's zinc
     recipe (2 epochs with ``--ckpt_every 1``, ``--resume`` to 3 against 3
     straight), the full state saved and loaded, ``--test`` on the shipped
@@ -2522,19 +2564,20 @@ def checkpoint_phase(torch, np, lg, card):
     from hl_hgat_tpu_torch.utils.torch_import import import_hgcnn
 
     t_phase = time.perf_counter()
-    total = {name: 0 for name in lg.LAUNCHES}
-    none = {name: 0 for name in lg.LAUNCHES}
+    total = dict.fromkeys(LAGUERRE, 0)
+    none = dict.fromkeys(LAGUERRE, 0)
 
     def cli(argv):
-        """``run.main`` in process: (result, stdout, seconds, launches)."""
+        """``run.main`` in process, its launches counted: (result, stdout,
+        seconds with the recorder on, launches)."""
         buf = io.StringIO()
-        lg.reset_launch_counts()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            res = run.main(argv)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = dict(lg.LAUNCHES)
+        with counting() as counters:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = run.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        counts = launched(counters)
         for name in total:
             total[name] += counts[name]
         for line in buf.getvalue().splitlines():
@@ -2585,7 +2628,8 @@ def checkpoint_phase(torch, np, lg, card):
                 fail(f"the resumed run ran epochs {[h['epoch'] for h in h_res]}")
             errs = {k: abs(h_res[0][k] - h_str[k]) / abs(h_str[k])
                     for k in ("train_loss", "val_loss")}
-            print(f"[ckpt] zinc_pyr CLI, {steps} steps an epoch at batch 128: 2 epochs "
+            print(f"[ckpt] zinc_pyr CLI, {steps} steps an epoch at batch 128, launches counted "
+                  f"(the recorder on): 2 epochs "
                   f"{s_two:.2f} s, --resume to 3 {s_res:.2f} s (maybe_restore {restore_s[0]:.3f} "
                   f"s), 3 straight {s_str:.2f} s; epoch 3 train loss {h_res[0]['train_loss']:.7f} "
                   f"resumed vs {h_str['train_loss']:.7f} straight (rel {errs['train_loss']:.2e}), "
@@ -2639,9 +2683,9 @@ def checkpoint_phase(torch, np, lg, card):
         model, _ = presets.zinc_pyr(keig=SHIPPED_KEIG, in_t=width, in_s=width,
                                     compute_dtype=dtype, seed=0)
         pred = Predictor.from_checkpoint(model, SHIPPED, batch_size=BATCH_GRAPHS)
-        lg.reset_launch_counts()
-        out = pred(samples)
-        counts = dict(lg.LAUNCHES)
+        with counting() as counters:
+            out = pred(samples)
+        counts = launched(counters)
         if counts != {**none, "laguerre_dense_fused": 18}:
             fail(f"serving the shipped weights ({dtype}) launched {counts}")
         for name in total:
@@ -2686,10 +2730,9 @@ def checkpoint_phase(torch, np, lg, card):
     _, report = import_hgcnn(model, {k[3:]: v for k, v in fx.items() if k.startswith("sd/")})
     batch = collate_dense_packed(fsamples).to("cuda")
     n_convs = sum(1 for m in model.modules() if isinstance(m, LaguerreConv))
-    lg.reset_launch_counts()
-    with torch.inference_mode():
+    with counting() as counters, torch.inference_mode():
         out = model.eval()(batch).float().cpu().numpy()
-    counts = dict(lg.LAUNCHES)
+    counts = launched(counters)
     if counts != {**none, "laguerre_dense_fused": n_convs}:
         fail(f"the imported fixture model launched {counts}, expected {n_convs} fused")
     for name in total:
@@ -2797,7 +2840,6 @@ def dp_rank(rank: int, world: int, halves, save_dir: str) -> dict:
 
     from hl_hgat_tpu_torch import run
     from hl_hgat_tpu_torch.models import presets
-    from hl_hgat_tpu_torch.ops import laguerre_dense as lg
     from hl_hgat_tpu_torch.parallel.dp_trainer import DataParallelTrainer
     from hl_hgat_tpu_torch.train import Trainer, TrainerConfig
 
@@ -2805,14 +2847,14 @@ def dp_rank(rank: int, world: int, halves, save_dir: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     cfg = TrainerConfig(task="regression", lr=1e-3, weight_decay=1e-3)
     model, _ = presets.zinc_pyr(seed=0)
-    out = {"launches": {name: 0 for name in lg.LAUNCHES}}
+    out = {"launches": dict.fromkeys(LAGUERRE, 0)}
 
     def driven(fn):
-        """fn() on the main path: its launches added to the rank's."""
-        lg.reset_launch_counts()
-        res = fn()
-        torch.cuda.synchronize()
-        counts = dict(lg.LAUNCHES)
+        """fn() on the main path, untimed: its launches added to the rank's."""
+        with counting() as counters:
+            res = fn()
+            torch.cuda.synchronize()
+        counts = launched(counters)
         for name, n in counts.items():
             out["launches"][name] += n
         return res, counts
@@ -2960,7 +3002,7 @@ def gp_rank(rank: int, world: int, sample, state, probe_state) -> dict:
                 rounds=l1.rounds(), halo=l1.halo_per_round, rows=l1.c_local)
 
 
-def parallel_phase(torch, np, lg, card, samples):
+def parallel_phase(torch, np, card, samples):
     """Phase 13: the parallel package on the card.  Data parallelism at
     world 1 on NCCL in this process, then at world 2 on gloo with both
     ranks on the card (distinct and identical halves of the 384 graphs,
@@ -2980,7 +3022,7 @@ def parallel_phase(torch, np, lg, card, samples):
 
     t_phase = time.perf_counter()
     label = f"on one card, ranks sharing it [{card}]"
-    none = {name: 0 for name in lg.LAUNCHES}
+    none = dict.fromkeys(LAGUERRE, 0)
     per_step = {**none, "laguerre_dense_fused": 18, "laguerre_dense_fused_bwd": 18}
     total = dict(none)
     cfg = TrainerConfig(task="regression", lr=1e-3, weight_decay=1e-3)
@@ -2995,10 +3037,10 @@ def parallel_phase(torch, np, lg, card, samples):
             model, _ = presets.zinc_pyr(compute_dtype=dtype, seed=0)
             single, dp = Trainer(copy.deepcopy(model), cfg), DataParallelTrainer(model, cfg)
             dp_grads, ref_grads = capture_grads(dp), capture_grads(single)
-            lg.reset_launch_counts()
-            loss = float(dp.train_step(batch))
-            torch.cuda.synchronize()
-            counts = dict(lg.LAUNCHES)
+            with counting() as counters:
+                loss = float(dp.train_step(batch))
+                torch.cuda.synchronize()
+            counts = launched(counters)
             if counts != per_step:
                 fail(f"[dp] world 1 {dtype} step launched {counts}, expected {per_step}")
             for name in total:
@@ -3241,7 +3283,7 @@ def trace_kernel_names(path: str) -> set:
     return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
 
 
-def analysis_phase(torch, np, lg, ell, card):
+def analysis_phase(torch, np, lg, card):
     """Phase 14: the analysis layer and the examples on the card.  The brain
     demo (``examples.brain_demo``) at ANALYSIS_DEMO on the terms-kernel route
     and on the plain route from the same weights (sizes, matcher ms, per-epoch
@@ -3307,48 +3349,50 @@ def analysis_phase(torch, np, lg, ell, card):
     for route, (fused, terms) in ANALYSIS_ROUTES.items():
         conv.use_fused_dense(fused)
         conv.use_terms_kernel(terms)
+        # the counted run (its first launches prepare the band operators),
+        # then one epoch timed on a copy from the same weights
         model.load_state_dict(state)
+        timed = copy.deepcopy(model)
+        with counting() as counters:
+            losses = brain_demo.train_stage(model, train, args.epochs, log=lambda m: None)
+        counts = launched(counters)
         timer = profiling.StepTimer()
-        lg.reset_launch_counts()
-        ell.reset_launch_counts()
-        losses = brain_demo.train_stage(model, train, args.epochs, log=lambda m: None,
-                                        timer=timer)
-        counts, band = dict(lg.LAUNCHES), dict(lg.BAND_LAUNCHES)
-        prepared = lg.PREPARATIONS["band_operator"]
-        ev = brain_demo.evaluate_stage(model, val, meta, log=lambda m: None)
-        eval_counts = {k: lg.LAUNCHES[k] - counts[k] for k in counts}
+        brain_demo.train_stage(timed, train, 1, log=lambda m: None, timer=timer)
+        del timed
+        band, prepared = (counters.get(k, 0) for k in ("band_launches", "prepared.band_operator"))
+        with counting() as counters:
+            ev = brain_demo.evaluate_stage(model, val, meta, log=lambda m: None)
+        eval_counts = launched(counters)
         an = brain_demo.analyze_stage(dc.replace(init, rng=copy.deepcopy(init.rng)),
                                       ev["edge_att"], log=lambda m: None)
         if route == "terms":
-            main_path = dict(lg.LAUNCHES)
+            main_path = {k: counts[k] + eval_counts[k] for k in counts}
         results[route] = dict(losses=losses, ev=ev, an=an)
         ms = [t * 1e3 for t in timer.times]
         per = {k: counts[k] / steps for k in ("laguerre_terms_dense", "laguerre_terms_dense_bwd")}
-        per_band = {k: band[k] / steps for k in per}
         log(f"{route} route: epoch losses {[round(x, 6) for x in losses]}; step ms (StepTimer, "
-            f"synchronized) first {ms[0]:.1f}, median of the rest "
-            f"{statistics.median(ms[1:]):.3f}; launches a step (kernels 2, 4) "
-            f"{per['laguerre_terms_dense']:g} + {per['laguerre_terms_dense_bwd']:g}, band "
-            f"{per_band['laguerre_terms_dense']:g} + {per_band['laguerre_terms_dense_bwd']:g}, "
-            f"fused {counts['laguerre_dense_fused']}; val forward {eval_counts}; corr "
-            f"{ev['corr']:.3f}, RMSE {ev['rmse']:.3f} [{card}]")
+            f"synchronized, an epoch on a copy after the counted run) first {ms[0]:.1f}, "
+            f"median of the rest {statistics.median(ms[1:]):.3f}; launches a step (kernels "
+            f"2, 4) {per['laguerre_terms_dense']:g} + {per['laguerre_terms_dense_bwd']:g}, band "
+            f"{band / steps:g}, fused {counts['laguerre_dense_fused']}; val forward "
+            f"{eval_counts}; corr {ev['corr']:.3f}, RMSE {ev['rmse']:.3f} [{card}]")
         if not np.isfinite(losses).all() or not np.isfinite(ev["pred"]).all():
             fail(f"[analysis] {route} route: non-finite losses or predictions")
         if route == "terms":
             # the level-0 L1 above is already prepared; every other band
             # operator of the train batches at most once, whatever the steps
-            log(f"terms route: {sum(band.values())} band launches over {steps} steps prepared "
+            log(f"terms route: {band} band launches over {steps} steps prepared "
                 f"{prepared} band operators (the train batches hold {len(band_ops)} over "
                 f"{lg.RESIDENT_ROWS} rows, the level-0 L1 of the first prepared before): no "
                 f"band launch after a batch's first copies or casts its operators")
             if prepared > len(band_ops) - 1:
                 fail(f"[analysis] {prepared} band operator preparations for {len(band_ops)} "
                      "operators, one already prepared: a band launch prepared one again")
-            if min(per.values()) <= 0 or min(per_band.values()) <= 0:
+            if min(per.values()) <= 0 or band <= 0:
                 fail(f"[analysis] the kernel route launched {counts} (band {band})")
             if counts["laguerre_dense_fused"] or counts["laguerre_dense_fused_bwd"]:
                 fail(f"[analysis] the shared layout took the fused kernel: {counts}")
-        elif any(counts.values()) or any(eval_counts.values()):
+        elif any(counts.values()) or any(eval_counts.values()) or band:
             fail(f"[analysis] the plain route launched {counts} {eval_counts}")
     # the kernel route's trained weights served on the plain route
     conv.use_fused_dense(False)
@@ -3464,18 +3508,19 @@ def analysis_phase(torch, np, lg, ell, card):
         else:
             fail("[analysis] a / a on zeros raised nothing with NaN checks on")
         conv.use_terms_kernel(True)
-        lg.reset_launch_counts()
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            model.eval()(val[0])
-        torch.cuda.synchronize()
-        checked_s = time.perf_counter() - t0
-        checked = lg.LAUNCHES["laguerre_terms_dense"]
+        with counting() as counters:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model.eval()(val[0])
+            torch.cuda.synchronize()
+            checked_s = time.perf_counter() - t0
+        checked = launched(counters)["laguerre_terms_dense"]
     finally:
         profiling.enable_nan_checks(False)
         conv.use_terms_kernel(False)
     log(f"NaN checks: a / a on zeros raised ({raised}); a demo forward with checks on raised "
-        f"nothing ({checked} terms launches checked after launch, {checked_s:.2f} s)")
+        f"nothing ({checked} terms launches checked after launch, {checked_s:.2f} s with the "
+        f"recorder on)")
     if checked == 0:
         fail("[analysis] the checked forward launched no terms kernel")
 
@@ -3625,11 +3670,11 @@ def main(argv=None) -> int:
           f"{host_batch.x_t.shape[1]} ({time.perf_counter() - t0:.2f} s host)", flush=True)
 
     if args.parallel_only:
-        parallel_phase(torch, np, lg, card, samples)
+        parallel_phase(torch, np, card, samples)
         print("[parallel-only] done, no result line", flush=True)
         return 0
     if args.analysis_only:
-        analysis_phase(torch, np, lg, ell, card)
+        analysis_phase(torch, np, lg, card)
         print("[analysis-only] done, no result line", flush=True)
         return 0
 
@@ -3662,7 +3707,7 @@ def main(argv=None) -> int:
     if args.kernels_only:
         if args.kernels_only in ("all", "resident"):
             summary = check_kernels(torch, np, lg, l_blocks, conv_shapes, 1)
-            print_laguerre_summary(summary, list(lg.LAUNCHES), card)
+            print_laguerre_summary(summary, LAGUERRE, card)
         if args.kernels_only in ("all", "band"):
             _, pmodel, pbatch, wide_l1 = pooled_setup()
             band_phase(torch, np, lg, conv, pmodel, pbatch, wide_l1, card)
@@ -3678,8 +3723,8 @@ def main(argv=None) -> int:
     band_summary = band_phase(torch, np, lg, conv, pooled_model, pooled_batch, wide_l1, card)
 
     # ---- 3. the serving path ----------------------------------------------
-    launches = {name: 0 for name in lg.LAUNCHES}
-    none = {name: 0 for name in lg.LAUNCHES}
+    launches = dict.fromkeys(LAGUERRE, 0)
+    none = dict.fromkeys(LAGUERRE, 0)
     served = {}  # the fused route's predictions per dtype
     expect = {"plain": none,
               "terms": {**none, "laguerre_terms_dense": 16},
@@ -3696,10 +3741,10 @@ def main(argv=None) -> int:
         for route, (fused, terms) in ROUTES.items():
             conv.use_fused_dense(fused)
             conv.use_terms_kernel(terms)
-            lg.reset_launch_counts()
             # the entry point a user calls: samples in, [N, 1] out
-            outs[route] = pred(samples)
-            counts = dict(lg.LAUNCHES)
+            with counting() as counters:
+                outs[route] = pred(samples)
+            counts = launched(counters)
             if counts != expect[route]:
                 fail(f"{dtype} {route} route launched {counts}, expected {expect[route]}")
             for name in launches:
@@ -3756,12 +3801,12 @@ def main(argv=None) -> int:
             fail(f"{name} was never launched on the flat path")
 
     # ---- 3b. zinc_pyr on 256-row L1 blocks ----------------------------------
-    for name, n in zinc_wide_phase(torch, np, lg, model32, samples, served, card).items():
+    for name, n in zinc_wide_phase(torch, np, model32, samples, served, card).items():
         launches[name] += n
 
     # ---- 8. the pooled path: cifar10sp_attpool served and trained ----------
-    pooled_launches, pooled_ell = pooled_phase(torch, np, lg, ell, pooled_model,
-                                               pooled_samples, card)
+    pooled_launches, pooled_ell = pooled_phase(torch, np, pooled_model, pooled_samples,
+                                               card)
     for name in ("laguerre_dense_fused", "laguerre_dense_fused_bwd"):
         if pooled_launches[name] == 0:
             fail(f"{name} was never launched on the pooled path")
@@ -3771,7 +3816,7 @@ def main(argv=None) -> int:
         ell_launches[name] += n
 
     # ---- 9. the large-graph layout: TSP-500 trained, served edge by edge ---
-    tsp_launches, tsp_ell = tsp_phase(torch, np, lg, ell, card)
+    tsp_launches, tsp_ell = tsp_phase(torch, np, card)
     if tsp_launches["laguerre_dense_fused"] == 0 or tsp_ell["spmm_ell"] == 0:
         fail(f"the TSP phase launched {tsp_launches} {tsp_ell}")
     for name, n in tsp_launches.items():
@@ -3780,7 +3825,7 @@ def main(argv=None) -> int:
         ell_launches[name] += n
 
     # ---- 10. the brain family on the shared-skeleton layout ------------------
-    brain_launches, brain_ell, brain_summary = brain_phase(torch, np, lg, ell, card)
+    brain_launches, brain_ell, brain_summary = brain_phase(torch, np, lg, card)
     for name in ("laguerre_terms_dense", "laguerre_terms_dense_bwd"):
         if brain_launches[name] == 0:
             fail(f"{name} was never launched on the brain path")
@@ -3790,7 +3835,7 @@ def main(argv=None) -> int:
         ell_launches[name] += n
 
     # ---- 11. the data pipeline feeding full-width zinc_pyr training ----------
-    data_launches, data_ell = data_phase(torch, np, lg, ell, card)
+    data_launches, data_ell = data_phase(torch, np, card)
     for name in ("laguerre_dense_fused", "laguerre_dense_fused_bwd"):
         if data_launches[name] == 0:
             fail(f"{name} was never launched on the data pipeline's path")
@@ -3800,7 +3845,7 @@ def main(argv=None) -> int:
         ell_launches[name] += n
 
     # ---- 12. checkpoint, resume, --test and serving of the shipped weights ---
-    ckpt_launches = checkpoint_phase(torch, np, lg, card)
+    ckpt_launches = checkpoint_phase(torch, np, card)
     for name in ("laguerre_dense_fused", "laguerre_dense_fused_bwd"):
         if ckpt_launches[name] == 0:
             fail(f"{name} was never launched on the checkpoint phase's path")
@@ -3808,7 +3853,7 @@ def main(argv=None) -> int:
         launches[name] += n
 
     # ---- 13. the parallel package: DP on NCCL and gloo, --dp 2, graph parallel ---
-    dp_launches = parallel_phase(torch, np, lg, card, samples)
+    dp_launches = parallel_phase(torch, np, card, samples)
     for name in ("laguerre_dense_fused", "laguerre_dense_fused_bwd"):
         if dp_launches[name] == 0:
             fail(f"{name} was never launched on the parallel phase's path")
@@ -3816,7 +3861,7 @@ def main(argv=None) -> int:
         launches[name] += n
 
     # ---- 14. the analysis layer, the brain demo at 268 ROIs, the examples ----
-    analysis_launches = analysis_phase(torch, np, lg, ell, card)
+    analysis_launches = analysis_phase(torch, np, lg, card)
     for name in ("laguerre_terms_dense", "laguerre_terms_dense_bwd"):
         if analysis_launches[name] == 0:
             fail(f"{name} was never launched on the brain demo's path")

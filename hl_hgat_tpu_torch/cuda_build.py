@@ -1,15 +1,18 @@
 """Build the package's CUDA sources into shared libraries and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface; it is compiled by ``nvcc``
-for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` at first use and
-loaded with ``ctypes``.  The hash covers the source, the shared headers
-(``csrc/*.cuh``) and the flags, so an edited source is rebuilt.  Several
-sources build in parallel, one ``nvcc`` each.  Nothing happens at import.
+Each ``csrc/<name>.cu`` has a plain C interface, declared for ``ctypes``
+in ``SIGNATURES``; it is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+``_build/lib<name>-<hash>.so`` at first use and opened once by ``load``.
+The hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt.  Several sources build in parallel,
+one ``nvcc`` each.  ``check`` turns a returned ``cudaError_t`` into an
+error.  Nothing happens at import.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,7 +26,41 @@ NVCC_FLAGS = (
     "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("laguerre_dense", "laguerre_dense_bwd", "laguerre_band", "ell_spmm")
+_P, _I, _Q, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_size_t
+_ERROR_STRING = {"hlhgat_cuda_error_string": ([_I], ctypes.c_char_p)}
+# The C interface each source exports (``extern "C"``): {function: (argument
+# types, result type)}, applied once when its library is opened.  A pointer
+# is ``c_void_p``; every library has ``hlhgat_cuda_error_string`` for ``check``.
+SIGNATURES = {
+    "laguerre_dense": {
+        "hlhgat_laguerre_fused_smem": ([_I] * 3, _Z),
+        "hlhgat_laguerre_fused_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
+        "hlhgat_laguerre_terms_fwd": ([_P] * 3 + [_I] * 5 + [_P], _I),
+        **_ERROR_STRING,
+    },
+    "laguerre_dense_bwd": {
+        "hlhgat_laguerre_fused_bwd_smem": ([_I] * 3, _Z),
+        "hlhgat_laguerre_fused_bwd_splits": ([_I] * 3, _I),
+        "hlhgat_laguerre_fused_bwd": ([_P] * 8 + [_I] * 7 + [_P], _I),
+        "hlhgat_laguerre_terms_bwd": ([_P] * 3 + [_I] * 5 + [_P], _I),
+        **_ERROR_STRING,
+    },
+    "laguerre_band": {
+        "hlhgat_band_fused_fwd": ([_P] * 6 + [_I] * 8 + [_P], _I),
+        "hlhgat_band_terms_fwd": ([_P] * 3 + [_I] * 6 + [_P], _I),
+        "hlhgat_band_fused_bwd_splits": ([_I] * 6, _I),
+        "hlhgat_band_fused_bwd": ([_P] * 9 + [_I] * 9 + [_P], _I),
+        "hlhgat_band_terms_bwd": ([_P] * 4 + [_I] * 6 + [_P], _I),
+        "hlhgat_band_step_plan": ([_I] * 4 + [_P], _I),
+        "hlhgat_band_product_plan": ([_I] * 7 + [_P], _I),
+        **_ERROR_STRING,
+    },
+    "ell_spmm": {
+        "hlhgat_ell_spmm": ([_P] * 4 + [_Q, _I, _Q, _I, _I, _P], _I),
+        **_ERROR_STRING,
+    },
+}
+SOURCES = tuple(SIGNATURES)
 
 
 def _nvcc() -> str:
@@ -98,10 +135,24 @@ def build(names=SOURCES) -> dict[str, str]:
     return logs
 
 
+@functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``; every missing library of the
-    package is built first, all at once."""
+    """The library of ``csrc/<name>.cu`` with its ``SIGNATURES`` set, opened
+    once; every missing library of the package is built first, all at
+    once."""
     if name not in SOURCES:
         raise KeyError(f"unknown CUDA source {name!r}")
     build()
-    return ctypes.CDLL(str(library_path(name)))
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise ``RuntimeError`` with CUDA's message if ``code``, a
+    ``cudaError_t`` a function of ``lib`` returned, is not success."""
+    if code != 0:
+        msg = lib.hlhgat_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} (cudaError {code})")

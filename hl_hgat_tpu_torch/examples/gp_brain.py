@@ -27,12 +27,12 @@ from hl_hgat_tpu_torch.complex.build import GraphSample, build_structure
 from hl_hgat_tpu_torch.complex.coarsen import mlgc
 from hl_hgat_tpu_torch.device import resolve_device
 from hl_hgat_tpu_torch.models.backbone import BackboneConfig, HLHGCNNGraph
-from hl_hgat_tpu_torch.ops import ell_spmm, laguerre_dense
 from hl_hgat_tpu_torch.parallel.distributed import rank_device, spawn_ranks
 from hl_hgat_tpu_torch.parallel.dp_trainer import DataParallelTrainer
 from hl_hgat_tpu_torch.parallel.gp_model import build_gp_batch
 from hl_hgat_tpu_torch.parallel.mesh import make_mesh
 from hl_hgat_tpu_torch.train import TrainerConfig
+from hl_hgat_tpu_torch.utils import profiling
 
 MODEL = BackboneConfig(channels=(2, 2), filters=(32, 64), k=4, init_k=2, pool_locs=(0,),
                        att_locs=(0,), act="leaky_relu")
@@ -78,23 +78,30 @@ def build_model() -> HLHGCNNGraph:
 def gp_rank(rank: int, world: int, sample: GraphSample, steps: int, device_type: str) -> dict:
     """One rank: its part of the sample, ``steps`` training steps; the
     losses, seconds after each step (from the first step's start), the
-    mesh shape and this rank's kernel launches."""
+    mesh shape and this rank's kernel launches (``{wrapper: n}``, from the
+    port's recorder, which is on for the steps)."""
     device = rank_device()
     batch = build_gp_batch(sample, world, device=device)
     mesh = make_mesh(1, world, device_type=device_type)
     trainer = DataParallelTrainer(build_model().to(device),
                                   TrainerConfig(task="regression", lr=LR), mesh)
-    laguerre_dense.reset_launch_counts()
-    ell_spmm.reset_launch_counts()
     losses, seconds = [], []
-    t0 = time.perf_counter()
-    for step in range(steps):
-        losses.append(float(trainer.train_step(batch)))
-        seconds.append(time.perf_counter() - t0)
-        if rank == 0 and step in (0, steps - 1):
-            print(f"step {step}: loss {losses[-1]:.4f} ({seconds[-1]:.1f}s)", flush=True)
-    return dict(losses=losses, seconds=seconds, mesh=tuple(mesh.shape),
-                launches={**laguerre_dense.LAUNCHES, **ell_spmm.LAUNCHES})
+    profiling.reset()
+    profiling.enable()
+    try:
+        t0 = time.perf_counter()
+        for step in range(steps):
+            losses.append(float(trainer.train_step(batch)))
+            seconds.append(time.perf_counter() - t0)
+            if rank == 0 and step in (0, steps - 1):
+                print(f"step {step}: loss {losses[-1]:.4f} ({seconds[-1]:.1f}s)", flush=True)
+    finally:
+        profiling.disable()
+    counters = profiling.snapshot().counters
+    profiling.reset()
+    launches = {name.removeprefix("launches."): n for name, n in counters.items()
+                if name.startswith("launches.")}
+    return dict(losses=losses, seconds=seconds, mesh=tuple(mesh.shape), launches=launches)
 
 
 def main(argv=None) -> list[dict]:

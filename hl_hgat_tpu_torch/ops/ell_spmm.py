@@ -20,29 +20,21 @@ operator equals its transpose, ``dx`` is the same kernel on the cotangent;
 torch, as it is plain XLA in the JAX package, and is computed only when
 asked for — operators are data, and no model asks.
 
-``LAUNCHES`` counts kernel launches: ``spmm_ell`` in the forward,
-``spmm_ell_bwd`` for ``dx`` in the backward.  ``use_ell_kernel(False)``
-sends CUDA tensors through the plain gather instead, for comparing the two
-routes on the card.
+While the port's recorder is on (``utils/profiling.py``) each launch
+counts one ``launches.spmm_ell`` in the forward or ``launches.spmm_ell_bwd``
+for ``dx`` in the backward.  ``use_ell_kernel(False)`` sends CUDA tensors
+through the plain gather instead, for comparing the two routes on the card.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from hl_hgat_tpu_torch import cuda_build
 from hl_hgat_tpu_torch.ops.nan_checks import check_kernel_outputs
+from hl_hgat_tpu_torch.utils import profiling
 
-LAUNCHES = {"spmm_ell": 0, "spmm_ell_bwd": 0}
-
-_lib: ctypes.CDLL | None = None
 _ell_kernel_flag = True
-
-
-def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
 
 
 def use_ell_kernel(enable: bool | None = None) -> bool:
@@ -53,21 +45,6 @@ def use_ell_kernel(enable: bool | None = None) -> bool:
     if enable is not None:
         _ell_kernel_flag = enable
     return _ell_kernel_flag
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        from hl_hgat_tpu_torch import cuda_build
-
-        lib = cuda_build.load("ell_spmm")
-        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hlhgat_ell_spmm.argtypes = [p, p, p, p, q, i, q, i, i, p]
-        lib.hlhgat_ell_spmm.restype = i
-        lib.hlhgat_cuda_error_string.argtypes = [i]
-        lib.hlhgat_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
 
 
 def _check_shapes(ell_cols: torch.Tensor, ell_vals: torch.Tensor, x: torch.Tensor) -> None:
@@ -124,7 +101,7 @@ def _launch(ell_cols, ell_vals, x, counter: str) -> torch.Tensor:
     vals = ell_vals.contiguous()
     # a ragged F, or a view into a larger buffer that starts off a 16-byte
     # boundary, takes the kernel's unaligned path: x is not copied
-    lib = _library()
+    lib = cuda_build.load("ell_spmm")
     with torch.cuda.device(x.device):
         code = lib.hlhgat_ell_spmm(
             cols.data_ptr(), vals.data_ptr(), flat.data_ptr(), out.data_ptr(),
@@ -132,10 +109,8 @@ def _launch(ell_cols, ell_vals, x, counter: str) -> torch.Tensor:
             int(vals.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
-    if code != 0:
-        msg = lib.hlhgat_cuda_error_string(code).decode()
-        raise RuntimeError(f"{counter} launch failed: {msg} (cudaError {code})")
-    LAUNCHES[counter] += 1
+    cuda_build.check(lib, code, counter)
+    profiling.count(f"launches.{counter}")
     check_kernel_outputs(counter, out)
     return out.reshape(x.shape)
 

@@ -78,11 +78,10 @@ alive.  On the bfloat16 route the model casts its float32 operators on
 every forward; ``dispatch.cast_operators`` keeps each cast while its
 float32 source lives, so a batch's bfloat16 L is one tensor and is
 prepared once too.  Two convs on one level's L read one preparation, and
-neither L nor what the plain route and the CPU see changes.
-``PREPARATIONS`` counts them.  A channel count whose rows are not a
-multiple of 16 bytes (C = 45 in float32) is padded with zero channels
-around the launch; the recurrence keeps each channel to itself, so the
-real channels are unchanged.
+neither L nor what the plain route and the CPU see changes.  A channel
+count whose rows are not a multiple of 16 bytes (C = 45 in float32) is
+padded with zero channels around the launch; the recurrence keeps each
+channel to itself, so the real channels are unchanged.
 
 The public functions are ``torch.autograd.Function``s: forward and
 backward each launch their kernel for CUDA tensors and raise on anything
@@ -90,11 +89,16 @@ the kernel does not take; they run the plain PyTorch versions, in this
 module, only for tensors on the CPU.  The plain backward versions are the
 hand-derived adjoints written step by step, not autograd through the
 plain forward.  ``emulated_products`` lets a test run the plain versions
-with the float32 kernels' split products.  ``LAUNCHES`` counts kernel
-launches per wrapper (a backward that needs several CUDA kernels counts
-once), ``BAND_LAUNCHES`` those of them that took the band kernels;
-``BAND_SHAPES`` gathers the (G, S, C, dtype) of every band launch that
-runs a recurrence step, so that a caller can print how each launched.
+with the float32 kernels' split products.
+
+While the port's recorder is on (``utils/profiling.py``) each launch counts
+one ``launches.<wrapper>`` (``laguerre_dense_fused``, ``laguerre_terms_dense``
+and their ``_bwd``; a backward that needs several CUDA kernels counts once)
+and, where it took the band kernels, one ``band_launches``; each band
+operand prepared and cached counts one ``prepared.band_operator`` or
+``prepared.band_weights`` and its bytes in ``band_prep_bytes``.
+``BAND_SHAPES`` gathers the (G, S, C, dtype) of every band launch that runs
+a recurrence step, so that a caller can print how each launched.
 """
 
 from __future__ import annotations
@@ -105,76 +109,14 @@ import dataclasses
 
 import torch
 
+from hl_hgat_tpu_torch import cuda_build
 from hl_hgat_tpu_torch.ops.nan_checks import check_kernel_outputs
 from hl_hgat_tpu_torch.ops.tensor_cache import TensorCache
 from hl_hgat_tpu_torch.utils import profiling
 
-LAUNCHES = {
-    "laguerre_dense_fused": 0,
-    "laguerre_terms_dense": 0,
-    "laguerre_dense_fused_bwd": 0,
-    "laguerre_terms_dense_bwd": 0,
-}
-BAND_LAUNCHES = dict.fromkeys(LAUNCHES, 0)  # the launches above that took the band kernels
-PREPARATIONS = {"band_operator": 0, "band_weights": 0}  # band preparations (cache misses)
 BAND_SHAPES: set[tuple[int, int, int, torch.dtype]] = set()  # (G, S, C, dtype) of band steps
 RESIDENT_ROWS = 128  # blocks the kernels that hold L in shared memory take
 _SMEM_LIMIT = 232448  # bytes a block may opt into on sm_90
-
-_libs: dict[str, ctypes.CDLL] = {}
-
-
-def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
-        BAND_LAUNCHES[key] = 0
-    for key in PREPARATIONS:
-        PREPARATIONS[key] = 0
-
-
-def _library(name: str = "laguerre_dense") -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` with its C signatures set."""
-    if name not in _libs:
-        from hl_hgat_tpu_torch import cuda_build
-
-        lib = cuda_build.load(name)
-        p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-        if name == "laguerre_dense":
-            sigs = {
-                "hlhgat_laguerre_fused_fwd": ([p] * 6 + [i] * 6 + [p], i),
-                "hlhgat_laguerre_terms_fwd": ([p, p, p, i, i, i, i, i, p], i),
-                "hlhgat_laguerre_fused_smem": ([i, i, i], z),
-            }
-        elif name == "laguerre_dense_bwd":
-            sigs = {
-                "hlhgat_laguerre_fused_bwd": ([p] * 8 + [i] * 7 + [p], i),
-                "hlhgat_laguerre_terms_bwd": ([p, p, p, i, i, i, i, i, p], i),
-                "hlhgat_laguerre_fused_bwd_smem": ([i, i, i], z),
-                "hlhgat_laguerre_fused_bwd_splits": ([i, i, i], i),
-            }
-        else:
-            sigs = {
-                "hlhgat_band_fused_fwd": ([p] * 6 + [i] * 8 + [p], i),
-                "hlhgat_band_terms_fwd": ([p, p, p] + [i] * 6 + [p], i),
-                "hlhgat_band_fused_bwd": ([p] * 9 + [i] * 9 + [p], i),
-                "hlhgat_band_terms_bwd": ([p] * 4 + [i] * 6 + [p], i),
-                "hlhgat_band_fused_bwd_splits": ([i] * 6, i),
-                "hlhgat_band_step_plan": ([i, i, i, i, p], i),
-                "hlhgat_band_product_plan": ([i] * 7 + [p], i),
-            }
-        sigs["hlhgat_cuda_error_string"] = ([i], ctypes.c_char_p)
-        for fn, (argtypes, restype) in sigs.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        _libs[name] = lib
-    return _libs[name]
-
-
-def _check_launch(lib, code: int, what: str) -> None:
-    if code != 0:
-        msg = lib.hlhgat_cuda_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} (cudaError {code})")
-
 
 def _check_inputs(l: torch.Tensor, x: torch.Tensor) -> None:
     if x.device.type != "cuda" or l.device != x.device:
@@ -410,7 +352,7 @@ def band_operator(l: torch.Tensor, dtype: torch.dtype) -> BandOperator:
     if op.data is l:
         return op
     _prepared.put(l, dtype, op)
-    PREPARATIONS["band_operator"] += 1
+    profiling.count("prepared.band_operator")
     profiling.count("band_prep_bytes", op.data.nbytes)
     return op
 
@@ -421,11 +363,11 @@ def band_step_plan(g: int, s: int, c: int, dtype: torch.dtype) -> dict:
     bytes): grid, threads, dynamic shared bytes, registers a thread, CTAs
     an SM holds at once, waves (CTAs over what the SMs hold at once), the
     tile's rows and channels.  Needs the card."""
-    lib = _library("laguerre_band")
+    lib = cuda_build.load("laguerre_band")
     out = (ctypes.c_int * 10)()
     cp = band_row_stride(c, dtype)
     code = lib.hlhgat_band_step_plan(g, s, cp, int(dtype == torch.bfloat16), out)
-    _check_launch(lib, code, "band_step_kernel plan")
+    cuda_build.check(lib, code, "band_step_kernel plan")
     gx, gy, gz, threads, smem, regs, per_sm, sms, rows, cols = list(out)
     return dict(grid=(gx, gy, gz), threads=threads, smem=smem, regs=regs, ctas_per_sm=per_sm,
                 waves=gx * gy * gz / max(per_sm * sms, 1), tile=(rows, cols), channels=cp)
@@ -440,12 +382,12 @@ def band_product_plan(kernel: str, g: int, s: int, c: int, f: int, k: int,
     launches for G blocks of S rows, C channels (rounded up to 16 bytes, as
     the kernels take them), F columns and K terms, in the form of
     ``band_step_plan``.  Needs the card."""
-    lib = _library("laguerre_band")
+    lib = cuda_build.load("laguerre_band")
     out = (ctypes.c_int * 10)()
     cp = band_row_stride(c, dtype)
     code = lib.hlhgat_band_product_plan(BAND_PRODUCTS.index(kernel), g, s, cp, f, k,
                                         int(dtype == torch.bfloat16), out)
-    _check_launch(lib, code, f"{kernel} plan")
+    cuda_build.check(lib, code, f"{kernel} plan")
     gx, gy, gz, threads, smem, regs, per_sm, sms, rows, cols = list(out)
     return dict(grid=(gx, gy, gz), threads=threads, smem=smem, regs=regs, ctas_per_sm=per_sm,
                 waves=gx * gy * gz / max(per_sm * sms, 1), tile=(rows, cols), channels=cp)
@@ -500,7 +442,7 @@ def band_weights(w: torch.Tensor, cp: int, fp: int, dtype: torch.dtype,
     with profiling.span("band.prepare"):
         out = _prepare_band_weights(w, cp, fp, dtype, tag[1])
     _weights.put(w, tag, out)
-    PREPARATIONS["band_weights"] += 1
+    profiling.count("prepared.band_weights")
     profiling.count("band_prep_bytes", out.nbytes)
     return out
 
@@ -588,6 +530,26 @@ def _band_terms_bwd(lib, l, dt, k, dx) -> int:
     return code
 
 
+def _route(s: int, resident: str) -> tuple[bool, ctypes.CDLL]:
+    """Whether blocks of S rows take the band kernels (more than
+    ``RESIDENT_ROWS`` rows), and the library of the kernels they take: the
+    band library, or ``resident``, the library of the kernels that hold L in
+    shared memory."""
+    band = s > RESIDENT_ROWS
+    return band, cuda_build.load("laguerre_band" if band else resident)
+
+
+def _launched(lib, code: int, name: str, band: bool, *outputs: torch.Tensor) -> None:
+    """The end of every wrapper's launch: a failed launch raises, the launch
+    counts once (and once more in ``band_launches`` where it took the band
+    kernels), and the outputs are checked for NaNs where that is on."""
+    cuda_build.check(lib, code, name)
+    profiling.count(f"launches.{name}")
+    if band:
+        profiling.count("band_launches")
+    check_kernel_outputs(name, *outputs)
+
+
 def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
     _check_inputs(l, x)
     g, s, c = x.shape
@@ -597,8 +559,7 @@ def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
     out = torch.empty((g, s, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    band = s > RESIDENT_ROWS
-    lib = _library("laguerre_band" if band else "laguerre_dense")
+    band, lib = _route(s, "laguerre_dense")
     if not band and lib.hlhgat_laguerre_fused_smem(s, f, _bf16(x)) > _SMEM_LIMIT:
         raise ValueError(f"S={s}, F={f} need more shared memory than a block has")
     w = w.to(device=x.device, dtype=torch.float32).contiguous()
@@ -613,12 +574,7 @@ def _fused_fwd_cuda(l, x, w, b) -> torch.Tensor:
                 l.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
                 out.data_ptr(), _ptr(wt), g, s, c, f, k, _bf16(x), _stream(),
             )
-    _check_launch(lib, code, "laguerre_dense_fused")
-    LAUNCHES["laguerre_dense_fused"] += 1
-    BAND_LAUNCHES["laguerre_dense_fused"] += band
-    if band:
-        profiling.count("band_launches")
-    check_kernel_outputs("laguerre_dense_fused", out)
+    _launched(lib, code, "laguerre_dense_fused", band, out)
     return out
 
 
@@ -630,8 +586,7 @@ def _terms_fwd_cuda(l, x, k: int) -> torch.Tensor:
     out = torch.empty((k, g, s, c), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    band = s > RESIDENT_ROWS
-    lib = _library("laguerre_band" if band else "laguerre_dense")
+    band, lib = _route(s, "laguerre_dense")
     with torch.cuda.device(x.device):
         if band:
             code = _band_terms_fwd(lib, l, x, k, out)
@@ -639,12 +594,7 @@ def _terms_fwd_cuda(l, x, k: int) -> torch.Tensor:
             l, x = l.to(x.dtype).contiguous(), x.contiguous()
             code = lib.hlhgat_laguerre_terms_fwd(l.data_ptr(), x.data_ptr(), out.data_ptr(), g,
                                                  s, c, k, _bf16(x), _stream())
-    _check_launch(lib, code, "laguerre_terms_dense")
-    LAUNCHES["laguerre_terms_dense"] += 1
-    BAND_LAUNCHES["laguerre_terms_dense"] += band
-    if band:
-        profiling.count("band_launches")
-    check_kernel_outputs("laguerre_terms_dense", out)
+    _launched(lib, code, "laguerre_terms_dense", band, out)
     return out
 
 
@@ -675,8 +625,7 @@ def laguerre_dense_fused_bwd(
     n_w = k * c * f
     dwdb = torch.zeros(n_w + f, dtype=torch.float32, device=x.device)
     if x.numel() and g.numel():
-        band = s > RESIDENT_ROWS
-        lib = _library("laguerre_band" if band else "laguerre_dense_bwd")
+        band, lib = _route(s, "laguerre_dense_bwd")
         g = g.to(x.dtype).contiguous()
         w = w.to(device=x.device, dtype=torch.float32).contiguous()
         with torch.cuda.device(x.device):
@@ -694,12 +643,7 @@ def laguerre_dense_fused_bwd(
                     dx.data_ptr(), dwdb.data_ptr(), partial.data_ptr(), _ptr(wt),
                     n_g, s, c, f, k, n_split, _bf16(x), _stream(),
                 )
-        _check_launch(lib, code, "laguerre_dense_fused_bwd")
-        LAUNCHES["laguerre_dense_fused_bwd"] += 1
-        BAND_LAUNCHES["laguerre_dense_fused_bwd"] += band
-        if band:
-            profiling.count("band_launches")
-        check_kernel_outputs("laguerre_dense_fused_bwd", dx, dwdb)
+        _launched(lib, code, "laguerre_dense_fused_bwd", band, dx, dwdb)
     elif x.numel():
         dx.zero_()
     return dx, dwdb[:n_w].view(k, c, f), dwdb[n_w:]
@@ -717,8 +661,7 @@ def laguerre_terms_dense_bwd(l: torch.Tensor, dt: torch.Tensor, k: int) -> torch
     dx = torch.empty((n_g, s, c), dtype=dt.dtype, device=dt.device)
     if dx.numel() == 0:
         return dx
-    band = s > RESIDENT_ROWS
-    lib = _library("laguerre_band" if band else "laguerre_dense_bwd")
+    band, lib = _route(s, "laguerre_dense_bwd")
     with torch.cuda.device(dt.device):
         if band:
             code = _band_terms_bwd(lib, l, dt, k, dx)
@@ -728,12 +671,7 @@ def laguerre_terms_dense_bwd(l: torch.Tensor, dt: torch.Tensor, k: int) -> torch
                 l.data_ptr(), dt.data_ptr(), dx.data_ptr(), n_g, s, c, k,
                 _bf16(dt), _stream(),
             )
-    _check_launch(lib, code, "laguerre_terms_dense_bwd")
-    LAUNCHES["laguerre_terms_dense_bwd"] += 1
-    BAND_LAUNCHES["laguerre_terms_dense_bwd"] += band
-    if band:
-        profiling.count("band_launches")
-    check_kernel_outputs("laguerre_terms_dense_bwd", dx)
+    _launched(lib, code, "laguerre_terms_dense_bwd", band, dx)
     return dx
 
 

@@ -34,8 +34,7 @@ is the unit ``serve.request`` and its layers are the spans
 ``serve.loader`` (the request packer's set-up: arenas, row pads, filler),
 ``serve.pack`` (a batch's collate), ``serve.transfer``, ``serve.forward``
 (inflate and the forward, issued) and ``serve.readback`` (the host waiting
-for the answer); the counter ``request_arena_bytes`` is what the request's
-arenas hold.
+for the answer).
 """
 
 from __future__ import annotations
@@ -144,12 +143,9 @@ class Predictor:
                 if s.y is None else s
                 for s in samples
             ]
-            packer = RequestPacker(
+            return RequestPacker(
                 samples, batch_size=min(self.batch_size, len(samples)), node_cap=self.node_cap,
                 edge_cap=self.edge_cap, transfer=self.transfer, y_per_edge=self.edge_level)
-            if profiling.tracing:
-                profiling.count("request_arena_bytes", packer.flat.nbytes)
-            return packer
 
     def collate(self, samples: Sequence[GraphSample]):
         """The first batch the request packer makes of ``samples``, on the

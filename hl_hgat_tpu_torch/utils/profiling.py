@@ -11,27 +11,26 @@ The port's own spans and counters (not in the JAX module):
 
     profiling.enable()                    # off by default
     trainer.train_step(batch)             # train.step > train.forward, ...
-    snap = profiling.snapshot()           # spans, counters, launch counts
+    snap = profiling.snapshot()           # spans and counters
 
 ``span(name)`` marks a layer of the port (``serving.Predictor``: a
 request's loader, pack, transfer, forward and readback; ``train.Trainer``:
 a step's forward, backward and optimizer; ``models.backbone``: a gated
 pool, ``model.pool``; ``ops.laguerre_dense``: a preparation of band
 operands, ``band.prepare``) and ``count(name, n)`` a count at the same
-boundary (``h2d_bytes`` in the batches' ``to``; ``request_arena_bytes``,
-what a serving request's arenas hold, in ``serving.Predictor.loader``;
-``band_launches`` and ``band_prep_bytes`` in ``ops.laguerre_dense``).  A
-span opened with
-``unit=True`` (``serve.request``, ``train.step``) starts a unit of work;
-the spans and counts under it carry its id.  A thread that has opened no
-span (autograd runs a CUDA backward on a thread of its own) counts into
-the one unit open then, its spans children of that unit's root; with none
-or several open, outside any unit.  (The kernel
-launch counters stay where they are counted, ``ops.laguerre_dense.LAUNCHES``
-and ``ops.ell_spmm.LAUNCHES``.)  While tracing is on, each span is also a ``torch.profiler.record_function`` range, so a
-profiler running then shows it on its own timeline, and ``snapshot``
-gives the span's bounds on that timeline's clock (Unix ns, which a Chrome
-trace's ``ts``·1000 + ``baseTimeNanoseconds`` is).  Off, a span is one
+boundary (``h2d_bytes`` in the batches' ``to``; in the hand kernels'
+wrappers, ``ops.laguerre_dense`` and ``ops.ell_spmm``, ``launches.<wrapper>``
+per launch, ``band_launches``, ``prepared.band_operator``,
+``prepared.band_weights`` and ``band_prep_bytes``).  These are the port's
+only counters.  A span opened with ``unit=True`` (``serve.request``,
+``train.step``) starts a unit of work; the spans and counts under it carry
+its id.  A thread that has opened no span (autograd runs a CUDA backward on
+a thread of its own) counts into the one unit open then, its spans children
+of that unit's root; with none or several open, outside any unit.  While
+tracing is on, each span is also a ``torch.profiler.record_function``
+range, so a profiler running then shows it on its own timeline, and
+``snapshot`` gives the span's bounds on that timeline's clock (Unix ns,
+which a Chrome trace's ``ts``·1000 + ``baseTimeNanoseconds`` is).  Off, a span is one
 check of ``tracing`` and a shared no-op object.  At most ``SPAN_CAP``
 spans are kept; ``dropped`` counts those past it.
 """

@@ -34,6 +34,7 @@ from hl_hgat_tpu_torch.data.datasets import brain_sample
 from hl_hgat_tpu_torch.data.synthetic import pooled_like_samples
 from hl_hgat_tpu_torch.ops import dispatch
 from hl_hgat_tpu_torch.ops import laguerre_dense as lg
+from torch_counters import recorded  # noqa: F401  (a fixture)
 
 FIX = os.path.join(os.path.dirname(__file__), "golden", "reference", "model_hgat_attpool.npz")
 DTYPES = [torch.float32, torch.bfloat16]
@@ -89,23 +90,22 @@ def test_row_stride_at_brain_scale(dtype, s):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_second_request_returns_the_same_storage(dtype):
+def test_second_request_returns_the_same_storage(dtype, recorded):
     """Two convs on one level's L read one preparation: a second request
     for the same tensor returns the same storage and prepares nothing; a
     request for another tensor, or for this one after an in-place edit,
     prepares anew; a freed L leaves the cache."""
     lap = _laplacian(1, 300, seed=1)
-    lg.reset_launch_counts()
     first = lg.band_operator(lap, dtype)
     second = lg.band_operator(lap, dtype)
     assert second.data.untyped_storage().data_ptr() == first.data.untyped_storage().data_ptr()
-    assert lg.PREPARATIONS["band_operator"] == 1
+    assert recorded["prepared.band_operator"] == 1
     other = lg.band_operator(lap.clone(), dtype)
     assert other.data.data_ptr() != first.data.data_ptr()
-    assert lg.PREPARATIONS["band_operator"] == 2
+    assert recorded["prepared.band_operator"] == 2
     lap.mul_(2.0)
     edited = lg.band_operator(lap, dtype)
-    assert lg.PREPARATIONS["band_operator"] == 3
+    assert recorded["prepared.band_operator"] == 3
     assert edited.data.data_ptr() != first.data.data_ptr()
     key = (id(lap), dtype)
     assert key in lg._prepared
@@ -115,25 +115,24 @@ def test_second_request_returns_the_same_storage(dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_inference_tensor_is_cached_by_identity(dtype):
+def test_inference_tensor_is_cached_by_identity(dtype, recorded):
     """An L made under ``torch.inference_mode`` (a served batch) has no
     version counter: it is prepared once and served from the cache by
     identity, inside inference mode and out of it."""
     with torch.inference_mode():
         lap = _laplacian(1, 200, seed=2).clone()
     assert lap.is_inference()
-    lg.reset_launch_counts()
     with torch.inference_mode():
         first = lg.band_operator(lap, dtype)
         again = lg.band_operator(lap, dtype)
     later = lg.band_operator(lap, dtype)
     assert again is first and later is first
-    assert lg.PREPARATIONS["band_operator"] == 1
+    assert recorded["prepared.band_operator"] == 1
 
 
 @pytest.mark.parametrize("source", ["bfloat16", "float32"])
 @pytest.mark.parametrize("s", [256, 300])
-def test_operator_holds_no_reference_to_l(source, s):
+def test_operator_holds_no_reference_to_l(source, s, recorded):
     """A bfloat16 operator must not keep L alive.  At S = 256 a contiguous
     bfloat16 L (rows of 512 bytes) is read as it is: the operator is L,
     nothing is prepared and nothing cached; at S = 300 it is a padded copy,
@@ -141,11 +140,10 @@ def test_operator_holds_no_reference_to_l(source, s):
     lap = _laplacian(1, s, seed=6)
     if source == "bfloat16":
         lap = lap.to(torch.bfloat16)
-    lg.reset_launch_counts()
     op = lg.band_operator(lap, torch.bfloat16)
     as_is = source == "bfloat16" and s == 256
     assert (op.data is lap) == as_is
-    assert lg.PREPARATIONS["band_operator"] == (0 if as_is else 1)
+    assert recorded["prepared.band_operator"] == (0 if as_is else 1)
     key = (id(lap), torch.bfloat16)
     assert (key in lg._prepared) == (not as_is)
     ref = weakref.ref(lap)
@@ -154,19 +152,18 @@ def test_operator_holds_no_reference_to_l(source, s):
     assert ref() is None and key not in lg._prepared
 
 
-def test_bfloat16_casts_of_one_batch_are_prepared_once():
+def test_bfloat16_casts_of_one_batch_are_prepared_once(recorded):
     """The bfloat16 route casts the batch's float32 operators on every
     forward (``dispatch.cast_operators``): the cast of one float32 L is one
     tensor while L lives unedited, so the band operator is prepared once
     over two forwards; an in-place edit of L or of its cast, or inference
     mode, gives another cast; the cast goes with L."""
     lap = _laplacian(1, 300, seed=7)
-    lg.reset_launch_counts()
     first = dispatch._cast(lap, torch.bfloat16)
     second = dispatch._cast(lap, torch.bfloat16)
     assert second is first and torch.equal(_bits(first), _bits(lap.to(torch.bfloat16)))
     assert lg.band_operator(first, torch.bfloat16) is lg.band_operator(second, torch.bfloat16)
-    assert lg.PREPARATIONS["band_operator"] == 1
+    assert recorded["prepared.band_operator"] == 1
     with torch.inference_mode():
         inferred = dispatch._cast(lap, torch.bfloat16)
     assert inferred is not first and inferred.is_inference()

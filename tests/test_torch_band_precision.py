@@ -19,6 +19,7 @@ import torch
 from hl_hgat_tpu_torch.data.brain import brain_pyramid
 from hl_hgat_tpu_torch.nn.conv import laguerre_matvec
 from hl_hgat_tpu_torch.ops import laguerre_dense as lg
+from torch_counters import recording
 
 pytestmark = pytest.mark.gpu
 
@@ -85,9 +86,11 @@ def test_band_route_gradient_keeps_float32_accuracy_at_8997_rows(l1, monkeypatch
     g = _seeded((SUBJECTS, s, F), 3)
     torch.backends.cuda.matmul.allow_tf32 = False
     ref = _float64(l1, x, w, g)
-    launches = lg.BAND_LAUNCHES["laguerre_terms_dense_bwd"]
-    band = _float32(l1, x, w, g)
-    assert lg.BAND_LAUNCHES["laguerre_terms_dense_bwd"] == launches + 1
+    with recording() as rec:
+        band = _float32(l1, x, w, g)
+    # one terms-backward launch, and every launch took the band kernels
+    assert rec["launches.laguerre_terms_dense_bwd"] == 1
+    assert rec["band_launches"] == sum(rec.launches().values())
     _plain(monkeypatch)
     plain = _float32(l1, x, w, g)
     for what, b, p, r in zip(("out", "dW", "dx"), band, plain, ref):

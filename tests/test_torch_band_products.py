@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from hl_hgat_tpu_torch.ops import laguerre_dense as lg
+from torch_counters import recorded  # noqa: F401  (a fixture)
 
 TOL = 1e-6  # of max|ref|: about 21 bits of each operand survive the split
 ONE_PASS_VISIBLE = 1e-4  # one TF32 pass keeps 10 bits: two orders above TOL
@@ -73,34 +74,32 @@ def test_float32_halves_hold_w_bit_for_bit(transposed, c, f):
 
 
 @pytest.mark.parametrize("c,f", [(45, 37), (100, 130)])
-def test_bfloat16_weights_are_w_cast_and_padded(c, f):
+def test_bfloat16_weights_are_w_cast_and_padded(c, f, recorded):
     """bfloat16 reads W itself [K, C', F'] in both products (the output
     product's B by wgmma's transpose bit): W cast, zero past C and F, one
     preparation for both."""
     w = _weights(2, c, f, seed=1)
     cp, fp = _padded(c, f, torch.bfloat16)
-    lg.reset_launch_counts()
     prep = lg.band_weights(w, cp, fp, torch.bfloat16, transposed=True)
     assert prep.shape == (2, cp, fp) and prep.dtype == torch.bfloat16 and (fp * 2) % 16 == 0
     assert torch.equal(_bits(prep[:, :c, :f]), _bits(w.to(torch.bfloat16)))
     assert not prep[:, c:].any() and not prep[:, :, f:].any()
     assert lg.band_weights(w, cp, fp, torch.bfloat16) is prep
-    assert lg.PREPARATIONS["band_weights"] == 1
+    assert recorded["prepared.band_weights"] == 1
 
 
-def test_weights_are_prepared_once_per_version():
+def test_weights_are_prepared_once_per_version(recorded):
     """A second request for the same W returns the same preparation; an
     in-place edit (an optimizer step) prepares anew; a freed W leaves the
     cache."""
     w = _weights(4, 64, 64, seed=2)
-    lg.reset_launch_counts()
     first = lg.band_weights(w, 64, 64, torch.float32, transposed=True)
     assert lg.band_weights(w, 64, 64, torch.float32, transposed=True) is first
     other = lg.band_weights(w, 64, 64, torch.float32)
-    assert other is not first and lg.PREPARATIONS["band_weights"] == 2
+    assert other is not first and recorded["prepared.band_weights"] == 2
     w.mul_(0.5)
     again = lg.band_weights(w, 64, 64, torch.float32, transposed=True)
-    assert again is not first and lg.PREPARATIONS["band_weights"] == 3
+    assert again is not first and recorded["prepared.band_weights"] == 3
     assert torch.equal(_bits(again[0] + again[1]), _bits(w.transpose(1, 2)))
     key = (id(w), (torch.float32, True, 64, 64))
     assert key in lg._weights

@@ -21,6 +21,7 @@ from hl_hgat_tpu_torch.nn.interaction import NodeEdgeInt
 from hl_hgat_tpu_torch.nn.norm import MaskedBatchNorm
 from hl_hgat_tpu_torch.ops import laguerre_dense as lg
 from hl_hgat_tpu_torch.weights import from_flax_variables
+from torch_counters import recorded  # noqa: F401  (a fixture)
 
 F32 = dict(rtol=1e-5, atol=1e-5)  # same f32 arithmetic, summation order only
 BF16_ATOL = 2e-2  # one bf16 ulp of O(1) terms, rounding points identical
@@ -114,16 +115,15 @@ def test_terms_plain_matches_pallas(rng, dtype, k):
     _close(ours, ref, dtype)
 
 
-def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
+def test_cpu_wrappers_run_plain_and_count_no_launch(rng, recorded):
     l, x, w, b = _kernel_inputs(rng)
-    lg.reset_launch_counts()
     args = [torch.from_numpy(a) for a in (l, x, w, b)]
     torch.testing.assert_close(lg.laguerre_dense_fused(*args),
                                lg.laguerre_dense_fused_plain(*args), rtol=0, atol=0)
     torch.testing.assert_close(lg.laguerre_terms_dense(args[0], args[1], 4),
                                lg.laguerre_terms_dense_plain(args[0], args[1], 4), rtol=0, atol=0)
-    assert lg.LAUNCHES == {"laguerre_dense_fused": 0, "laguerre_terms_dense": 0,
-                           "laguerre_dense_fused_bwd": 0, "laguerre_terms_dense_bwd": 0}
+    assert recorded.launches() == {"laguerre_dense_fused": 0, "laguerre_terms_dense": 0,
+                                   "laguerre_dense_fused_bwd": 0, "laguerre_terms_dense_bwd": 0}
 
 
 @pytest.mark.parametrize("route", ["fused", "terms", "plain"])
@@ -146,7 +146,7 @@ def test_laguerre_conv_routes_match_jax(rng, route, k):
 
 
 @pytest.mark.parametrize("route", ["fused", "terms"])
-def test_kernel_routes_at_256_rows_match_jax_default_route(rng, route):
+def test_kernel_routes_at_256_rows_match_jax_default_route(rng, route, recorded):
     """On the CPU both kernel routes take S = 256 blocks (the wrappers' plain
     versions have no block limit; on the card such blocks go to the band
     kernels) and equal the JAX package's default conv route (plain XLA, Pallas
@@ -161,12 +161,11 @@ def test_kernel_routes_at_256_rows_match_jax_default_route(rng, route):
     try:
         conv.use_fused_dense(route == "fused")
         conv.use_terms_kernel(route == "terms")
-        lg.reset_launch_counts()
         ours = conv.laguerre_matvec(*(torch.from_numpy(a) for a in (x, l, w, b)))
     finally:
         conv.use_fused_dense(prev[0])
         conv.use_terms_kernel(prev[1])
-    assert all(n == 0 for n in lg.LAUNCHES.values())  # CPU tensors: no launch
+    assert all(n == 0 for n in recorded.launches().values())  # CPU tensors: no launch
     assert not jconv.use_fused_dense() and not jconv.use_terms_kernel()  # the JAX default
     ref = jlaguerre_matvec(jnp.asarray(x), jnp.asarray(l), jnp.asarray(w), jnp.asarray(b))
     assert ours.shape == (g, s, f)

@@ -29,9 +29,9 @@ from hl_hgat_tpu_torch.data.synthetic import (
 )
 from hl_hgat_tpu_torch.models import presets
 from hl_hgat_tpu_torch.models.backbone import BackboneConfig, HLHGCNNGraph, head_cast
-from hl_hgat_tpu_torch.ops import ell_spmm
 from hl_hgat_tpu_torch.train.trainer import _loss_for
 from hl_hgat_tpu_torch.weights import from_flax_variables, to_flax_paths
+from torch_counters import ELL, recorded  # noqa: F401  (a fixture)
 
 SMALL = dict(channels=(1, 2), filters=(16, 32), k=3, mlp_channels=(16,))
 MODEL_GRAD = dict(rtol=2e-3, atol=1e-5)  # tests/test_reference_parity.py::_check_grads
@@ -106,15 +106,14 @@ def _port(make, v, **kw):
     return model, meta
 
 
-def test_flat_forward_matches_jax(case):
+def test_flat_forward_matches_jax(case, recorded):
     name, _, host, jb, jmodel, make, v = case
     ref = np.asarray(jmodel.apply(v, jb, deterministic=True))
     model, meta = _port(make, v)
     assert meta["task"] == TASKS[name]
-    ell_spmm.reset_launch_counts()
     with torch.inference_mode():
         out = model.eval()(host.to("cpu"))
-    assert ell_spmm.LAUNCHES == {"spmm_ell": 0, "spmm_ell_bwd": 0}  # CPU tensors
+    assert recorded.launches(ELL) == {"spmm_ell": 0, "spmm_ell_bwd": 0}  # CPU tensors
     assert out.dtype == torch.float32 and out.shape == ref.shape
     assert float(np.std(ref)) > 1e-4
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4)

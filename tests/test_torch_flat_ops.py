@@ -27,6 +27,7 @@ from hl_hgat_tpu_torch.data import synthetic
 from hl_hgat_tpu_torch.ops import boundary as B
 from hl_hgat_tpu_torch.ops import dispatch, ell_spmm, spmm
 from hl_hgat_tpu_torch.ops import segment as S
+from torch_counters import ELL, recorded  # noqa: F401  (a fixture)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16_REL = 2e-2
@@ -195,7 +196,7 @@ def test_batch_to_device_and_graph_sizes():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,nnz,feat", [(12, 30, 5), (40, 90, 37), (24, 20, 64), (7, 3, 1)])
-def test_ell_symmetric_forward_dx_dvals_match_pallas(rng, dtype, n, nnz, feat):
+def test_ell_symmetric_forward_dx_dvals_match_pallas(rng, dtype, n, nnz, feat, recorded):
     rows, cols, vals, dense = _symmetric_coo(rng, n, nnz, pad=3)
     ec, ev = build.coo_to_ell(rows, cols, vals, n)
     x = rng.standard_normal((n, feat)).astype(np.float32)
@@ -203,10 +204,9 @@ def test_ell_symmetric_forward_dx_dvals_match_pallas(rng, dtype, n, nnz, feat):
 
     tv = _t(ev, dtype).requires_grad_()
     tx = _t(x, dtype).requires_grad_()
-    ell_spmm.reset_launch_counts()
     out = ell_spmm.spmm_ell_symmetric(_t(ec), tv, tx)
     out.backward(_t(cot, dtype))
-    assert ell_spmm.LAUNCHES == {"spmm_ell": 0, "spmm_ell_bwd": 0}  # CPU: plain version
+    assert recorded.launches(ELL) == {"spmm_ell": 0, "spmm_ell_bwd": 0}  # CPU: plain version
     assert out.dtype == tx.dtype == tx.grad.dtype and tv.grad.dtype == tv.dtype
 
     ref, vjp = jax.vjp(

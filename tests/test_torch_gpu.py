@@ -15,6 +15,7 @@ from hl_hgat_tpu_torch.nn import conv
 from hl_hgat_tpu_torch.ops import ell_spmm
 from hl_hgat_tpu_torch.ops import laguerre_dense as lg
 from hl_hgat_tpu_torch.ops.dispatch import lap_matvec
+from torch_counters import ELL, recorded, recording  # noqa: F401  (a fixture)
 
 pytestmark = pytest.mark.gpu
 
@@ -66,12 +67,11 @@ _WIDE_SHAPES = [
     (3, 128, 64, 64, 6), (2, 128, 100, 72, 3), (5, 13, 7, 130, 1),
     (1, 96, 300, 8, 6), (4, 30, 33, 65, 2),
 ] + _WIDE_SHAPES)
-def test_fused_kernel_matches_plain(cuda, dtype, g, s, c, f, k):
+def test_fused_kernel_matches_plain(cuda, recorded, dtype, g, s, c, f, k):
     l, x, w, b = _inputs(g, s, c, f, k, dtype, cuda)
-    before = lg.LAUNCHES["laguerre_dense_fused"]
     out = lg.laguerre_dense_fused(l, x, w, b)
     torch.cuda.synchronize()
-    assert lg.LAUNCHES["laguerre_dense_fused"] == before + 1
+    assert recorded["launches.laguerre_dense_fused"] == 1
     assert out.dtype == dtype and out.shape == (g, s, f)
     _check(out, lg.laguerre_dense_fused_plain(l, x, w, b), dtype)
     # no atomics, fixed tiling: a second launch gives the same bits
@@ -130,12 +130,11 @@ _TERMS_SHAPES = [
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,s,c,k", _TERMS_SHAPES)
-def test_terms_kernel_matches_plain(cuda, dtype, g, s, c, k):
+def test_terms_kernel_matches_plain(cuda, recorded, dtype, g, s, c, k):
     l, x, _, _ = _inputs(g, s, c, 1, k, dtype, cuda)
-    before = lg.LAUNCHES["laguerre_terms_dense"]
     out = lg.laguerre_terms_dense(l, x, k)
     torch.cuda.synchronize()
-    assert lg.LAUNCHES["laguerre_terms_dense"] == before + 1
+    assert recorded["launches.laguerre_terms_dense"] == 1
     assert out.dtype == dtype and out.shape == (k, g, s, c)
     _check(out, lg.laguerre_terms_dense_plain(l, x, k), dtype)
     # no atomics, fixed tiling: a second launch gives the same bits
@@ -162,15 +161,14 @@ _BWD_SHAPES = [
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,s,c,f,k", _BWD_SHAPES)
-def test_fused_bwd_kernel_matches_plain(cuda, dtype, g, s, c, f, k):
+def test_fused_bwd_kernel_matches_plain(cuda, recorded, dtype, g, s, c, f, k):
     l, x, w, _ = _inputs(g, s, c, f, k, dtype, cuda)
     cot = torch.from_numpy(
         np.random.default_rng(1).standard_normal((g, s, f)).astype(np.float32)
     ).to(cuda).to(dtype)
-    before = lg.LAUNCHES["laguerre_dense_fused_bwd"]
     dx, dw, db = lg.laguerre_dense_fused_bwd(l, x, w, cot)
     torch.cuda.synchronize()
-    assert lg.LAUNCHES["laguerre_dense_fused_bwd"] == before + 1
+    assert recorded["launches.laguerre_dense_fused_bwd"] == 1
     assert dx.dtype == dtype and dx.shape == (g, s, c)
     assert dw.dtype == db.dtype == torch.float32
     assert dw.shape == (k, c, f) and db.shape == (f,)
@@ -185,32 +183,30 @@ def test_fused_bwd_kernel_matches_plain(cuda, dtype, g, s, c, f, k):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,s,c,k", _TERMS_SHAPES)
-def test_terms_bwd_kernel_matches_plain(cuda, dtype, g, s, c, k):
+def test_terms_bwd_kernel_matches_plain(cuda, recorded, dtype, g, s, c, k):
     l, _, _, _ = _inputs(g, s, c, 1, k, dtype, cuda)
     dt = torch.from_numpy(
         np.random.default_rng(2).standard_normal((k, g, s, c)).astype(np.float32)
     ).to(cuda).to(dtype)
-    before = lg.LAUNCHES["laguerre_terms_dense_bwd"]
     dx = lg.laguerre_terms_dense_bwd(l, dt, k)
     torch.cuda.synchronize()
-    assert lg.LAUNCHES["laguerre_terms_dense_bwd"] == before + 1
+    assert recorded["launches.laguerre_terms_dense_bwd"] == 1
     assert dx.dtype == dtype and dx.shape == (g, s, c)
     _check(dx, lg.laguerre_terms_dense_bwd_plain(l, dt, k), dtype)
     assert torch.equal(dx, lg.laguerre_terms_dense_bwd(l, dt, k))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_autograd_reaches_the_backward_kernels(cuda, dtype):
+def test_autograd_reaches_the_backward_kernels(cuda, recorded, dtype):
     """loss.backward() through both public functions launches the backward
     kernels, takes an expanded (non-contiguous) cotangent, and agrees with
     the CPU path (plain forward, plain backward)."""
     l, x, w, b = _inputs(3, 128, 40, 24, 4, dtype, cuda)
     leaves = [t.clone().requires_grad_() for t in (x, w, b)]
     cpu = [t.detach().cpu().requires_grad_() for t in leaves]
-    lg.reset_launch_counts()
     lg.laguerre_dense_fused(l, *leaves).float().sum().backward()
     lg.laguerre_dense_fused(l.cpu(), *cpu).float().sum().backward()
-    assert lg.LAUNCHES["laguerre_dense_fused_bwd"] == 1
+    assert recorded["launches.laguerre_dense_fused_bwd"] == 1
     assert l.grad is None
     for a, r in zip(leaves, cpu):
         assert a.grad.dtype == a.dtype
@@ -218,7 +214,7 @@ def test_autograd_reaches_the_backward_kernels(cuda, dtype):
     xt, xc = x.clone().requires_grad_(), x.detach().cpu().requires_grad_()
     lg.laguerre_terms_dense(l, xt, 4).float().sum().backward()
     lg.laguerre_terms_dense(l.cpu(), xc, 4).float().sum().backward()
-    assert lg.LAUNCHES["laguerre_terms_dense_bwd"] == 1
+    assert recorded["launches.laguerre_terms_dense_bwd"] == 1
     _check(xt.grad.cpu(), xc.grad, dtype)
 
 
@@ -283,7 +279,7 @@ _BAND_SHAPES = [
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,s,c,f,k", _BAND_SHAPES)
-def test_band_kernels_match_plain(cuda, dtype, g, s, c, f, k):
+def test_band_kernels_match_plain(cuda, recorded, dtype, g, s, c, f, k):
     """All four wrappers over 128 rows against their plain versions,
     forward and backward, one launch counted a call; a second call gives
     the same bits (no atomics, fixed slices)."""
@@ -301,10 +297,9 @@ def test_band_kernels_match_plain(cuda, dtype, g, s, c, f, k):
                                      lambda: lg.laguerre_terms_dense_bwd_plain(l, dt, k)),
     }
     for name, (kernel, plain) in calls.items():
-        before = lg.LAUNCHES[name]
         got = kernel()
         torch.cuda.synchronize()
-        assert lg.LAUNCHES[name] == before + 1, name
+        assert recorded[f"launches.{name}"] == 1, name
         got = got if isinstance(got, tuple) else (got,)
         ref = plain()
         ref = ref if isinstance(ref, tuple) else (ref,)
@@ -344,12 +339,12 @@ def test_kernel_routes_take_blocks_over_128_rows(cuda, route, s):
             conv.use_terms_kernel(name == "terms")
             l, x, w, b = _inputs(2, s, 24, 16, 4, torch.float32, cuda)
             x, w, b = (t.clone().requires_grad_() for t in (x, w, b))
-            lg.reset_launch_counts()
-            out = conv.laguerre_matvec(x, l, w, b)
-            out.backward(_normal(out.shape, 7, torch.float32, cuda))
-            torch.cuda.synchronize()
-            launched = sum(lg.LAUNCHES.values())
-            assert launched == (2 if name != "plain" else 0), lg.LAUNCHES
+            with recording() as rec:
+                out = conv.laguerre_matvec(x, l, w, b)
+                out.backward(_normal(out.shape, 7, torch.float32, cuda))
+                torch.cuda.synchronize()
+            launched = sum(rec.launches().values())
+            assert launched == (2 if name != "plain" else 0), rec.launches()
             outs[name] = (out.detach(), x.grad, w.grad, b.grad)
         for a, r in zip(outs[route], outs["plain"]):
             _check(a, r, torch.float32)
@@ -375,14 +370,14 @@ def test_shared_operator_takes_the_folded_terms_kernel(cuda, s, dtype):
             l, _, w, b = _inputs(1, s, 24, 16, 4, dtype, cuda)
             x = _normal((5, s, 24), 3, dtype, cuda)
             x, w, b = (t.clone().requires_grad_() for t in (x, w, b))
-            lg.reset_launch_counts()
-            out = conv.laguerre_matvec(x, l, w, b)
-            out.backward(_normal(out.shape, 7, dtype, cuda))
-            torch.cuda.synchronize()
-            want = {key: 0 for key in lg.LAUNCHES}
+            with recording() as rec:
+                out = conv.laguerre_matvec(x, l, w, b)
+                out.backward(_normal(out.shape, 7, dtype, cuda))
+                torch.cuda.synchronize()
+            want = {key: 0 for key in rec.launches()}
             if name != "plain":
                 want.update(laguerre_terms_dense=1, laguerre_terms_dense_bwd=1)
-            assert lg.LAUNCHES == want, (name, lg.LAUNCHES)
+            assert rec.launches() == want, (name, rec.launches())
             outs[name] = (out.detach(), x.grad, w.grad, b.grad)
         for route in ("fused", "terms"):
             # bfloat16: the output only (autograd through the plain
@@ -434,13 +429,12 @@ def _ell_check(out, ref, dtype):
     (1000, 64, 6), (777, 37, 4), (64, 256, 10), (513, 1, 3), (300, 260, 5),
     (200, 1028, 2), (129, (5, 12), 4), (50, 7, 1),
 ])
-def test_ell_kernel_matches_plain(cuda, dtype, n, feat, deg):
+def test_ell_kernel_matches_plain(cuda, recorded, dtype, n, feat, deg):
     cols, vals, x = _ell_inputs(n, feat, deg, dtype, cuda)
-    before = dict(ell_spmm.LAUNCHES)
     out = ell_spmm.spmm_ell(cols, vals, x)
     torch.cuda.synchronize()
-    assert ell_spmm.LAUNCHES["spmm_ell"] == before["spmm_ell"] + 1
-    assert ell_spmm.LAUNCHES["spmm_ell_bwd"] == before["spmm_ell_bwd"]
+    assert recorded["launches.spmm_ell"] == 1
+    assert recorded["launches.spmm_ell_bwd"] == 0
     assert out.dtype == dtype and out.shape == x.shape
     _ell_check(out, ell_spmm.spmm_ell_plain(cols, vals, x), dtype)
     # fixed slot order, no atomics: a second launch gives the same bits
@@ -485,18 +479,17 @@ def test_ell_padding_slots_multiply_like_any_other(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("feat", [40, 37, (3, 8)])
-def test_ell_autograd_launches_the_kernel_for_dx(cuda, dtype, feat):
+def test_ell_autograd_launches_the_kernel_for_dx(cuda, recorded, dtype, feat):
     cols, vals, x = _ell_inputs(500, feat, 6, dtype, cuda)
     rng = np.random.default_rng(1)
     cot = torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(np.float32)).to(cuda).to(dtype)
     lap = CooMatrix(rows=None, cols=None, vals=None, shape=(500, 500),
                     ell_cols=cols, ell_vals=vals, symmetric=True)
     xk = x.clone().requires_grad_()
-    ell_spmm.reset_launch_counts()
     out = lap_matvec(lap, xk)
     # an expanded (stride-0) cotangent is made contiguous by the wrapper
     out.backward(cot)
-    assert ell_spmm.LAUNCHES == {"spmm_ell": 1, "spmm_ell_bwd": 1}
+    assert recorded.launches(ELL) == {"spmm_ell": 1, "spmm_ell_bwd": 1}
     assert xk.grad.dtype == dtype
     # the operator is symmetric: dx is the plain product on the cotangent
     _ell_check(xk.grad, ell_spmm.spmm_ell_plain(cols, vals, cot), dtype)
@@ -508,21 +501,20 @@ def test_ell_autograd_launches_the_kernel_for_dx(cuda, dtype, feat):
     vk, vp = vals.clone().requires_grad_(), vals.clone().requires_grad_()
     ell_spmm.spmm_ell_symmetric(cols, vk, x).backward(cot)
     ell_spmm.spmm_ell_plain(cols, vp, x).backward(cot)
-    assert ell_spmm.LAUNCHES == {"spmm_ell": 2, "spmm_ell_bwd": 1}
+    assert recorded.launches(ELL) == {"spmm_ell": 2, "spmm_ell_bwd": 1}
     assert bool((vk.grad[vals == 0] == 0).all())
     live = vals != 0
     _ell_check(vk.grad[live], vp.grad[live], dtype)
 
 
-def test_ell_route_switch_and_rejections(cuda):
+def test_ell_route_switch_and_rejections(cuda, recorded):
     cols, vals, x = _ell_inputs(64, 16, 3, torch.float32, cuda)
-    ell_spmm.reset_launch_counts()
     ell_spmm.use_ell_kernel(False)
     try:
         out = ell_spmm.spmm_ell_symmetric(cols, vals, x)
     finally:
         ell_spmm.use_ell_kernel(True)
-    assert ell_spmm.use_ell_kernel() and ell_spmm.LAUNCHES["spmm_ell"] == 0
+    assert ell_spmm.use_ell_kernel() and recorded["launches.spmm_ell"] == 0
     assert torch.equal(out, ell_spmm.spmm_ell_plain(cols, vals, x))
     with pytest.raises(ValueError, match="square"):
         ell_spmm.spmm_ell(cols[:32], vals[:32], x)

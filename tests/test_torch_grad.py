@@ -34,6 +34,7 @@ from hl_hgat_tpu_torch.ops import laguerre_dense as lg
 from hl_hgat_tpu_torch.ops.segment import embed_lookup
 from hl_hgat_tpu_torch.train.losses import l1_loss
 from hl_hgat_tpu_torch.weights import from_flax_variables, to_flax_paths
+from torch_counters import recorded  # noqa: F401  (a fixture)
 
 F32 = dict(rtol=1e-5, atol=1e-5)  # same f32 arithmetic, summation order only
 BF16_REL = 2e-2  # of max|ref|: a few bf16 ulps of the largest entries
@@ -171,13 +172,12 @@ def test_terms_vjp_matches_pallas(dtype, g, s, c, k):
         torch.testing.assert_close(tx.grad, auto, rtol=1e-4, atol=1e-5)
 
 
-def test_cpu_backward_counts_no_launch():
+def test_cpu_backward_counts_no_launch(recorded):
     l, x, w, b, cot = (torch.from_numpy(a) for a in _kernel_inputs(2, 16, 8, 8, 3))
-    lg.reset_launch_counts()
     x.requires_grad_()
     lg.laguerre_dense_fused(l, x, w, b).backward(cot)
     lg.laguerre_terms_dense(l, x, 3).sum().backward()
-    assert lg.LAUNCHES == {
+    assert recorded.launches() == {
         "laguerre_dense_fused": 0, "laguerre_terms_dense": 0,
         "laguerre_dense_fused_bwd": 0, "laguerre_terms_dense_bwd": 0}
 

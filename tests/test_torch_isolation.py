@@ -11,6 +11,8 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 _PROBE = textwrap.dedent("""
@@ -133,3 +135,44 @@ def test_every_cuda_source_is_built_and_ships_alone():
     # an edited shared header changes every library's name, so it is rebuilt
     a = cuda_build.library_path("laguerre_dense").name
     assert a.startswith("liblaguerre_dense-") and a.endswith(".so")
+
+
+def _c_exports(path: pathlib.Path) -> dict:
+    """``{function: (argument ctypes, result ctypes)}`` of the functions
+    defined in the source's ``extern "C" { ... }`` block: a pointer is
+    ``c_void_p`` (a ``const char*`` result ``c_char_p``), else its C
+    integer type."""
+    import ctypes
+
+    scalar = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "size_t": ctypes.c_size_t}
+
+    def c_type(decl: str):
+        decl = " ".join(decl.split())
+        if decl == "const char*":
+            return ctypes.c_char_p
+        return ctypes.c_void_p if decl.endswith("*") else scalar[decl]
+
+    text = path.read_text()
+    block = text[text.index('extern "C" {'):text.index('}  // extern "C"')]
+    block = re.sub(r"//[^\n]*", "", block)
+    exports = {}
+    for ret, name, params in re.findall(r"^(\w[\w ]*\**)\s*(hlhgat_\w+)\(([^)]*)\)\s*\{",
+                                        block, re.M):
+        args = [re.fullmatch(r"(.*?)\s*\w+", p.strip()).group(1) for p in params.split(",")]
+        exports[name] = ([c_type(a) for a in args], c_type(ret))
+    return exports
+
+
+@pytest.mark.parametrize("name", sorted(p.stem for p in (ROOT / "hl_hgat_tpu_torch" / "csrc")
+                                        .glob("*.cu")))
+def test_signature_table_declares_each_c_export(name):
+    """``cuda_build.SIGNATURES`` declares exactly the functions the source
+    exports, each with its argument and result types: a mismatch would
+    crash the process at the first call on the card."""
+    from hl_hgat_tpu_torch import cuda_build
+
+    exports = _c_exports(ROOT / "hl_hgat_tpu_torch" / "csrc" / f"{name}.cu")
+    table = cuda_build.SIGNATURES[name]
+    assert sorted(table) == sorted(exports)
+    for fn, (argtypes, restype) in table.items():
+        assert (list(argtypes), restype) == exports[fn], fn

@@ -19,7 +19,6 @@ from hl_hgat_tpu_torch.data.loader import BucketedLoader
 from hl_hgat_tpu_torch.data.synthetic import zinc_like_samples
 from hl_hgat_tpu_torch.models import presets
 from hl_hgat_tpu_torch.serving import Predictor, RequestPacker
-from hl_hgat_tpu_torch.utils import profiling
 from hl_hgat_tpu_torch.weights import from_flax_variables
 from test_torch_data import same
 
@@ -174,24 +173,17 @@ def test_request_packer_refuses_a_graph_over_the_caps(samples, model):
 
 
 def test_request_arena_bytes_are_counted(samples, model):
-    """A request counts the bytes of the arenas its packer gathers, which
-    leave out the L0/L1 COO arenas where the transfer is derived."""
-    counted = {}
-    try:
-        for transfer in ("derived", "compact"):
-            pred = Predictor(model, batch_size=4, transfer=transfer, device="cpu")
-            profiling.reset()
-            profiling.enable()
-            pred(samples)
-            profiling.disable()
-            counted[transfer] = profiling.snapshot().unit_counters[0]["request_arena_bytes"]
-            flat = pred.loader(samples).flat
-            assert counted[transfer] == flat.nbytes > 0
-            assert (flat.levels[0].l0_rows is None) == (transfer == "derived")
-    finally:
-        profiling.disable()
-        profiling.reset()
-    assert counted["derived"] < counted["compact"]
+    """A request's packer gathers arenas of only what its transfer ships:
+    the derived transfer leaves out the L0/L1 COO arenas, so its arenas
+    hold fewer bytes than the compact transfer's."""
+    nbytes = {}
+    for transfer in ("derived", "compact"):
+        flat = Predictor(model, batch_size=4, transfer=transfer, device="cpu").loader(
+            samples).flat
+        nbytes[transfer] = flat.nbytes
+        assert flat.nbytes > 0
+        assert (flat.levels[0].l0_rows is None) == (transfer == "derived")
+    assert nbytes["derived"] < nbytes["compact"]
 
 
 @pytest.mark.parametrize("transfer", ["dense", "compact", "derived"])
